@@ -1,0 +1,30 @@
+"""parallelnbody_tpu_torch — the PyTorch/CUDA port of parallelnbody_tpu.
+
+A second package beside the JAX package `parallelnbody_tpu`, which stays the
+reference it is tested against. Module and function names follow the JAX
+package so that each counterpart is easy to find. Plain tensor code is
+PyTorch; the TPU's Pallas kernels on the ported path are CUDA C++ kernels
+for Hopper (csrc/, built at first use by kernels/build.py).
+
+Ported so far: the single-device Barnes-Hut main path with dense-octet
+lists (`Simulation(cfg, device="cuda").step(k)`), Plummer ICs, the direct
+sum, the six integrators and the diagnostics. This package never imports
+JAX.
+"""
+
+from parallelnbody_tpu_torch.config import SimConfig
+from parallelnbody_tpu_torch.state import SimState
+from parallelnbody_tpu_torch.api import (Simulation, make_run, make_step,
+                                         prepare_simulation)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "SimConfig",
+    "SimState",
+    "Simulation",
+    "make_step",
+    "make_run",
+    "prepare_simulation",
+    "__version__",
+]

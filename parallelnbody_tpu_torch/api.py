@@ -1,0 +1,394 @@
+"""Simulation API. Counterpart of `parallelnbody_tpu/api.py`.
+
+    init_simulation(cfg)        ICs (+ t=0 forces)
+    prepare_simulation(cfg)     ICs + budget calibration + t=0 forces
+    make_step(cfg)              one integration step: force + integrate
+    make_run(cfg, k)            k steps, with the tree-rebuild interval
+    Simulation(cfg, device)     host shell owning cfg + state
+
+JAX's jit and lax.scan become plain Python loops over torch operations on
+the run's device. On a CUDA device the Barnes-Hut list evaluations run the
+hand-written kernels (ops/bh_kernels.py); nothing falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from parallelnbody_tpu_torch.config import SimConfig
+from parallelnbody_tpu_torch.models import get_ic
+from parallelnbody_tpu_torch.ops import energy as energy_ops
+from parallelnbody_tpu_torch.ops.integrators import get_integrator
+from parallelnbody_tpu_torch.state import SimState, make_state, torch_dtype
+
+
+def _zero_count(device):
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+# --------------------------------------------------------------------- forces
+def make_accel_fn(cfg: SimConfig, mass: torch.Tensor,
+                  overflow_cell: list | None = None) -> Callable:
+    """Return accel_fn(pos) -> (acc, pot) for the configured force method.
+
+    overflow_cell: optional one-element list accumulating the Barnes-Hut
+    list-budget overflow counter of every evaluation. The direct method has
+    no budgets and leaves it unchanged."""
+    method = cfg.resolve_force(mass.device)
+    if method == "direct":
+        from parallelnbody_tpu_torch.ops.direct import direct_accel
+
+        n = mass.shape[0]
+        # Bound memory: stream row tiles (largest power-of-two divisor of N
+        # up to 1024; N <= 2048 runs unblocked).
+        tile = 0
+        if n > 2048:
+            tile = 1
+            for t in (1024, 512, 256, 128, 64, 32, 16, 8, 4, 2):
+                if n % t == 0:
+                    tile = t
+                    break
+        return lambda pos: direct_accel(pos, mass, g=cfg.g,
+                                        softening=cfg.softening, tile=tile)
+    if method == "direct_pallas":
+        raise NotImplementedError(
+            f"force='direct_pallas' (force={cfg.force!r} at n={cfg.n}) needs "
+            "the all-pairs kernel K3, which is not ported yet (ROADMAP "
+            "Queue 1: direct_pallas with K3); set force='direct' or "
+            "'barnes_hut'")
+    if method == "barnes_hut":
+        from parallelnbody_tpu_torch.ops.bh import make_bh_accel
+
+        return make_bh_accel(cfg, mass, overflow_cell=overflow_cell)
+    raise ValueError(f"unknown force method {method!r}")
+
+
+# ----------------------------------------------------------------------- init
+def virialize_state(state: SimState) -> SimState:
+    """Rescale speeds so 2K = -W using state.pot."""
+    ke = 0.5 * torch.sum(state.mass * torch.sum(state.vel * state.vel, dim=-1))
+    w = 0.5 * torch.sum(state.mass * state.pot)
+    scale = torch.sqrt(torch.clamp(-w, min=1e-30)
+                       / torch.clamp(2.0 * ke, min=1e-30))
+    return state._replace(vel=state.vel * scale)
+
+
+def init_simulation(cfg: SimConfig, device="cpu",
+                    compute_forces: bool = True) -> SimState:
+    """Generate ICs on the CPU from cfg.seed, move them to `device`, and
+    (compute_forces=True) evaluate the t=0 forces so leapfrog can start."""
+    gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
+    pos, vel, mass = get_ic(cfg.ic)(gen, cfg)
+    state = make_state(pos, vel, mass, seed=cfg.seed, device=device,
+                       dtype=torch_dtype(cfg.dtype))
+    if not compute_forces:
+        return state
+    return _fill_initial_forces(cfg, state)
+
+
+def _fill_initial_forces(cfg: SimConfig, state: SimState) -> SimState:
+    """t=0 force evaluation (+ virialization) for a fresh state."""
+    accel_cfg = cfg
+    if cfg.virialize and not cfg.track_potential:
+        # virialize_state needs the real potential: with track_potential
+        # off the force paths return pot = 0, so turn it on for this one
+        # evaluation (make_step keeps the run's setting).
+        accel_cfg = cfg.replace(track_potential=True)
+    acc, pot = make_accel_fn(accel_cfg, state.mass)(state.pos)
+    state = state._replace(acc=acc, pot=pot)
+    if cfg.virialize:
+        state = virialize_state(state)
+    return state
+
+
+def calibrate_budgets(cfg: SimConfig, state: SimState,
+                      headroom: float = 1.25) -> SimConfig:
+    """Resolve bh_*_budget = 0 (auto) fields by measuring this state's exact
+    per-target interaction-list requirements (ops/bh.py
+    measure_budget_requirements) and adding `headroom` for evolution.
+    Explicitly-set (nonzero) budgets are kept. Returns cfg with concrete
+    budgets (unchanged for non-Barnes-Hut forces). Dense refinement only;
+    staged refinement is not ported yet and raises."""
+    if cfg.resolve_force(state.pos.device) != "barnes_hut":
+        return cfg
+    from parallelnbody_tpu_torch.ops.bh import measure_budget_requirements
+
+    want_near = cfg.bh_near_budget == 0
+    want_far = cfg.bh_far_budget == 0
+    if cfg.resolve_bh_refine() == "staged":
+        raise NotImplementedError(
+            "budget calibration for bh_refine='staged' is not ported yet "
+            "(ROADMAP Queue 1: staged refinement)")
+    if not (want_near or want_far):
+        return cfg
+    req = measure_budget_requirements(state.pos, state.mass, cfg)
+
+    def pad(x, mult):
+        # Relative headroom AND one full lane of absolute slack, rounded up
+        # to a multiple (the JAX package's rule).
+        target = max(int(x * headroom), int(x) + mult)
+        return max(mult, -(-target // mult) * mult)
+
+    kw = {}
+    if want_near:
+        kw["bh_near_budget"] = min(pad(req["near_max"], 128),
+                                   req["n_leaves"])
+    if want_far:
+        kw["bh_far_budget"] = pad(req["far_max"], 128)
+    return cfg.replace(**kw)
+
+
+def prepare_simulation(cfg: SimConfig, device="cpu"
+                       ) -> tuple[SimConfig, SimState]:
+    """ICs + budget auto-calibration + t=0 forces, in that order. Returns
+    (calibrated cfg, initialized state); make_step/make_run are built from
+    the returned cfg."""
+    state = init_simulation(cfg, device, compute_forces=False)
+    cfg = calibrate_budgets(cfg, state)
+    return cfg, _fill_initial_forces(cfg, state)
+
+
+# ----------------------------------------------------------------------- step
+def make_step(cfg: SimConfig, report_overflow: bool = False) -> Callable:
+    """One integration step: force + integrate.
+
+    report_overflow=True: step(state) -> (state, overflow), overflow the
+    int32 Barnes-Hut budget-clip counter summed over this step's force
+    evaluations (zero for the direct method)."""
+    integrator = get_integrator(cfg.integrator)
+
+    def step(state: SimState):
+        of_cell = [_zero_count(state.pos.device)]
+        accel_fn = make_accel_fn(cfg, state.mass, overflow_cell=of_cell)
+        dt = torch.as_tensor(cfg.dt, dtype=state.pos.dtype,
+                             device=state.pos.device)
+        pos, vel, acc, pot = integrator(
+            accel_fn, state.pos, state.vel, state.acc, state.pot, dt)
+        out = state._replace(pos=pos, vel=vel, acc=acc, pot=pot,
+                             time=state.time + dt, step=state.step + 1)
+        return (out, of_cell[0]) if report_overflow else out
+
+    return step
+
+
+# Plan/eval cost ratio of the JAX package's rebuild-block cost model, kept
+# so both packages pick the same block sizes and tail masks.
+_REUSE_PLAN_RATIO = 0.3
+
+
+def _reuse_block_size(k_max: int, n_steps: int,
+                      plan_ratio: float = _REUSE_PLAN_RATIO) -> int:
+    """Pick the rebuild-block size k <= k_max minimizing total work for a
+    run of n_steps: the tail (n_steps % k) is folded into a full k-step
+    block as dt=0 masked evals, so the evaluation count is
+    ceil(n_steps/k)*k. Cost model: evals + blocks*plan_ratio. Never exceeds
+    k_max, so the rebuild cadence is only ever tightened."""
+    best, best_cost = 1, float("inf")
+    for k in range(1, min(k_max, n_steps) + 1):
+        blocks = -(-n_steps // k)
+        cost = blocks * k + blocks * plan_ratio
+        if cost < best_cost:
+            best, best_cost = k, cost
+    return best
+
+
+def _reuse_eligible(cfg: SimConfig, n_steps: int) -> bool:
+    """bh_rebuild_every > 1 applies to the Barnes-Hut octet path. The JAX
+    package also caps it at a row count that works around a fault of its
+    TPU runtime; the port has no such cap."""
+    if cfg.bh_rebuild_every <= 1 or n_steps <= 1:
+        return False
+    if cfg.resolve_force() != "barnes_hut":
+        return False
+    from parallelnbody_tpu_torch.ops import bh
+
+    leaf = cfg.resolve_bh_leaf_size()
+    _, _, n_levels = bh.plan_tree(cfg.n, leaf, cfg.bh_max_levels)
+    refine, _ = bh.resolve_refine(
+        cfg.resolve_bh_refine(), (cfg.bh_cand2_budget, cfg.bh_cand_budget),
+        n_levels, cfg.resolve_bh_near_budget(), cfg.resolve_bh_far_budget())
+    return bh.resolve_far_mode(cfg.bh_far_mode, refine) == "octet"
+
+
+def _make_run_reuse(cfg: SimConfig, n_steps: int,
+                    report_overflow: bool) -> Callable:
+    """Run with a tree-rebuild interval (cfg.bh_rebuild_every = k): the
+    state is carried in Hilbert-sorted order; each block of k steps pays
+    ONE sort + ONE traversal/list build, then k evaluations that refresh
+    only the multipole pyramid against the frozen lists (ops/bh.py
+    bh_plan_lists/bh_eval_lists). The original particle order is restored
+    at the end through a carried original-index column."""
+    from parallelnbody_tpu_torch.ops import bh
+    from parallelnbody_tpu_torch.ops.hilbert import hilbert_encode
+    from parallelnbody_tpu_torch.ops.morton import morton_encode
+
+    integrator = get_integrator(cfg.integrator)
+    leaf = cfg.resolve_bh_leaf_size()
+    n = cfg.n
+    n_leaves, n_pad, n_levels = bh.plan_tree(n, leaf, cfg.bh_max_levels)
+    refine, cands = bh.resolve_refine(
+        cfg.resolve_bh_refine(), (cfg.bh_cand2_budget, cfg.bh_cand_budget),
+        n_levels, cfg.resolve_bh_near_budget(), cfg.resolve_bh_far_budget())
+    sections = bh.resolve_sections(cfg.bh_sections, n_leaves, refine)
+    encode = hilbert_encode if cfg.bh_curve == "hilbert" else morton_encode
+    k = _reuse_block_size(cfg.bh_rebuild_every, n_steps)
+    n_blocks, tail = divmod(n_steps, k)
+    compute_pot = cfg.track_potential
+
+    def sort_block(pos, vel, acc, mass, orig):
+        """Re-sort every column into current Hilbert order (pad rows,
+        orig >= n, are left out of the domain cube and keyed last)."""
+        live = orig < n
+        lo = torch.amin(torch.where(live[:, None], pos, torch.inf), dim=0)
+        hi = torch.amax(torch.where(live[:, None], pos, -torch.inf), dim=0)
+        center, half, _ = bh.domain_cube(lo, hi)
+        keys = torch.where(live, encode(pos, center, half),
+                           torch.full_like(orig, bh.INT32_MAX))
+        perm = torch.sort(keys, stable=True).indices
+        return pos[perm], vel[perm], acc[perm], mass[perm], orig[perm]
+
+    def block(carry, dt_mask):
+        """One rebuild block: sort, tree, lists, then len(dt_mask) steps.
+        A tail block of t < k live steps masks the rest with dt = 0, an
+        exact no-op for pos/vel/time/step."""
+        pos, vel, acc, mass, orig, time, step, of = carry
+        pos_s, vel_s, acc_s, mass_s, orig_s = sort_block(pos, vel, acc, mass,
+                                                         orig)
+        lo = torch.amin(pos_s[:n], dim=0)
+        hi = torch.amax(pos_s[:n], dim=0)
+        _, _, sentinel = bh.domain_cube(lo, hi)
+        tree = bh.build_tree(pos_s, mass_s, leaf, sentinel,
+                             multipole_order=cfg.bh_multipole,
+                             max_levels=cfg.bh_max_levels)
+        plan = bh.bh_plan_lists(
+            tree, theta=cfg.theta, near_budget=cfg.resolve_bh_near_budget(),
+            far_budget=cfg.resolve_bh_far_budget(), refine=refine,
+            cand_budgets=cands, dtype=pos.dtype, sections=sections)
+
+        def accel_fn(p):
+            return bh.bh_eval_lists(
+                p, mass_s, plan, leaf_size=leaf, g=cfg.g,
+                softening=cfg.softening, multipole=cfg.bh_multipole,
+                max_levels=cfg.bh_max_levels, compute_pot=compute_pot,
+                n_live=n, sections=sections)
+
+        dt = torch.as_tensor(cfg.dt, dtype=pos.dtype, device=pos.device)
+        # pot is a placeholder until the first inner step overwrites it:
+        # every integrator returns pot from its final accel_fn call.
+        ps, vs, as_, pots = pos_s, vel_s, acc_s, torch.zeros_like(mass_s)
+        for m in dt_mask:
+            dt_eff = dt * m
+            ps, vs, as_, pots = integrator(accel_fn, ps, vs, as_, pots,
+                                           dt_eff)
+            time = time + dt_eff
+            step = step + int(m > 0)
+        return (ps, vs, as_, mass_s, orig_s, time, step,
+                of + plan.overflow), pots
+
+    def run(state: SimState):
+        dev = state.pos.device
+        pad = n_pad - n
+        z3 = state.pos.new_zeros((pad, 3))
+        carry = (
+            torch.cat([state.pos, z3], 0),
+            torch.cat([state.vel, z3], 0),
+            torch.cat([state.acc, z3], 0),
+            torch.cat([state.mass, state.mass.new_zeros(pad)], 0),
+            torch.arange(n_pad, dtype=torch.int32, device=dev),
+            state.time, state.step, _zero_count(dev),
+        )
+        masks = [[1.0] * k] * n_blocks
+        if tail:
+            masks.append([1.0] * tail + [0.0] * (k - tail))
+        pot = None
+        for row in masks:
+            carry, pot = block(carry, row)
+        pos, vel, acc, _, orig, time, step, overflow = carry
+        # Exit unsort: orig is a permutation of [0, n_pad), so scattering
+        # each row back to orig restores the caller's particle order.
+        inv = torch.empty_like(orig, dtype=torch.int64)
+        inv[orig.long()] = torch.arange(n_pad, device=dev)
+        inv = inv[:n]
+        out = state._replace(pos=pos[inv], vel=vel[inv], acc=acc[inv],
+                             pot=pot[inv], time=time, step=step)
+        return (out, overflow) if report_overflow else out
+
+    return run
+
+
+def make_run(cfg: SimConfig, n_steps: int,
+             report_overflow: bool = False) -> Callable:
+    """n_steps steps in one call.
+
+    report_overflow=True: run(state) -> (state, overflow), overflow summed
+    over all steps. cfg.bh_rebuild_every > 1 routes eligible Barnes-Hut
+    configurations to the tree-rebuild-interval run (_make_run_reuse)."""
+    if _reuse_eligible(cfg, n_steps):
+        return _make_run_reuse(cfg, n_steps, report_overflow)
+    step = make_step(cfg, report_overflow=True)
+
+    def run(state: SimState):
+        overflow = _zero_count(state.pos.device)
+        for _ in range(n_steps):
+            state, of = step(state)
+            overflow = overflow + of
+        return (state, overflow) if report_overflow else state
+
+    return run
+
+
+# ----------------------------------------------------------------- host shell
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "Simulation(device='cuda') needs a CUDA device, and "
+            "torch.cuda.is_available() is False")
+    return device
+
+
+class Simulation:
+    """Host-side shell: owns cfg + state on one device and drives steps.
+
+    `overflow` accumulates the Barnes-Hut list-budget clip counter over
+    every step taken (a device tensor; 0 means nothing was clipped)."""
+
+    def __init__(self, cfg: SimConfig, device="cuda"):
+        self.device = _resolve_device(device)
+        # prepare_simulation calibrates any auto (0) Barnes-Hut budgets
+        # against the actual ICs before the first force evaluation; the
+        # calibrated cfg is what every step function is built from.
+        self.cfg, self.state = prepare_simulation(cfg, self.device)
+        self._step = make_step(self.cfg, report_overflow=True)
+        self._runs: dict[int, Callable] = {}
+        self.overflow = _zero_count(self.device)
+
+    def step(self, n: int = 1) -> SimState:
+        if n == 1:
+            self.state, of = self._step(self.state)
+        else:
+            if n not in self._runs:
+                self._runs[n] = make_run(self.cfg, n, report_overflow=True)
+            self.state, of = self._runs[n](self.state)
+        self.overflow = self.overflow + of
+        return self.state
+
+    def reset(self, seed: int | None = None) -> SimState:
+        """Fresh ICs (optionally with a new seed) under the current cfg."""
+        if seed is not None:
+            self.cfg = self.cfg.replace(seed=seed)
+        self.state = init_simulation(self.cfg, self.device)
+        return self.state
+
+    def diagnostics(self) -> dict:
+        state = self.state
+        if not self.cfg.track_potential:
+            # Hot steps skipped the potential; recompute it for diagnostics.
+            accel_fn = make_accel_fn(self.cfg.replace(track_potential=True),
+                                     state.mass)
+            _, pot = accel_fn(state.pos)
+            state = state._replace(pot=pot)
+        vals = energy_ops.diagnostics(state)
+        return {k: float(v) for k, v in vals.items()}

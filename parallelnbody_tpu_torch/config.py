@@ -1,0 +1,233 @@
+"""Simulation configuration: the port's own copy of the `SimConfig` schema.
+
+Counterpart of `parallelnbody_tpu/config.py`. The fields, defaults and
+`__post_init__` checks are the same, so every `examples/*.json` loads in
+both packages (tests/test_torch_config.py pins the equality). The port keeps
+its own copy because importing `parallelnbody_tpu.config` runs
+`parallelnbody_tpu/__init__.py`, which imports JAX.
+
+Fields that only steer the JAX package (Pallas tiles, meshes, donation, the
+XLA compile cache, the distributed Barnes-Hut knobs) are kept so that the
+configs stay interchangeable; this package does not read them yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any
+
+FORCE_METHODS = ("direct", "direct_pallas", "barnes_hut", "auto")
+INTEGRATORS = ("leapfrog", "dkd", "euler_semi_implicit", "euler", "yoshida4", "rk4")
+IC_KINDS = (
+    "plummer",
+    "hernquist",
+    "uniform_cube",
+    "uniform_sphere",
+    "cold_sphere",
+    "disk",
+    "galaxy_collision",
+    "reference_slab",
+    "two_body",
+    "king",
+    "nfw",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """Static configuration of one simulation (frozen, hashable)."""
+
+    # --- problem size / physics ---
+    n: int = 4096
+    dt: float = 0.01
+    g: float = 1.0                 # gravitational constant
+    softening: float = 1.0e-2      # Plummer softening length eps
+    theta: float = 0.5             # Barnes-Hut MAC opening angle
+
+    # --- algorithms ---
+    force: str = "auto"            # direct | direct_pallas | barnes_hut | auto
+    integrator: str = "leapfrog"   # see INTEGRATORS
+    dtype: str = "float32"
+    track_potential: bool = True   # False: the hot step skips the potential;
+                                   # diagnostics recompute it on demand
+
+    # --- initial conditions ---
+    ic: str = "plummer"
+    ic_size: float = 1.0           # characteristic length
+    seed: int = 0
+    virialize: bool = False        # rescale IC speeds so 2K = -W at t=0
+
+    # --- Barnes-Hut parameters ---
+    bh_leaf_size: int = 0          # particles per leaf; 0 = auto
+    bh_near_budget: int = 0        # near source leaves per target leaf;
+                                   # 0 = calibrated from the t=0 geometry
+                                   # (api.calibrate_budgets)
+    bh_far_budget: int = 0         # far octet entries per target leaf;
+                                   # 0 = calibrated, as above
+    bh_curve: str = "hilbert"      # hilbert | morton sort order
+    bh_distributed: bool = False   # multi-device Barnes-Hut (not ported)
+    bh_multipole: int = 2          # 1 = monopole, 2 = + traceless quadrupole
+    bh_max_levels: int = 12
+    bh_refine: str = "auto"        # dense | staged | auto (staged not ported)
+    bh_cand_budget: int = 0        # staged refinement budgets (not ported)
+    bh_cand2_budget: int = 0
+    bh_far_mode: str = "auto"      # octet | gather | auto (= octet;
+                                   # gather not ported)
+    bh_sections: int = 0           # target-leaf windows; 0 = auto
+                                   # (sections > 1 not ported)
+    bh_pair_slack: float = 2.0     # distributed Barnes-Hut (not ported)
+    bh_own_slack: float = 0.25
+    bh_comm: str = "ring"
+    bh_rebuild_every: int = 8      # rebuild the tree geometry every k steps
+                                   # inside fused runs (api._make_run_reuse);
+                                   # 1 = rebuild every step
+    bh_import_budget: int = 0      # distributed Barnes-Hut (not ported)
+
+    donate_state: bool = False     # JAX buffer donation; the port updates
+                                   # nothing in place and ignores it
+
+    # --- Pallas kernel tiling (JAX package only) ---
+    tile_i: int = 256
+    tile_j: int = 2048
+
+    # --- parallelism (JAX package only) ---
+    mesh_shape: tuple = ()
+    mesh_axes: tuple = ("ring",)
+
+    # --- run / io ---
+    compile_cache_dir: str = ""    # XLA compile cache (JAX package only)
+    steps: int = 100
+    snapshot_every: int = 0
+    snapshot_dir: str = "snapshots"
+    log_every: int = 10
+    checkpoint_every: int = 0
+    checkpoint_dir: str = "checkpoints"
+
+    def __post_init__(self):
+        if self.force not in FORCE_METHODS:
+            raise ValueError(f"force must be one of {FORCE_METHODS}, got {self.force!r}")
+        if self.integrator not in INTEGRATORS:
+            raise ValueError(
+                f"integrator must be one of {INTEGRATORS}, got {self.integrator!r}"
+            )
+        if self.ic not in IC_KINDS:
+            raise ValueError(f"ic must be one of {IC_KINDS}, got {self.ic!r}")
+        if self.bh_refine not in ("auto", "dense", "staged"):
+            raise ValueError(
+                f"bh_refine must be auto|dense|staged, "
+                f"got {self.bh_refine!r}")
+        if self.bh_far_mode not in ("auto", "octet", "gather"):
+            raise ValueError(
+                f"bh_far_mode must be auto|octet|gather, "
+                f"got {self.bh_far_mode!r}")
+        if self.bh_comm not in ("ring", "let"):
+            raise ValueError(
+                f"bh_comm must be ring|let, got {self.bh_comm!r}")
+        if self.bh_import_budget < 0:
+            raise ValueError(
+                f"bh_import_budget must be >= 0 (0 = auto), "
+                f"got {self.bh_import_budget}")
+        if self.bh_pair_slack <= 0:
+            raise ValueError(
+                f"bh_pair_slack must be > 0 (it scales the distributed "
+                f"exchange capacity), got {self.bh_pair_slack}")
+        if self.bh_own_slack < 0:
+            raise ValueError(
+                f"bh_own_slack must be >= 0, got {self.bh_own_slack}")
+        if self.bh_cand_budget < 0 or self.bh_cand2_budget < 0:
+            raise ValueError(
+                f"bh_cand_budget/bh_cand2_budget must be >= 0 (0 = auto), "
+                f"got {self.bh_cand_budget}/{self.bh_cand2_budget}")
+        if self.bh_rebuild_every < 1:
+            raise ValueError(
+                f"bh_rebuild_every must be >= 1 (1 = rebuild every step), "
+                f"got {self.bh_rebuild_every}")
+        if self.bh_sections < 0:
+            raise ValueError(
+                f"bh_sections must be >= 0 (0 = auto), "
+                f"got {self.bh_sections}")
+        if self.n <= 0:
+            raise ValueError("n must be positive")
+        if self.dt <= 0:
+            raise ValueError(
+                "dt must be positive (the reference pauses on PhDeltaTime <= 0, "
+                "OctreeSearch.cpp:25; pausing is a host-loop concern here)"
+            )
+        # normalize tuples (JSON round-trips lists)
+        object.__setattr__(self, "mesh_shape", tuple(self.mesh_shape))
+        object.__setattr__(self, "mesh_axes", tuple(self.mesh_axes))
+
+    # ------------------------------------------------------------------ utils
+    def replace(self, **kw) -> "SimConfig":
+        return dataclasses.replace(self, **kw)
+
+    # Barnes-Hut / direct-sum crossover N. This is the JAX package's value,
+    # measured on a TPU v5e (parallelnbody_tpu/config.py); it waits for a
+    # measurement on the GPU and is no statement about the port's speed.
+    AUTO_BH_CROSSOVER = 32768
+
+    def resolve_bh_leaf_size(self) -> int:
+        """bh_leaf_size with 0 = auto resolved: 128 up to N = 2^19, 256
+        above (the JAX package's rule, kept so that both packages build the
+        same trees from one config)."""
+        if self.bh_leaf_size:
+            return self.bh_leaf_size
+        return 128 if self.n <= (1 << 19) else 256
+
+    # Static fallbacks for bh_near_budget / bh_far_budget = 0 where no state
+    # is at hand to calibrate against (api.calibrate_budgets is the real
+    # auto). Same values as the JAX package.
+    FALLBACK_NEAR_BUDGET = 3584
+    FALLBACK_FAR_BUDGET = 2816
+
+    def resolve_bh_near_budget(self) -> int:
+        """bh_near_budget with 0 = auto resolved to the static fallback.
+        Entry points that own a state first replace the config through
+        api.calibrate_budgets."""
+        return self.bh_near_budget or self.FALLBACK_NEAR_BUDGET
+
+    def resolve_bh_far_budget(self) -> int:
+        return self.bh_far_budget or self.FALLBACK_FAR_BUDGET
+
+    def resolve_bh_refine(self) -> str:
+        """bh_refine='auto' resolved: the dense leaf plane below 8192 leaves
+        (counted as plan_tree pads them), staged refinement from 8192 up."""
+        if self.bh_refine != "auto":
+            return self.bh_refine
+        from parallelnbody_tpu_torch.ops.bh import plan_tree
+
+        n_leaves, _, _ = plan_tree(self.n, self.resolve_bh_leaf_size())
+        return "staged" if n_leaves >= 8192 else "dense"
+
+    def resolve_force(self, device=None) -> str:
+        """force='auto' resolved for the device the run uses (a
+        torch.device or its name; None means the CPU): Barnes-Hut from
+        AUTO_BH_CROSSOVER up; below it the all-pairs kernel on a CUDA
+        device from N = 512, as the JAX package picks its all-pairs kernel
+        on a TPU, and the plain direct sum elsewhere. The all-pairs kernel
+        is not ported yet, so that choice raises NotImplementedError when
+        the force function is built (api.make_accel_fn)."""
+        if self.force != "auto":
+            return self.force
+        if self.n >= self.AUTO_BH_CROSSOVER:
+            return "barnes_hut"
+        dev_type = getattr(device, "type", str(device).split(":")[0])
+        if dev_type == "cuda" and self.n >= 512:
+            return "direct_pallas"
+        return "direct"
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "SimConfig":
+        data: dict[str, Any] = json.loads(text)
+        return cls(**data)
+
+    @property
+    def n_devices(self) -> int:
+        out = 1
+        for s in self.mesh_shape:
+            out *= s
+        return out

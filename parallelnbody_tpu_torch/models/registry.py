@@ -1,0 +1,28 @@
+"""IC generator registry. Counterpart of `parallelnbody_tpu/models/registry.py`."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+from parallelnbody_tpu_torch.config import IC_KINDS
+
+IC_REGISTRY: dict[str, Callable] = {}
+
+
+def register_ic(name: str):
+    def deco(fn):
+        IC_REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def get_ic(name: str) -> Callable:
+    try:
+        return IC_REGISTRY[name]
+    except KeyError:
+        if name in IC_KINDS:
+            raise NotImplementedError(
+                f"IC {name!r} is not ported yet (ROADMAP: the other ICs); "
+                f"ported: {sorted(IC_REGISTRY)}") from None
+        raise ValueError(f"unknown IC {name!r}; options: {sorted(IC_REGISTRY)}")

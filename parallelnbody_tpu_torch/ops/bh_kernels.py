@@ -1,0 +1,264 @@
+"""The Barnes-Hut list kernels: K1 (near field) and K2 (octet far field).
+
+Counterpart of `parallelnbody_tpu/ops/pallas_bh.py`:
+
+  * `near_field` replaces `_near_table_kernel` (pallas_bh.py:179, called
+    through `near_field_pallas`), source csrc/near_field.cu;
+  * `far_octet` replaces `_far_octet_kernel` (pallas_bh.py:382, called
+    through `far_octet_pallas`), source csrc/far_octet.cu.
+
+Both return the list sums scaled as the JAX package's `_unpack` does:
+acc = g * [sum w dx, sum w dy, sum w dz] and pot = -g * sum m u, with
+u = rsqrt(r^2 + eps^2) and w = m u^3 (plus the traceless quadrupole terms in
+the far field). guard_zero (softening 0) zeroes u where r^2 = 0;
+compute_pot=False returns a zero potential.
+
+Each wrapper dispatches on the device of the tensors it is given: on the CPU
+it runs its plain PyTorch version (`near_field_plain`, `far_octet_plain`,
+ports of `_near_field_jnp`, `_far0_jnp` and `_far_octet_jnp` in the JAX
+ops/bh.py); on a CUDA device it launches its kernel or raises. There is no
+fallback from one to the other. `LAUNCHES` counts kernel launches per
+wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+LAUNCHES = {"near_field": 0, "far_octet": 0}
+
+
+def reset_launch_counts():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# Element budget of one plain-version temporary plane (list entries x G
+# targets x sources): bounds the plain versions' memory at the main path's
+# shapes (~0.4 GB per (.., 3) temporary).
+_PLAIN_BLOCK_ELEMS = 1 << 25
+
+
+# ------------------------------------------------------------ plain versions
+def near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
+                     compute_pot=True):
+    """Exact softened near field (plain torch): targets (L, G, 3) against
+    per-target lists of source leaves idx/valid (L, B) over the sorted
+    particles pos_s (n_pad, 3), mass_s (n_pad,). Returns
+    (acc (L*G, 3), pot (L*G,)).
+
+    The pair terms are those of `_near_field_jnp`. Only the live (target
+    leaf, source leaf) entries are evaluated, in chunks of entries taken
+    row by row in list order, so a row's terms add up in the same order as
+    the JAX scan over list columns; a chunk's sums go to their target rows
+    with index_add_."""
+    n_slice, leaf_size, _ = tgt_leaves.shape
+    n_leaves = pos_s.shape[0] // leaf_size
+    eps2 = float(softening) ** 2
+    guard_zero = softening == 0.0
+    p = pos_s.reshape(n_leaves, leaf_size, 3)
+    m = mass_s.reshape(n_leaves, leaf_size)
+    acc = tgt_leaves.new_zeros((n_slice, leaf_size, 3))
+    pot = tgt_leaves.new_zeros((n_slice, leaf_size))
+    rows, cols = torch.nonzero(valid, as_tuple=True)
+    srcs = idx[rows, cols].long()
+    chunk = max(1, _PLAIN_BLOCK_ELEMS // (leaf_size * leaf_size))
+    for c0 in range(0, rows.shape[0], chunk):
+        r = rows[c0:c0 + chunk]
+        s = srcs[c0:c0 + chunk]
+        d = p[s][:, None, :, :] - tgt_leaves[r][:, :, None, :]  # (P, G, G, 3)
+        r2 = torch.sum(d * d, dim=-1) + eps2
+        u = torch.rsqrt(r2)
+        if guard_zero:
+            u = torch.where(r2 > 0, u, torch.zeros_like(u))
+        mu = m[s][:, None, :] * u
+        w = mu * u * u
+        acc.index_add_(0, r, torch.einsum("pij,pijc->pic", w, d))
+        if compute_pot:
+            pot.index_add_(0, r, -torch.sum(mu, dim=-1))
+    n_out = n_slice * leaf_size
+    return g * acc.reshape(n_out, 3), g * pot.reshape(n_out)
+
+
+def _far_nodes_plain(tgt, npos, nm, nq, eps2, guard_zero, compute_pot):
+    """Node multipoles against target leaves (the math of `_far0_jnp`):
+    tgt (R, G, 3); npos (R, K, 3); nm (R, K) (invalid entries zero mass);
+    nq optional (R, K, 5). Returns unscaled (acc (R, G, 3), pot (R, G))."""
+    d = npos[:, None, :, :] - tgt[:, :, None, :]          # (R, G, K, 3)
+    r2 = torch.sum(d * d, dim=-1) + eps2
+    u = torch.rsqrt(r2)
+    if guard_zero:
+        u = torch.where(r2 > 0, u, torch.zeros_like(u))
+    mu = nm[:, None, :] * u
+    w = mu * u * u
+    acc = torch.einsum("bgk,bgkc->bgc", w, d)
+    pot = -torch.sum(mu, dim=-1)
+    if nq is not None:
+        q = nq[:, None]                                   # (R, 1, K, 5)
+        qzz = -(q[..., 0] + q[..., 1])
+        qd = torch.stack([
+            q[..., 0] * d[..., 0] + q[..., 2] * d[..., 1] + q[..., 3] * d[..., 2],
+            q[..., 2] * d[..., 0] + q[..., 1] * d[..., 1] + q[..., 4] * d[..., 2],
+            q[..., 3] * d[..., 0] + q[..., 4] * d[..., 1] + qzz * d[..., 2],
+        ], dim=-1)
+        qq = torch.sum(qd * d, dim=-1)                    # (R, G, K)
+        u2 = u * u
+        u5 = u2 * u2 * u
+        c1 = 2.5 * qq * u5 * u2
+        acc = acc + torch.einsum("bgk,bgkc->bgc", c1, d) \
+                  - torch.einsum("bgk,bgkc->bgc", u5, qd)
+        pot = pot - torch.sum(0.5 * qq * u5, dim=-1)
+    if not compute_pot:
+        pot = torch.zeros_like(pot)
+    return acc, pot
+
+
+def far_octet_plain(tgt_leaves, nodes8, keys, valid, *, g, softening,
+                    compute_pot=True):
+    """Octet-masked multipole far field (plain torch): targets (L, G, 3)
+    against per-target lists of (octet_id << 8) | child_mask keys over the
+    8-row-aligned node table nodes8 (n8, 4|9). Each key's (8, C) sibling
+    tile is expanded with its child mask and evaluated with the node-list
+    math (`_far_octet_jnp`). Returns (acc (L*G, 3), pot (L*G,))."""
+    n_slice, leaf_size, _ = tgt_leaves.shape
+    n_comp = nodes8.shape[1]
+    with_quad = n_comp >= 9
+    eps2 = float(softening) ** 2
+    guard_zero = softening == 0.0
+    tiles8 = nodes8.reshape(-1, 8, n_comp)
+    bit = torch.arange(8, dtype=torch.int32, device=keys.device)
+    acc = tgt_leaves.new_zeros((n_slice, leaf_size, 3))
+    pot = tgt_leaves.new_zeros((n_slice, leaf_size))
+    counts = torch.sum(valid, dim=1)
+    chunk = max(1, min(64, keys.shape[1]))
+    rows = max(1, _PLAIN_BLOCK_ELEMS // (leaf_size * chunk * 8))
+    for r0 in range(0, n_slice, rows):
+        r1 = min(n_slice, r0 + rows)
+        n_live = int(torch.max(counts[r0:r1], dim=0).values) if r1 > r0 else 0
+        for c0 in range(0, n_live, chunk):
+            kk = keys[r0:r1, c0:c0 + chunk]
+            vv = valid[r0:r1, c0:c0 + chunk]
+            t = tiles8[torch.where(vv, kk >> 8, 0).long()]  # (R, C8, 8, nc)
+            mask = (((kk[..., None] >> bit) & 1) > 0) & vv[..., None]
+            npos = t[..., :3].reshape(r1 - r0, -1, 3)
+            nm = torch.where(mask, t[..., 3], 0.0).reshape(r1 - r0, -1)
+            nq = (torch.where(mask[..., None], t[..., 4:9], 0.0)
+                  .reshape(r1 - r0, -1, 5) if with_quad else None)
+            a, ph = _far_nodes_plain(tgt_leaves[r0:r1], npos, nm, nq, eps2,
+                                     guard_zero, compute_pot)
+            acc[r0:r1] += a
+            pot[r0:r1] += ph
+    n_out = n_slice * leaf_size
+    return g * acc.reshape(n_out, 3), g * pot.reshape(n_out)
+
+
+# ------------------------------------------------------------------ wrappers
+def _on_cpu(*tensors) -> bool:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    (dev,) = devices
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device type {dev.type!r}")
+    return False
+
+
+def _check(name, t, dtype, shape):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: kernel takes contiguous tensors")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _launch(name, fn, *args):
+    from parallelnbody_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"({lib.pnb_error_string(err).decode()})")
+    LAUNCHES[name] += 1
+
+
+def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
+               compute_pot=True):
+    """K1: exact near field of targets (L, G, 3) against their front-packed
+    ascending lists of source leaves idx (L, B) int32 / valid (L, B) bool
+    over the sorted particles pos_s (n_pad, 3), mass_s (n_pad,). Returns
+    (acc (L*G, 3), pot (L*G,)). CPU tensors run `near_field_plain`; CUDA
+    tensors launch the kernel (f32 only)."""
+    if _on_cpu(pos_s, mass_s, tgt_leaves, idx, valid):
+        return near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, g=g,
+                                softening=softening, compute_pot=compute_pot)
+    n_slice, leaf_size, _ = tgt_leaves.shape
+    n_pad = pos_s.shape[0]
+    budget = idx.shape[1]
+    if n_pad % leaf_size or not 0 < leaf_size <= 1024:
+        raise ValueError(f"leaf size {leaf_size} must divide {n_pad} and be "
+                         "at most 1024 (one thread per target)")
+    _check("pos_s", pos_s, torch.float32, (n_pad, 3))
+    _check("mass_s", mass_s, torch.float32, (n_pad,))
+    _check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
+    _check("idx", idx, torch.int32, (n_slice, budget))
+    _check("valid", valid, torch.bool, (n_slice, budget))
+    # Lists are front-packed, so a row's valid count is its live length.
+    counts = torch.sum(valid, dim=1, dtype=torch.int32)
+    acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
+                      device=pos_s.device)
+    pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
+                      device=pos_s.device)
+    _launch("near_field", "pnb_near_field",
+            _ptr(pos_s), _ptr(mass_s), _ptr(tgt_leaves), _ptr(idx),
+            _ptr(counts), _ptr(acc), _ptr(pot), n_slice, leaf_size, budget,
+            float(g), float(softening) ** 2, int(softening == 0.0),
+            int(bool(compute_pot)))
+    return acc, pot
+
+
+def far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,
+              compute_pot=True):
+    """K2: octet-masked multipole far field of targets (L, G, 3) against
+    their front-packed lists of (octet_id << 8) | child_mask keys (L, B)
+    int32 / valid (L, B) bool over the 8-row-aligned node table nodes8
+    (n8, 4|9). Returns (acc (L*G, 3), pot (L*G,)). CPU tensors run
+    `far_octet_plain`; CUDA tensors launch the kernel (f32 only)."""
+    if _on_cpu(tgt_leaves, nodes8, keys, valid):
+        return far_octet_plain(tgt_leaves, nodes8, keys, valid, g=g,
+                               softening=softening, compute_pot=compute_pot)
+    n_slice, leaf_size, _ = tgt_leaves.shape
+    n8, n_comp = nodes8.shape
+    budget = keys.shape[1]
+    if n8 % 8 or n_comp not in (4, 9):
+        raise ValueError(f"nodes8 {tuple(nodes8.shape)}: rows must be a "
+                         "multiple of 8 and columns 4 or 9")
+    if not 0 < leaf_size <= 1024:
+        raise ValueError(f"leaf size {leaf_size} above 1024 (one thread "
+                         "per target)")
+    _check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
+    _check("nodes8", nodes8, torch.float32, (n8, n_comp))
+    _check("keys", keys, torch.int32, (n_slice, budget))
+    _check("valid", valid, torch.bool, (n_slice, budget))
+    counts = torch.sum(valid, dim=1, dtype=torch.int32)
+    acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
+                      device=nodes8.device)
+    pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
+                      device=nodes8.device)
+    _launch("far_octet", "pnb_far_octet",
+            _ptr(nodes8), _ptr(tgt_leaves), _ptr(keys), _ptr(counts),
+            _ptr(acc), _ptr(pot), n_slice, leaf_size, budget, n_comp,
+            float(g), float(softening) ** 2, int(softening == 0.0),
+            int(bool(compute_pot)))
+    return acc, pot

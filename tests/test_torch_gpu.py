@@ -1,0 +1,137 @@
+"""The CUDA kernels K1 (near field) and K2 (octet far field) on the card.
+
+Every test here is marked `gpu` and skips where torch.cuda.is_available()
+is False. The file imports neither JAX nor the JAX package, so it also runs
+on a machine that has the card and no JAX; tests/conftest.py imports JAX,
+so run it there with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+Inputs are the port's own Plummer ICs, trees and dense-octet lists, built
+on the CPU; the plain PyTorch versions of the kernels are the reference.
+Tolerance rtol 2e-4, atol 2e-5 (the bound of tests/test_bh.py for the
+Pallas kernels against their jnp versions): kernel and plain version sum
+the same f32 terms in another order, with another rsqrt.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from parallelnbody_tpu_torch import Simulation, SimConfig
+from parallelnbody_tpu_torch.api import init_simulation
+from parallelnbody_tpu_torch.ops import bh, bh_kernels
+from parallelnbody_tpu_torch.utils.accuracy import rms_force_error_sample
+
+torch.set_num_threads(2)
+
+RTOL, ATOL = 2e-4, 2e-5
+LEAF = 64
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def lists(cuda):
+    """Sorted particles, target leaves and dense-octet lists (quadrupole
+    node table) at N = 8192, leaf 64, on the card."""
+    cfg = SimConfig(n=8192, ic="plummer", seed=3)
+    state = init_simulation(cfg, "cpu", compute_forces=False)
+    pos_s, mass_s, _, tree, _, n_pad = bh._prepare(
+        state.pos, state.mass, leaf_size=LEAF, curve="hilbert",
+        multipole_order=2)
+    n_leaves = n_pad // LEAF
+    far, rej = bh.traverse(tree, 0.6)
+    ni, nv, fk, fv, nodes8, of = bh.build_interaction_lists_octet(
+        tree, far, rej, theta=0.6, start_leaf=0, n_slice=n_leaves,
+        near_budget=n_leaves, far_budget=n_leaves, dtype=torch.float32)
+    assert int(of) == 0
+    out = dict(pos_s=pos_s, mass_s=mass_s,
+               tgt=pos_s.reshape(n_leaves, LEAF, 3), ni=ni, nv=nv, fk=fk,
+               fv=fv, nodes8=nodes8)
+    return {k: v.contiguous().to(cuda) for k, v in out.items()}
+
+
+def _close(got, want):
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("softening", [0.02, 0.0], ids=["soft", "guard0"])
+@pytest.mark.parametrize("compute_pot", [True, False])
+def test_near_field_kernel_matches_plain(lists, softening, compute_pot):
+    L = lists
+    args = (L["pos_s"], L["mass_s"], L["tgt"], L["ni"], L["nv"])
+    kw = dict(g=1.5, softening=softening, compute_pot=compute_pot)
+    before = bh_kernels.LAUNCHES["near_field"]
+    acc, pot = bh_kernels.near_field(*args, **kw)
+    assert bh_kernels.LAUNCHES["near_field"] == before + 1
+    acc_p, pot_p = bh_kernels.near_field_plain(*args, **kw)
+    _close(acc, acc_p)
+    _close(pot, pot_p)
+    assert bool(torch.any(pot != 0)) == compute_pot
+
+
+@pytest.mark.parametrize("softening", [0.02, 0.0], ids=["soft", "guard0"])
+@pytest.mark.parametrize("compute_pot", [True, False])
+@pytest.mark.parametrize("quad", [True, False], ids=["quad", "mono"])
+def test_far_octet_kernel_matches_plain(lists, softening, compute_pot, quad):
+    L = lists
+    nodes8 = L["nodes8"] if quad else L["nodes8"][:, :4].contiguous()
+    args = (L["tgt"], nodes8, L["fk"], L["fv"])
+    kw = dict(g=1.5, softening=softening, compute_pot=compute_pot)
+    before = bh_kernels.LAUNCHES["far_octet"]
+    acc, pot = bh_kernels.far_octet(*args, **kw)
+    assert bh_kernels.LAUNCHES["far_octet"] == before + 1
+    acc_p, pot_p = bh_kernels.far_octet_plain(*args, **kw)
+    _close(acc, acc_p)
+    _close(pot, pot_p)
+    assert bool(torch.any(pot != 0)) == compute_pot
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(lists):
+    L = lists
+    kw = dict(g=1.0, softening=0.02)
+    with pytest.raises(TypeError):  # f64 on the card is refused, not cast
+        bh_kernels.near_field(L["pos_s"].double(), L["mass_s"].double(),
+                              L["tgt"].double(), L["ni"], L["nv"], **kw)
+    with pytest.raises(TypeError):
+        bh_kernels.far_octet(L["tgt"].double(), L["nodes8"].double(),
+                             L["fk"], L["fv"], **kw)
+    with pytest.raises(ValueError):  # non-contiguous lists
+        bh_kernels.near_field(L["pos_s"], L["mass_s"], L["tgt"],
+                              L["ni"].t().contiguous().t(), L["nv"], **kw)
+    with pytest.raises(ValueError):  # tensors on two devices
+        bh_kernels.far_octet(L["tgt"], L["nodes8"].cpu(), L["fk"], L["fv"],
+                             **kw)
+
+
+def test_simulation_runs_the_kernels(cuda):
+    """Simulation on the card: the per-step path and a rebuild-interval
+    run both launch K1 and K2, clip nothing, and stay in the accuracy
+    class of the reference (sampled rms against the direct sum < 2e-3)."""
+    cfg = SimConfig(n=32768, ic="plummer", force="barnes_hut", theta=0.72,
+                    bh_leaf_size=64, dt=1e-3, track_potential=False)
+    bh_kernels.reset_launch_counts()
+    sim = Simulation(cfg, device="cuda")
+    sim.step(1)
+    sim.step(8)
+    torch.cuda.synchronize()
+    assert bh_kernels.LAUNCHES["near_field"] > 0
+    assert bh_kernels.LAUNCHES["far_octet"] > 0
+    assert int(sim.overflow) == 0
+    s = sim.state
+    assert int(s.step) == 9
+    for t in (s.pos, s.vel, s.acc):
+        assert bool(torch.isfinite(t).all())
+    rms = rms_force_error_sample(s.pos, s.mass, s.acc, g=cfg.g,
+                                 softening=cfg.softening, k=2048)
+    assert rms < 2e-3
