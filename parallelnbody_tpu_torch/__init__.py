@@ -6,9 +6,10 @@ package so that each counterpart is easy to find. Plain tensor code is
 PyTorch; the TPU's Pallas kernels on the ported path are CUDA C++ kernels
 for Hopper (csrc/, built at first use by kernels/build.py).
 
-Ported so far: the single-device Barnes-Hut main path with dense-octet
-lists (`Simulation(cfg, device="cuda").step(k)`), Plummer ICs, the direct
-sum, the six integrators and the diagnostics. This package never imports
+Ported so far: the single-device Barnes-Hut path with dense refinement and
+either far field (octet or gather), the all-pairs path
+(force="direct_pallas"), both through `Simulation(cfg, device="cuda")`,
+Plummer ICs, the plain direct sum, the six integrators and the diagnostics. This package never imports
 JAX.
 """
 

@@ -7,8 +7,9 @@
     Simulation(cfg, device)     host shell owning cfg + state
 
 JAX's jit and lax.scan become plain Python loops over torch operations on
-the run's device. On a CUDA device the Barnes-Hut list evaluations run the
-hand-written kernels (ops/bh_kernels.py); nothing falls back to the CPU.
+the run's device. On a CUDA device the force evaluations run the
+hand-written kernels (ops/bh_kernels.py for Barnes-Hut, ops/direct_kernels.py
+for force="direct_pallas"); nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -53,11 +54,10 @@ def make_accel_fn(cfg: SimConfig, mass: torch.Tensor,
         return lambda pos: direct_accel(pos, mass, g=cfg.g,
                                         softening=cfg.softening, tile=tile)
     if method == "direct_pallas":
-        raise NotImplementedError(
-            f"force='direct_pallas' (force={cfg.force!r} at n={cfg.n}) needs "
-            "the all-pairs kernel K3, which is not ported yet (ROADMAP "
-            "Queue 1: direct_pallas with K3); set force='direct' or "
-            "'barnes_hut'")
+        from parallelnbody_tpu_torch.ops.direct_kernels import \
+            make_allpairs_accel
+
+        return make_allpairs_accel(cfg, mass)
     if method == "barnes_hut":
         from parallelnbody_tpu_torch.ops.bh import make_bh_accel
 
@@ -195,7 +195,8 @@ def _reuse_block_size(k_max: int, n_steps: int,
 
 
 def _reuse_eligible(cfg: SimConfig, n_steps: int) -> bool:
-    """bh_rebuild_every > 1 applies to the Barnes-Hut octet path. The JAX
+    """bh_rebuild_every > 1 applies to the Barnes-Hut octet path; gather
+    rebuilds every step, as in the JAX package. The JAX
     package also caps it at a row count that works around a fault of its
     TPU runtime; the port has no such cap."""
     if cfg.bh_rebuild_every <= 1 or n_steps <= 1:

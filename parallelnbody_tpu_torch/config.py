@@ -72,8 +72,7 @@ class SimConfig:
     bh_refine: str = "auto"        # dense | staged | auto (staged not ported)
     bh_cand_budget: int = 0        # staged refinement budgets (not ported)
     bh_cand2_budget: int = 0
-    bh_far_mode: str = "auto"      # octet | gather | auto (= octet;
-                                   # gather not ported)
+    bh_far_mode: str = "auto"      # octet | gather | auto (= octet)
     bh_sections: int = 0           # target-leaf windows; 0 = auto
                                    # (sections > 1 not ported)
     bh_pair_slack: float = 2.0     # distributed Barnes-Hut (not ported)
@@ -204,10 +203,9 @@ class SimConfig:
         """force='auto' resolved for the device the run uses (a
         torch.device or its name; None means the CPU): Barnes-Hut from
         AUTO_BH_CROSSOVER up; below it the all-pairs kernel on a CUDA
-        device from N = 512, as the JAX package picks its all-pairs kernel
-        on a TPU, and the plain direct sum elsewhere. The all-pairs kernel
-        is not ported yet, so that choice raises NotImplementedError when
-        the force function is built (api.make_accel_fn)."""
+        device from N = 512 (kernel K3, ops/direct_kernels.py), as the JAX
+        package picks its all-pairs kernel on a TPU, and the plain direct
+        sum elsewhere."""
         if self.force != "auto":
             return self.force
         if self.n >= self.AUTO_BH_CROSSOVER:

@@ -14,8 +14,8 @@
 //     u = rsqrt(r^2 + eps^2), monopole: acc += g m u^3 d, pot -= g m u
 //     quadrupole (Qzz = -Qxx - Qyy, qd = Q d, qq = d.Q.d):
 //         acc += g (2.5 qq u^7 d - u^5 qd),  pot -= g 0.5 qq u^5
-// with d = x_node - x_i: the formula of pallas_bh.py:438-455. Children whose
-// bit is clear contribute nothing.
+// with d = x_node - x_i: the formula of pallas_bh.py:438-455 (terms.cuh).
+// Children whose bit is clear contribute nothing.
 //
 // Design. One block per target leaf, one thread per target particle
 // (blockDim = G), sums in registers. The block walks its key list in chunks
@@ -34,6 +34,8 @@
 // double-buffered staging are later work.
 
 #include <cuda_runtime.h>
+
+#include "terms.cuh"
 
 namespace {
 
@@ -58,7 +60,7 @@ __global__ void far_octet_kernel(const float* __restrict__ nodes8,
   const float xi = tgt[row * 3 + 0];
   const float yi = tgt[row * 3 + 1];
   const float zi = tgt[row * 3 + 2];
-  float ax = 0.f, ay = 0.f, az = 0.f, sp = 0.f;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
 
   const int n = cnt[t];
   const int* list = keys + (long long)t * budget;
@@ -79,42 +81,15 @@ __global__ void far_octet_kernel(const float* __restrict__ nodes8,
 #pragma unroll
       for (int b = 0; b < 8; ++b) {
         if (!((mask >> b) & 1)) continue;  // uniform across the block
-        const float* nd = oct + b * C;
-        const float dx = nd[0] - xi;
-        const float dy = nd[1] - yi;
-        const float dz = nd[2] - zi;
-        const float r2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, eps2)));
-        float u = rsqrtf(r2);
-        if (GUARD_ZERO) u = r2 > 0.f ? u : 0.f;
-        const float mu = nd[3] * u;
-        const float u2 = u * u;
-        const float w = mu * u2;
-        ax = fmaf(w, dx, ax);
-        ay = fmaf(w, dy, ay);
-        az = fmaf(w, dz, az);
-        if (COMPUTE_POT) sp += mu;
-        if (QUAD) {
-          const float qxx = nd[4], qyy = nd[5], qxy = nd[6];
-          const float qxz = nd[7], qyz = nd[8];
-          const float qzz = -(qxx + qyy);
-          const float qdx = fmaf(qxx, dx, fmaf(qxy, dy, qxz * dz));
-          const float qdy = fmaf(qxy, dx, fmaf(qyy, dy, qyz * dz));
-          const float qdz = fmaf(qxz, dx, fmaf(qyz, dy, qzz * dz));
-          const float qq = fmaf(qdx, dx, fmaf(qdy, dy, qdz * dz));
-          const float u5 = u2 * u2 * u;
-          const float c1 = (2.5f * qq) * (u5 * u2);
-          ax += fmaf(c1, dx, -u5 * qdx);
-          ay += fmaf(c1, dy, -u5 * qdy);
-          az += fmaf(c1, dz, -u5 * qdz);
-          if (COMPUTE_POT) sp = fmaf(0.5f * qq, u5, sp);
-        }
+        pnb::node_term<QUAD, GUARD_ZERO, COMPUTE_POT>(oct + b * C, xi, yi, zi,
+                                                      eps2, sum);
       }
     }
   }
-  acc[row * 3 + 0] = g * ax;
-  acc[row * 3 + 1] = g * ay;
-  acc[row * 3 + 2] = g * az;
-  pot[row] = COMPUTE_POT ? -g * sp : 0.f;
+  acc[row * 3 + 0] = g * sum.x;
+  acc[row * 3 + 1] = g * sum.y;
+  acc[row * 3 + 2] = g * sum.z;
+  pot[row] = COMPUTE_POT ? -g * sum.w : 0.f;
 }
 
 template <bool QUAD, bool GUARD_ZERO>

@@ -10,7 +10,7 @@
 // leaves (front-packed, so cnt[t] is the live length). For every target i
 // and every particle j of every listed source leaf:
 //     u = rsqrt(|x_j - x_i|^2 + eps^2),  w = m_j u^3
-//     acc_i += g * w (x_j - x_i),  pot_i -= g * m_j u
+//     acc_i += g * w (x_j - x_i),  pot_i -= g * m_j u   (terms.cuh)
 // With softening 0 (GUARD_ZERO) u is zeroed where r^2 = 0, which skips
 // exact overlaps and the self pair; with softening > 0 the self pair adds
 // m_i / eps to the potential, as the JAX package does.
@@ -33,6 +33,8 @@
 
 #include <cuda_runtime.h>
 
+#include "terms.cuh"
+
 namespace {
 
 template <bool GUARD_ZERO, bool COMPUTE_POT>
@@ -52,7 +54,7 @@ __global__ void near_field_kernel(const float* __restrict__ pos,
   const float xi = tgt[row * 3 + 0];
   const float yi = tgt[row * 3 + 1];
   const float zi = tgt[row * 3 + 2];
-  float ax = 0.f, ay = 0.f, az = 0.f, sp = 0.f;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
 
   const int n = cnt[t];
   const int* list = idx + (long long)t * budget;
@@ -65,24 +67,14 @@ __global__ void near_field_kernel(const float* __restrict__ pos,
 #pragma unroll 8
     for (int j = 0; j < leaf_size; ++j) {
       const float4 p = src[j];
-      const float dx = p.x - xi;
-      const float dy = p.y - yi;
-      const float dz = p.z - zi;
-      const float r2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, eps2)));
-      float u = rsqrtf(r2);
-      if (GUARD_ZERO) u = r2 > 0.f ? u : 0.f;
-      const float mu = p.w * u;
-      const float w = mu * u * u;
-      ax = fmaf(w, dx, ax);
-      ay = fmaf(w, dy, ay);
-      az = fmaf(w, dz, az);
-      if (COMPUTE_POT) sp += mu;
+      pnb::monopole_term<GUARD_ZERO, COMPUTE_POT>(
+          p.x - xi, p.y - yi, p.z - zi, p.w, eps2, sum);
     }
   }
-  acc[row * 3 + 0] = g * ax;
-  acc[row * 3 + 1] = g * ay;
-  acc[row * 3 + 2] = g * az;
-  pot[row] = COMPUTE_POT ? -g * sp : 0.f;
+  acc[row * 3 + 0] = g * sum.x;
+  acc[row * 3 + 1] = g * sum.y;
+  acc[row * 3 + 2] = g * sum.z;
+  pot[row] = COMPUTE_POT ? -g * sum.w : 0.f;
 }
 
 template <bool GUARD_ZERO, bool COMPUTE_POT>

@@ -1,8 +1,8 @@
 """Barnes-Hut gravity: Hilbert sort + multipole pyramid + level-synchronous
 masked traversal + per-target interaction lists, in torch.
 
-Counterpart of `parallelnbody_tpu/ops/bh.py`, ported for the dense-octet
-main path (the auto below 8192 leaves):
+Counterpart of `parallelnbody_tpu/ops/bh.py`, ported for dense refinement
+(the auto below 8192 leaves) with either far field:
 
   1. Hilbert-sort particles (ops/hilbert.py; Morton optional); the sorted
      order is the octree linearization.
@@ -11,16 +11,18 @@ main path (the auto below 8192 leaves):
   3. Level-synchronous traversal with dense boolean masks over the upper
      levels; the group MAC accepts a node or expands its children.
   4. The dense (n_slice, n_leaves) leaf plane splits candidate leaves into
-     exact near pairs and far multipoles; far entries are octet keys
-     (octet_id << 8) | child_mask over the 8-aligned node table.
-  5. Both lists go to the hand-written kernels (ops/bh_kernels.py): K1 the
-     near field, K2 the octet far field. List budget overflow is reported,
-     never silently dropped.
+     exact near pairs and far multipoles. far_mode="octet" (the auto) keys
+     every far node as (octet_id << 8) | child_mask over the 8-aligned node
+     table; far_mode="gather" keeps two lists of node rows, the accepted
+     upper nodes and the accepted leaves.
+  5. The lists go to the hand-written kernels (ops/bh_kernels.py): K1 the
+     near field, K2 the octet far field, K4 the gather far lists. List
+     budget overflow is reported, never silently dropped.
 
 Integer outputs (keys, sort order, masks, lists, overflow) equal the JAX
 package's on the same inputs; `INT32_MAX` stays the empty-entry sentinel.
-Staged refinement, the gathered far field (`bh_far_mode="gather"`) and
-sections > 1 are not ported yet and raise NotImplementedError (ROADMAP).
+Staged refinement and sections > 1 are not ported yet and raise
+NotImplementedError (ROADMAP).
 
 The acceptance criterion is the conservative group MAC
     MAC_SIZE_SCALE * r_node < theta * (d - r_leaf)
@@ -270,6 +272,22 @@ def _dense_leaf_masks(tree: BHTree, rejects_l1, theta, start_leaf, n_slice):
     return cand_valid & ~mac0, cand_valid & mac0
 
 
+def leaf_interactions(tree: BHTree, rejects_l1, theta: float, *,
+                      start_leaf, n_slice, near_budget: int,
+                      far0_budget: int):
+    """Refine rejected level-1 nodes to leaf granularity for the target-leaf
+    slice [start_leaf, start_leaf + n_slice) through the dense leaf plane:
+    front-packed lists of exact near leaves and of accepted leaf monopoles
+    (far0). Returns (near_idx, near_valid, far0_idx, far0_valid,
+    overflow)."""
+    near_mask, far_mask = _dense_leaf_masks(tree, rejects_l1, theta,
+                                            start_leaf, n_slice)
+    cols = _iota(n_slice, tree.com[0].shape[0], near_mask.device)
+    near_idx, near_valid, of_n = _row_compact(near_mask, cols, near_budget)
+    far0_idx, far0_valid, of_f = _row_compact(far_mask, cols, far0_budget)
+    return near_idx, near_valid, far0_idx, far0_valid, of_n + of_f
+
+
 # ------------------------------------------------ octet-masked far lists
 # Every far-accepted node, at any level, lies in an aligned 8-sibling octet
 # of its level's node table (levels are padded to multiples of 8 rows). A
@@ -374,6 +392,44 @@ def _eval_far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,
                                 softening=softening, compute_pot=compute_pot)
 
 
+# ------------------------------------------------------ gather far lists
+def build_interaction_lists(tree, far_masks, rejects_l1, *, theta, start_leaf,
+                            n_slice, near_budget, far0_budget, dtype):
+    """Dense-refinement lists in gather form for one target window: the near
+    list, the far0 list of accepted leaves over the leaf node table, and
+    the list of accepted upper nodes (levels >= 1) over their stacked node
+    table. The upper acceptance mask is narrow, so it is compacted at full
+    width and cannot clip; far0_budget counts leaf entries.
+
+    Returns (near_idx, near_valid, far0_idx, far0_valid, up_idx, up_valid,
+    nodes_up, leaf_nodes, overflow)."""
+    near_idx, near_valid, far0_idx, far0_valid, overflow = leaf_interactions(
+        tree, rejects_l1, theta, start_leaf=start_leaf, n_slice=n_slice,
+        near_budget=near_budget, far0_budget=far0_budget)
+    nodes_up = torch.cat(
+        [_node_table(tree, k, dtype) for k in range(1, tree.n_levels)], dim=0)
+    up_mask = torch.cat([far_masks[k] for k in range(1, tree.n_levels)],
+                        dim=1)
+    cols_up = _iota(*up_mask.shape, up_mask.device)
+    up_idx, up_valid, _ = _row_compact(up_mask, cols_up, nodes_up.shape[0])
+    return (near_idx, near_valid, far0_idx, far0_valid, up_idx, up_valid,
+            nodes_up, _node_table(tree, 0, dtype), overflow)
+
+
+def eval_far_lists(tgt_leaves, nodes_up, up_idx, up_valid, leaf_nodes,
+                   far0_idx, far0_valid, *, g, softening, compute_pot=True):
+    """Both gather far classes for one target window, each a front-packed
+    list of node rows evaluated by K4 (the JAX package's `_eval_far_list`),
+    summed in the JAX package's order: the upper nodes, then the accepted
+    leaves."""
+    kw = dict(g=g, softening=softening, compute_pot=compute_pot)
+    acc, pot = bh_kernels.far_gather(tgt_leaves, nodes_up, up_idx, up_valid,
+                                     **kw)
+    a, ph = bh_kernels.far_gather(tgt_leaves, leaf_nodes, far0_idx,
+                                  far0_valid, **kw)
+    return acc + a, pot + ph
+
+
 # ------------------------------------------------------------------- assembly
 def _prepare(pos, mass, *, leaf_size, curve, multipole_order=1, max_levels=12):
     """Pad, curve-sort, and build the multipole pyramid. Returns
@@ -405,15 +461,13 @@ def _prepare(pos, mass, *, leaf_size, curve, multipole_order=1, max_levels=12):
 
 
 def _require_ported(refine, far_mode, sections):
-    """Raise for the configurations outside the ported slice."""
+    """Raise for the configurations outside the ported slice: dense
+    refinement with either far mode and one section is ported."""
     if refine == "staged":
         raise NotImplementedError(
-            "bh_refine='staged' (auto from 8192 leaves) is not ported yet "
-            "(ROADMAP Queue 1: staged refinement)")
-    if far_mode != "octet":
-        raise NotImplementedError(
-            f"bh_far_mode={far_mode!r} is not ported yet (ROADMAP Queue 1: "
-            "gather far field with kernel K4)")
+            f"bh_refine='staged' (auto from 8192 leaves; here with "
+            f"bh_far_mode={far_mode!r}) is not ported yet (ROADMAP Queue 1: "
+            "staged refinement)")
     if sections != 1:
         raise NotImplementedError(
             f"bh_sections={sections} is not ported yet (ROADMAP Queue 1: "
@@ -425,20 +479,32 @@ def _forces_sorted(pos_s, mass_s, tree, far_masks, rejects, *, start_leaf,
                    far0_budget, compute_pot=True, refine="dense",
                    far_mode="octet"):
     """Far+near forces for target leaves [start_leaf, start_leaf + n_slice),
-    in sorted order: the dense-octet branch (lists from the dense leaf
-    plane, far field by K2, near field by K1). Returns
+    in sorted order, from the dense leaf plane: far_mode="octet" evaluates
+    one octet-key far list by K2, far_mode="gather" the upper and leaf
+    far lists of node rows by K4 (far0_budget then counts leaf entries);
+    the near list goes to K1 either way. Returns
     (acc (n_slice*G, 3), pot (n_slice*G,), overflow)."""
     _require_ported(refine, far_mode, 1)
     n_leaves = pos_s.shape[0] // leaf_size
     p_leaves = pos_s.reshape(n_leaves, leaf_size, 3)
     tgt_leaves = p_leaves[start_leaf:start_leaf + n_slice]
-    (near_idx, near_valid, far_keys, far_valid, nodes8,
-     overflow) = build_interaction_lists_octet(
-        tree, far_masks, rejects, theta=theta, start_leaf=start_leaf,
-        n_slice=n_slice, near_budget=near_budget, far_budget=far0_budget,
-        dtype=pos_s.dtype)
-    acc, pot = _eval_far_octet(tgt_leaves, nodes8, far_keys, far_valid, g=g,
-                               softening=softening, compute_pot=compute_pot)
+    kw = dict(theta=theta, start_leaf=start_leaf, n_slice=n_slice,
+              near_budget=near_budget, dtype=pos_s.dtype)
+    if far_mode == "octet":
+        (near_idx, near_valid, far_keys, far_valid, nodes8,
+         overflow) = build_interaction_lists_octet(
+            tree, far_masks, rejects, far_budget=far0_budget, **kw)
+        acc, pot = _eval_far_octet(tgt_leaves, nodes8, far_keys, far_valid,
+                                   g=g, softening=softening,
+                                   compute_pot=compute_pot)
+    else:
+        (near_idx, near_valid, far0_idx, far0_valid, up_idx, up_valid,
+         nodes_up, leaf_nodes, overflow) = build_interaction_lists(
+            tree, far_masks, rejects, far0_budget=far0_budget, **kw)
+        acc, pot = eval_far_lists(tgt_leaves, nodes_up, up_idx, up_valid,
+                                  leaf_nodes, far0_idx, far0_valid, g=g,
+                                  softening=softening,
+                                  compute_pot=compute_pot)
     a, ph = bh_kernels.near_field(pos_s, mass_s, tgt_leaves, near_idx,
                                   near_valid, g=g, softening=softening,
                                   compute_pot=compute_pot)
@@ -597,7 +663,8 @@ def measure_budget_requirements(pos, mass, cfg) -> dict:
 
     Returns {"near_max", "far_max", "cand2_max", "cand1_max", "refine",
     "far_mode", "sections", "n_leaves", "leaf_size"}; far_max counts octet
-    entries. Dense refinement only (staged is not ported yet)."""
+    entries for the octet far mode and leaf entries for gather. Dense
+    refinement only (staged is not ported yet)."""
     leaf_size = cfg.resolve_bh_leaf_size()
     theta = cfg.theta
     n = pos.shape[0]
@@ -614,17 +681,22 @@ def measure_budget_requirements(pos, mass, cfg) -> dict:
     _, _, _, tree, _, _ = _prepare(
         pos, mass, leaf_size=leaf_size, curve=cfg.bh_curve,
         multipole_order=cfg.bh_multipole, max_levels=cfg.bh_max_levels)
-    offs8, _ = _octet_offsets([c.shape[0] for c in tree.com])
     far_masks, rejects_l1 = traverse(tree, theta)
     near_mask, far_mask = _dense_leaf_masks(tree, rejects_l1, theta, 0,
                                             n_leaves)
     near_req = torch.sum(near_mask, dim=1)
-    upk = _octet_upper_keys(far_masks, offs8, tree.n_levels, lo_level=1)
-    upk = torch.where((tree.mass[0] > 0)[:, None], upk,
-                      torch.full_like(upk, INT32_MAX))
-    far_req = (torch.sum(_octet_keys_dense(far_mask, offs8[0]) != INT32_MAX,
-                         dim=1)
-               + torch.sum(upk != INT32_MAX, dim=1))
+    if far_mode == "octet":
+        offs8, _ = _octet_offsets([c.shape[0] for c in tree.com])
+        upk = _octet_upper_keys(far_masks, offs8, tree.n_levels, lo_level=1)
+        upk = torch.where((tree.mass[0] > 0)[:, None], upk,
+                          torch.full_like(upk, INT32_MAX))
+        far_req = (torch.sum(_octet_keys_dense(far_mask, offs8[0])
+                             != INT32_MAX, dim=1)
+                   + torch.sum(upk != INT32_MAX, dim=1))
+    else:
+        # Gather: only the leaf (far0) list is budgeted; the upper list
+        # compacts at full width and cannot clip.
+        far_req = torch.sum(far_mask, dim=1)
     return out | {"near_max": int(torch.max(near_req)),
                   "far_max": int(torch.max(far_req))}
 

@@ -1,13 +1,17 @@
-"""The Barnes-Hut list kernels: K1 (near field) and K2 (octet far field).
+"""The Barnes-Hut list kernels: K1 (near field), K2 (octet far field) and
+K4 (far field over lists of node rows).
 
 Counterpart of `parallelnbody_tpu/ops/pallas_bh.py`:
 
   * `near_field` replaces `_near_table_kernel` (pallas_bh.py:179, called
     through `near_field_pallas`), source csrc/near_field.cu;
   * `far_octet` replaces `_far_octet_kernel` (pallas_bh.py:382, called
-    through `far_octet_pallas`), source csrc/far_octet.cu.
+    through `far_octet_pallas`), source csrc/far_octet.cu;
+  * `far_gather` replaces `_gathered_kernel` (pallas_bh.py:41, called
+    through `_gathered_call`, `_far_eval` and `far_field_pallas`), source
+    csrc/far_gather.cu.
 
-Both return the list sums scaled as the JAX package's `_unpack` does:
+All three return the list sums scaled as the JAX package's `_unpack` does:
 acc = g * [sum w dx, sum w dy, sum w dz] and pot = -g * sum m u, with
 u = rsqrt(r^2 + eps^2) and w = m u^3 (plus the traceless quadrupole terms in
 the far field). guard_zero (softening 0) zeroes u where r^2 = 0;
@@ -15,7 +19,8 @@ compute_pot=False returns a zero potential.
 
 Each wrapper dispatches on the device of the tensors it is given: on the CPU
 it runs its plain PyTorch version (`near_field_plain`, `far_octet_plain`,
-ports of `_near_field_jnp`, `_far0_jnp` and `_far_octet_jnp` in the JAX
+`far_gather_plain`, ports of `_near_field_jnp`, `_far0_jnp`,
+`_far_octet_jnp` and the jnp branch of `_eval_far_list` in the JAX
 ops/bh.py); on a CUDA device it launches its kernel or raises. There is no
 fallback from one to the other. `LAUNCHES` counts kernel launches per
 wrapper.
@@ -23,11 +28,11 @@ wrapper.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-LAUNCHES = {"near_field": 0, "far_octet": 0}
+from parallelnbody_tpu_torch.kernels.launch import check, launch, on_cpu, ptr
+
+LAUNCHES = {"near_field": 0, "far_octet": 0, "far_gather": 0}
 
 
 def reset_launch_counts():
@@ -154,45 +159,42 @@ def far_octet_plain(tgt_leaves, nodes8, keys, valid, *, g, softening,
     return g * acc.reshape(n_out, 3), g * pot.reshape(n_out)
 
 
+def far_gather_plain(tgt_leaves, table, idx, valid, *, g, softening,
+                     compute_pot=True):
+    """Multipole far field over per-target lists of node rows (plain
+    torch): targets (L, G, 3) against idx (L, B) int32 rows of table
+    (n_nodes, 4|9) with the node-list math (`_far_nodes_plain`). Entries
+    whose valid (L, B) bit is False contribute nothing, so front-packed and
+    scattered lists both work (the jnp branch of the JAX package's
+    `_eval_far_list`). Row blocks walk columns up to their last valid entry.
+    Returns (acc (L*G, 3), pot (L*G,))."""
+    n_slice, leaf_size, _ = tgt_leaves.shape
+    with_quad = table.shape[1] >= 9
+    eps2 = float(softening) ** 2
+    guard_zero = softening == 0.0
+    acc = tgt_leaves.new_zeros((n_slice, leaf_size, 3))
+    pot = tgt_leaves.new_zeros((n_slice, leaf_size))
+    chunk = max(1, min(512, idx.shape[1]))
+    rows = max(1, _PLAIN_BLOCK_ELEMS // (leaf_size * chunk))
+    for r0 in range(0, n_slice, rows):
+        r1 = min(n_slice, r0 + rows)
+        live_cols = torch.nonzero(torch.any(valid[r0:r1], dim=0))
+        n_cols = int(live_cols[-1]) + 1 if live_cols.numel() else 0
+        for c0 in range(0, n_cols, chunk):
+            vv = valid[r0:r1, c0:c0 + chunk]
+            t = table[torch.where(vv, idx[r0:r1, c0:c0 + chunk], 0).long()]
+            nm = torch.where(vv, t[..., 3], 0.0)
+            nq = (torch.where(vv[..., None], t[..., 4:9], 0.0)
+                  if with_quad else None)
+            a, ph = _far_nodes_plain(tgt_leaves[r0:r1], t[..., :3], nm, nq,
+                                     eps2, guard_zero, compute_pot)
+            acc[r0:r1] += a
+            pot[r0:r1] += ph
+    n_out = n_slice * leaf_size
+    return g * acc.reshape(n_out, 3), g * pot.reshape(n_out)
+
+
 # ------------------------------------------------------------------ wrappers
-def _on_cpu(*tensors) -> bool:
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
-    (dev,) = devices
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device type {dev.type!r}")
-    return False
-
-
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: kernel takes contiguous tensors")
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _launch(name, fn, *args):
-    from parallelnbody_tpu_torch.kernels.build import load_library
-
-    lib = load_library()
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    err = getattr(lib, fn)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
-                           f"({lib.pnb_error_string(err).decode()})")
-    LAUNCHES[name] += 1
-
-
 def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
                compute_pot=True):
     """K1: exact near field of targets (L, G, 3) against their front-packed
@@ -200,7 +202,7 @@ def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
     over the sorted particles pos_s (n_pad, 3), mass_s (n_pad,). Returns
     (acc (L*G, 3), pot (L*G,)). CPU tensors run `near_field_plain`; CUDA
     tensors launch the kernel (f32 only)."""
-    if _on_cpu(pos_s, mass_s, tgt_leaves, idx, valid):
+    if on_cpu(pos_s, mass_s, tgt_leaves, idx, valid):
         return near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, g=g,
                                 softening=softening, compute_pot=compute_pot)
     n_slice, leaf_size, _ = tgt_leaves.shape
@@ -209,22 +211,22 @@ def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
     if n_pad % leaf_size or not 0 < leaf_size <= 1024:
         raise ValueError(f"leaf size {leaf_size} must divide {n_pad} and be "
                          "at most 1024 (one thread per target)")
-    _check("pos_s", pos_s, torch.float32, (n_pad, 3))
-    _check("mass_s", mass_s, torch.float32, (n_pad,))
-    _check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
-    _check("idx", idx, torch.int32, (n_slice, budget))
-    _check("valid", valid, torch.bool, (n_slice, budget))
+    check("pos_s", pos_s, torch.float32, (n_pad, 3))
+    check("mass_s", mass_s, torch.float32, (n_pad,))
+    check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
+    check("idx", idx, torch.int32, (n_slice, budget))
+    check("valid", valid, torch.bool, (n_slice, budget))
     # Lists are front-packed, so a row's valid count is its live length.
     counts = torch.sum(valid, dim=1, dtype=torch.int32)
     acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
                       device=pos_s.device)
     pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
                       device=pos_s.device)
-    _launch("near_field", "pnb_near_field",
-            _ptr(pos_s), _ptr(mass_s), _ptr(tgt_leaves), _ptr(idx),
-            _ptr(counts), _ptr(acc), _ptr(pot), n_slice, leaf_size, budget,
-            float(g), float(softening) ** 2, int(softening == 0.0),
-            int(bool(compute_pot)))
+    launch(LAUNCHES, "near_field", "pnb_near_field",
+           ptr(pos_s), ptr(mass_s), ptr(tgt_leaves), ptr(idx),
+           ptr(counts), ptr(acc), ptr(pot), n_slice, leaf_size, budget,
+           float(g), float(softening) ** 2, int(softening == 0.0),
+           int(bool(compute_pot)))
     return acc, pot
 
 
@@ -235,7 +237,7 @@ def far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,
     int32 / valid (L, B) bool over the 8-row-aligned node table nodes8
     (n8, 4|9). Returns (acc (L*G, 3), pot (L*G,)). CPU tensors run
     `far_octet_plain`; CUDA tensors launch the kernel (f32 only)."""
-    if _on_cpu(tgt_leaves, nodes8, keys, valid):
+    if on_cpu(tgt_leaves, nodes8, keys, valid):
         return far_octet_plain(tgt_leaves, nodes8, keys, valid, g=g,
                                softening=softening, compute_pot=compute_pot)
     n_slice, leaf_size, _ = tgt_leaves.shape
@@ -247,18 +249,56 @@ def far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,
     if not 0 < leaf_size <= 1024:
         raise ValueError(f"leaf size {leaf_size} above 1024 (one thread "
                          "per target)")
-    _check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
-    _check("nodes8", nodes8, torch.float32, (n8, n_comp))
-    _check("keys", keys, torch.int32, (n_slice, budget))
-    _check("valid", valid, torch.bool, (n_slice, budget))
+    check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
+    check("nodes8", nodes8, torch.float32, (n8, n_comp))
+    check("keys", keys, torch.int32, (n_slice, budget))
+    check("valid", valid, torch.bool, (n_slice, budget))
     counts = torch.sum(valid, dim=1, dtype=torch.int32)
     acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
                       device=nodes8.device)
     pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
                       device=nodes8.device)
-    _launch("far_octet", "pnb_far_octet",
-            _ptr(nodes8), _ptr(tgt_leaves), _ptr(keys), _ptr(counts),
-            _ptr(acc), _ptr(pot), n_slice, leaf_size, budget, n_comp,
-            float(g), float(softening) ** 2, int(softening == 0.0),
-            int(bool(compute_pot)))
+    launch(LAUNCHES, "far_octet", "pnb_far_octet",
+           ptr(nodes8), ptr(tgt_leaves), ptr(keys), ptr(counts),
+           ptr(acc), ptr(pot), n_slice, leaf_size, budget, n_comp,
+           float(g), float(softening) ** 2, int(softening == 0.0),
+           int(bool(compute_pot)))
+    return acc, pot
+
+
+def far_gather(tgt_leaves, table, idx, valid, *, g, softening,
+               compute_pot=True, front_packed=True):
+    """K4: multipole far field of targets (L, G, 3) against their lists of
+    node rows idx (L, B) int32 / valid (L, B) bool over table
+    (n_nodes, 4|9). front_packed=True: each row's valid entries come first
+    and the kernel walks only those; front_packed=False: `valid` is a
+    scattered mask and every entry is walked and masked. Returns
+    (acc (L*G, 3), pot (L*G,)). CPU tensors run `far_gather_plain`; CUDA
+    tensors launch the kernel (f32 only)."""
+    if on_cpu(tgt_leaves, table, idx, valid):
+        return far_gather_plain(tgt_leaves, table, idx, valid, g=g,
+                                softening=softening, compute_pot=compute_pot)
+    n_slice, leaf_size, _ = tgt_leaves.shape
+    n_nodes, n_comp = table.shape
+    budget = idx.shape[1]
+    if n_comp not in (4, 9):
+        raise ValueError(f"table {tuple(table.shape)}: columns must be 4 "
+                         "or 9")
+    if not 0 < leaf_size <= 1024:
+        raise ValueError(f"leaf size {leaf_size} above 1024 (one thread "
+                         "per target)")
+    check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
+    check("table", table, torch.float32, (n_nodes, n_comp))
+    check("idx", idx, torch.int32, (n_slice, budget))
+    check("valid", valid, torch.bool, (n_slice, budget))
+    counts = torch.sum(valid, dim=1, dtype=torch.int32)
+    acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
+                      device=table.device)
+    pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
+                      device=table.device)
+    launch(LAUNCHES, "far_gather", "pnb_far_gather",
+           ptr(table), ptr(tgt_leaves), ptr(idx), ptr(valid), ptr(counts),
+           ptr(acc), ptr(pot), n_slice, leaf_size, budget, n_comp,
+           float(g), float(softening) ** 2, int(softening == 0.0),
+           int(bool(compute_pot)), int(not front_packed))
     return acc, pot

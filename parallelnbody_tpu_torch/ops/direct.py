@@ -1,6 +1,6 @@
 """Direct-sum O(N^2) gravity in plain torch. Counterpart of
-`parallelnbody_tpu/ops/direct.py` (the jnp direct sum; the JAX package's
-all-pairs Pallas kernel is not ported yet).
+`parallelnbody_tpu/ops/direct.py` (the jnp direct sum; the all-pairs kernel
+K3 of force="direct_pallas" is ops/direct_kernels.py).
 
   * softening > 0: a_i = G * sum_j m_j (x_j - x_i) / (|x_j - x_i|^2 + eps^2)^{3/2};
     the i == j term vanishes (numerator zero, denominator > 0).

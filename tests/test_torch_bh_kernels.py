@@ -122,4 +122,7 @@ def test_cpu_wrappers_launch_nothing(lists):
                           _t(L["ni"]), _t(L["nv"]), g=1.0, softening=0.02)
     bh_kernels.far_octet(_t(L["tgt"]), _t(L["nodes8"]), _t(L["fk"]),
                          _t(L["fv"]), g=1.0, softening=0.02)
-    assert bh_kernels.LAUNCHES == {"near_field": 0, "far_octet": 0}
+    bh_kernels.far_gather(_t(L["tgt"]), _t(L["nodes8"]), _t(L["ni"]),
+                          _t(L["nv"]), g=1.0, softening=0.02)
+    assert bh_kernels.LAUNCHES == {"near_field": 0, "far_octet": 0,
+                                   "far_gather": 0}

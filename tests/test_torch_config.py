@@ -61,15 +61,16 @@ def test_example_loads_in_both(path):
     # the Pallas all-pairs kernel: both resolve alike.
     assert tc.resolve_force() == jc.resolve_force("cpu")
     # On the accelerator both pick their all-pairs kernel below the
-    # crossover (the port's raises until it is ported).
+    # crossover (K3 in the port, the Pallas kernel in the JAX package).
     assert tc.resolve_force("cuda") == jc.resolve_force("tpu")
     assert TorchConfig.from_json(tc.to_json()) == tc
 
 
 def test_import_leaves_jax_out():
     code = ("import sys, parallelnbody_tpu_torch, parallelnbody_tpu_torch.api,"
-            " parallelnbody_tpu_torch.ops.bh, parallelnbody_tpu_torch.kernels"
-            ".build; bad = [m for m in sys.modules if m == 'jax' or "
+            " parallelnbody_tpu_torch.ops.bh, parallelnbody_tpu_torch.ops"
+            ".direct_kernels, parallelnbody_tpu_torch.kernels.build; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'parallelnbody_tpu' or "
             "m.startswith('parallelnbody_tpu.')]; print(bad); "
             "sys.exit(1 if bad else 0)")

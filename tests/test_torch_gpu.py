@@ -1,4 +1,5 @@
-"""The CUDA kernels K1 (near field) and K2 (octet far field) on the card.
+"""The CUDA kernels K1 (near field), K2 (octet far field), K3 (all-pairs)
+and K4 (gather far field) on the card.
 
 Every test here is marked `gpu` and skips where torch.cuda.is_available()
 is False. The file imports neither JAX nor the JAX package, so it also runs
@@ -7,8 +8,9 @@ so run it there with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-Inputs are the port's own Plummer ICs, trees and dense-octet lists, built
-on the CPU; the plain PyTorch versions of the kernels are the reference.
+Inputs are the port's own Plummer ICs, trees and dense lists (octet and
+gather), built on the CPU; the plain PyTorch versions of the kernels are
+the reference.
 Tolerance rtol 2e-4, atol 2e-5 (the bound of tests/test_bh.py for the
 Pallas kernels against their jnp versions): kernel and plain version sum
 the same f32 terms in another order, with another rsqrt.
@@ -20,7 +22,7 @@ import torch
 
 from parallelnbody_tpu_torch import Simulation, SimConfig
 from parallelnbody_tpu_torch.api import init_simulation
-from parallelnbody_tpu_torch.ops import bh, bh_kernels
+from parallelnbody_tpu_torch.ops import bh, bh_kernels, direct_kernels
 from parallelnbody_tpu_torch.utils.accuracy import rms_force_error_sample
 
 torch.set_num_threads(2)
@@ -56,6 +58,27 @@ def lists(cuda):
     out = dict(pos_s=pos_s, mass_s=mass_s,
                tgt=pos_s.reshape(n_leaves, LEAF, 3), ni=ni, nv=nv, fk=fk,
                fv=fv, nodes8=nodes8)
+    return {k: v.contiguous().to(cuda) for k, v in out.items()}
+
+
+@pytest.fixture(scope="module")
+def gather_lists(cuda):
+    """Gather lists (quadrupole node tables) at N = 8192, leaf 16 (512
+    leaves), theta 0.72, where both far classes hold entries, on the card."""
+    cfg = SimConfig(n=8192, ic="plummer", seed=3)
+    state = init_simulation(cfg, "cpu", compute_forces=False)
+    pos_s, _, _, tree, _, n_pad = bh._prepare(
+        state.pos, state.mass, leaf_size=16, curve="hilbert",
+        multipole_order=2)
+    n_leaves = n_pad // 16
+    far, rej = bh.traverse(tree, 0.72)
+    _, _, f0i, f0v, upi, upv, nodes_up, leaf_nodes, of = \
+        bh.build_interaction_lists(tree, far, rej, theta=0.72, start_leaf=0,
+                                   n_slice=n_leaves, near_budget=n_leaves,
+                                   far0_budget=n_leaves, dtype=torch.float32)
+    assert int(of) == 0 and bool(upv.any()) and bool(f0v.any())
+    out = dict(tgt=pos_s.reshape(n_leaves, 16, 3), f0i=f0i, f0v=f0v,
+               upi=upi, upv=upv, nodes_up=nodes_up, leaf_nodes=leaf_nodes)
     return {k: v.contiguous().to(cuda) for k, v in out.items()}
 
 
@@ -97,8 +120,65 @@ def test_far_octet_kernel_matches_plain(lists, softening, compute_pot, quad):
     assert bool(torch.any(pot != 0)) == compute_pot
 
 
-def test_wrappers_refuse_what_the_kernels_do_not_take(lists):
-    L = lists
+@pytest.mark.parametrize("softening", [0.02, 0.0], ids=["soft", "guard0"])
+@pytest.mark.parametrize("compute_pot", [True, False])
+@pytest.mark.parametrize("n_i,n_j", [(8192, 8192), (1000, 1000), (333, 700)],
+                         ids=["square", "odd", "rect"])
+def test_allpairs_kernel_matches_plain(lists, softening, compute_pot, n_i,
+                                       n_j):
+    """K3 at tile multiples, at an odd N (bounds checks in place of
+    padding) and with targets != sources."""
+    pos, mass = lists["pos_s"], lists["mass_s"]
+    args = (pos[:n_i].contiguous(), pos[-n_j:].contiguous(),
+            mass[-n_j:].contiguous())
+    kw = dict(softening=softening, compute_pot=compute_pot)
+    before = direct_kernels.LAUNCHES["allpairs"]
+    out = direct_kernels.allpairs(*args, **kw)
+    assert direct_kernels.LAUNCHES["allpairs"] == before + 1
+    _close(out, direct_kernels.allpairs_plain(*args, **kw))
+    assert bool(torch.any(out[:, 3] != 0)) == compute_pot
+
+
+@pytest.mark.parametrize("softening", [0.02, 0.0], ids=["soft", "guard0"])
+@pytest.mark.parametrize("compute_pot", [True, False])
+@pytest.mark.parametrize("quad", [True, False], ids=["quad", "mono"])
+@pytest.mark.parametrize("cls", ["upper", "leaf"])
+def test_far_gather_kernel_matches_plain(gather_lists, softening, compute_pot,
+                                         quad, cls):
+    L = gather_lists
+    table, idx, valid = ((L["nodes_up"], L["upi"], L["upv"]) if cls == "upper"
+                         else (L["leaf_nodes"], L["f0i"], L["f0v"]))
+    table = table if quad else table[:, :4].contiguous()
+    args = (L["tgt"], table, idx, valid)
+    kw = dict(g=1.5, softening=softening, compute_pot=compute_pot)
+    before = bh_kernels.LAUNCHES["far_gather"]
+    acc, pot = bh_kernels.far_gather(*args, **kw)
+    assert bh_kernels.LAUNCHES["far_gather"] == before + 1
+    acc_p, pot_p = bh_kernels.far_gather_plain(*args, **kw)
+    _close(acc, acc_p)
+    _close(pot, pot_p)
+    assert bool(torch.any(pot != 0)) == compute_pot
+
+
+def test_far_gather_kernel_scattered_mask(gather_lists):
+    """front_packed=False: a random third of the leaf table's rows per
+    target, unpacked; the kernel walks and masks every entry."""
+    L = gather_lists
+    n_leaves = L["tgt"].shape[0]
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    valid = (torch.rand((n_leaves, n_leaves), generator=gen) < 1 / 3).cuda()
+    idx = torch.arange(n_leaves, dtype=torch.int32, device="cuda")
+    idx = idx[None].expand(n_leaves, n_leaves).contiguous()
+    args = (L["tgt"], L["leaf_nodes"], idx, valid)
+    kw = dict(g=1.0, softening=0.02)
+    acc, pot = bh_kernels.far_gather(*args, front_packed=False, **kw)
+    acc_p, pot_p = bh_kernels.far_gather_plain(*args, **kw)
+    _close(acc, acc_p)
+    _close(pot, pot_p)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(lists, gather_lists):
+    L, G = lists, gather_lists
     kw = dict(g=1.0, softening=0.02)
     with pytest.raises(TypeError):  # f64 on the card is refused, not cast
         bh_kernels.near_field(L["pos_s"].double(), L["mass_s"].double(),
@@ -112,6 +192,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(lists):
     with pytest.raises(ValueError):  # tensors on two devices
         bh_kernels.far_octet(L["tgt"], L["nodes8"].cpu(), L["fk"], L["fv"],
                              **kw)
+    with pytest.raises(TypeError):
+        direct_kernels.allpairs(L["pos_s"].double(), L["pos_s"].double(),
+                                L["mass_s"].double(), softening=0.02)
+    with pytest.raises(TypeError):
+        bh_kernels.far_gather(G["tgt"], G["leaf_nodes"].double(), G["f0i"],
+                              G["f0v"], **kw)
+    with pytest.raises(ValueError):  # non-contiguous sources
+        direct_kernels.allpairs(L["pos_s"], L["pos_s"][::2], L["mass_s"][::2],
+                                softening=0.02)
 
 
 def test_simulation_runs_the_kernels(cuda):
@@ -135,3 +224,31 @@ def test_simulation_runs_the_kernels(cuda):
     rms = rms_force_error_sample(s.pos, s.mass, s.acc, g=cfg.g,
                                  softening=cfg.softening, k=2048)
     assert rms < 2e-3
+
+
+@pytest.mark.parametrize("change", [{"force": "direct_pallas"},
+                                    {"bh_far_mode": "gather"}],
+                         ids=["direct_pallas", "gather"])
+def test_simulation_runs_the_new_paths(cuda, change):
+    """force="direct_pallas" launches K3 only; bh_far_mode="gather" launches
+    K4 and K1, clips nothing and stays in the reference's accuracy class."""
+    cfg = SimConfig(**{**dict(n=32768, ic="plummer", force="barnes_hut",
+                              theta=0.72, bh_leaf_size=64, dt=1e-3,
+                              track_potential=False), **change})
+    bh_kernels.reset_launch_counts()
+    direct_kernels.reset_launch_counts()
+    sim = Simulation(cfg, device="cuda")
+    sim.step(1)
+    sim.step(4)
+    torch.cuda.synchronize()
+    launched = {**bh_kernels.LAUNCHES, **direct_kernels.LAUNCHES}
+    want = ({"allpairs"} if "force" in change
+            else {"near_field", "far_gather"})
+    assert {k for k, v in launched.items() if v > 0} == want
+    assert int(sim.overflow) == 0
+    s = sim.state
+    assert int(s.step) == 5
+    assert bool(torch.isfinite(s.acc).all())
+    rms = rms_force_error_sample(s.pos, s.mass, s.acc, g=cfg.g,
+                                 softening=cfg.softening, k=2048)
+    assert rms < (1e-4 if "force" in change else 2e-3)

@@ -168,7 +168,8 @@ def test_simulation_on_cpu_with_port_ics():
     assert int(s.step) == 10 and int(sim.overflow) == 0
     for t in (s.pos, s.vel, s.acc):
         assert bool(torch.isfinite(t).all())
-    assert bh_kernels.LAUNCHES == {"near_field": 0, "far_octet": 0}
+    assert bh_kernels.LAUNCHES == {"near_field": 0, "far_octet": 0,
+                                   "far_gather": 0}
     assert t_rms(s.pos, s.mass, s.acc, g=1.0, softening=0.01) < 2e-3
     d = sim.diagnostics()
     assert d["step"] == 10 and d["potential"] < 0 < d["kinetic"]
@@ -182,8 +183,8 @@ def test_simulation_cuda_raises_without_cuda():
 
 
 @pytest.mark.parametrize("change", [
-    {"bh_refine": "staged"}, {"bh_far_mode": "gather"},
-    {"force": "direct_pallas"}, {"ic": "hernquist"},
+    {"bh_refine": "staged"}, {"bh_far_mode": "gather", "bh_refine": "staged"},
+    {"force": "direct_pallas", "ic": "disk"}, {"ic": "hernquist"},
 ], ids=lambda d: next(iter(d)))
 def test_unported_paths_raise(change):
     """Paths outside the slice raise NotImplementedError naming the
@@ -195,7 +196,7 @@ def test_unported_paths_raise(change):
 
 
 @pytest.mark.parametrize("refine,far_mode,sections", [
-    ("staged", "octet", 1), ("dense", "gather", 1), ("dense", "octet", 2)])
+    ("staged", "octet", 1), ("staged", "gather", 1), ("dense", "octet", 2)])
 def test_unported_list_configurations_raise(refine, far_mode, sections):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbh._require_ported(refine, far_mode, sections)
