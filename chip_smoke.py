@@ -7,19 +7,24 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each of which exits non-zero on failure:
 
-  1. Environment: torch, CUDA and nvcc versions and the card's name and
-     power limit. Exits with an error when torch.cuda.is_available() is
-     False.
-  2. Build: compiles the hand-written CUDA kernels from csrc/ (sm_90a).
+  1. Environment: torch, CUDA and nvcc versions, the card's name, power
+     limit and SM clocks. Exits with an error when
+     torch.cuda.is_available() is False.
+  2. Build: compiles the hand-written CUDA kernels from csrc/ (sm_90a),
+     and counts the instructions a pair of each kernel's inner loop on the
+     main path (tools/sass.py, cuobjdump).
   3. Kernel parity, each kernel against its plain PyTorch version on the
      card within rtol 2e-4 / atol 2e-5, and its time beside the plain
      version's at the main path's shapes:
        K1 (near field) and K2 (octet far field) at the lists of the N = 1M
        operating point (examples/barneshut_1m_reuse.json) and in full at
-       N = 65536, for both potential settings;
+       N = 65536, for both potential settings; K1 also, timed, on the lists
+       of the state after 8 steps of the octet path, and, timed, in full at
+       N = 262144 with the auto leaf size 128 (both potential settings);
        K3 (all-pairs) in full at N = 262144 (examples/allpairs_262k.json)
        and at N = 65536, on 4096 sampled targets with the potential, and
        at an odd N = 1000;
+       K1 and K3 launched twice on the same inputs give the same bits;
        K4 (gather far field) at the N = 1M gather lists (upper and leaf
        list), in full at N = 65536, and on a scattered (front_packed=False)
        list.
@@ -38,9 +43,20 @@ overflow must be 0, every output finite, and the sampled rms force error
 against the direct sum below the path's bound. ms/step comes from CUDA
 events after a warm-up.
 
-The last three lines of standard output are one JSON object with the
-kernels' numbers, the nvidia-smi line of the card, and
-{"ok": true, "device": {...}}.
+Each kernel's bound is the least time the card could take for the work of
+this run's inputs: the larger of its FP32 operations over 67 TFLOP/s, its
+rsqrts over the MUFU rate (16 a clock per SM, 1/16 of the FP32 rate) and
+the bytes of its inputs and outputs, each moved once, over 3.35 TB/s (the
+H100 SXM's published rates at 700 W). A monopole pair term without the
+potential is 18 FP32 operations (an FMA as two) and one rsqrt, which the
+MUFU term counts; a quadrupole term 57 and one rsqrt. share = bound / time.
+K1 is timed on work items built beforehand, as the paths build them once
+per list build; the items' own cost is timed apart.
+
+The last four lines of standard output are one JSON object with the
+kernels' numbers, the card's SM clock and its maximum as nvidia-smi gives
+them (sampled while K1's timed launches run), the card's nvidia-smi name
+and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -58,6 +74,7 @@ from parallelnbody_tpu_torch import SimConfig, Simulation
 from parallelnbody_tpu_torch.api import calibrate_budgets, init_simulation
 from parallelnbody_tpu_torch.kernels import build
 from parallelnbody_tpu_torch.ops import bh, bh_kernels, direct_kernels
+from parallelnbody_tpu_torch.tools import sass
 from parallelnbody_tpu_torch.utils.accuracy import rms_force_error_sample
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -70,15 +87,23 @@ GATHER_OCTET_BOUND = 1e-5   # relative force norm, tests/test_bh.py:752
 RMS_SAMPLES = 4096
 SAMPLE_ROWS = 64            # target leaves of the 1M lists held with the potential
 PARITY_N = 65536            # second, full-size parity point
+LEAF128_N = 262144          # K1/K2 parity and K1 time at the auto leaf 128
 ALLPAIRS_SAMPLE = 4096      # K3 targets held with the potential at N=262144
 ODD_N = 1000                # K3 at an N that is no multiple of its tile
 KERNEL_REPS = 10
+LATER_STEPS = 8             # K1 is timed again on the lists after this many
 STEP_REPS = 3
 REUSE_STEPS = 16
 GATHER_STEPS = 8
 DEFAULT_STEPS = 10
 CROSSOVER_N = (16384, 32768, 65536, 131072, 262144)
 DEVICE = "cuda"
+
+FP32_FLOPS = 67e12          # H100 SXM, FP32 outside the tensor cores, 700 W
+MUFU_RATE = FP32_FLOPS / 16  # rsqrt/s: 16 a clock per SM against 256 FP32 flops
+HBM_BYTES = 3.35e12         # B/s
+FLOPS_MONOPOLE = 18         # d 3, r^2 6, w 3, sums 6 (terms.cuh); + 1 rsqrt
+FLOPS_QUADRUPOLE = 57       # + 39 for the traceless quadrupole (node_term)
 
 KERNELS = {
     "near_field": ("parallelnbody_tpu_torch/csrc/near_field.cu",
@@ -89,6 +114,14 @@ KERNELS = {
                  "parallelnbody_tpu/ops/pallas_direct.py:38"),
     "far_gather": ("parallelnbody_tpu_torch/csrc/far_gather.cu",
                    "parallelnbody_tpu/ops/pallas_bh.py:41"),
+}
+# Each kernel's instantiation on the main path (compute_pot=False, softened;
+# K1 at leaf 256, K2/K4 with quadrupoles), as its mangled name spells it.
+MAIN_INSTANCE = {
+    "near_field": "near_field_kernelILi8ELb0ELb0E",
+    "far_octet": "far_octet_kernelILb1ELb0ELb0E",
+    "allpairs": "allpairs_kernelILb0ELb0E",
+    "far_gather": "far_gather_kernelILb1ELb0ELb0ELb0E",
 }
 
 
@@ -103,6 +136,40 @@ def launch_counts():
 
 def log(msg=""):
     print(msg, flush=True)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(terms, flops_per_term, n_bytes):
+    """The least time for `terms` interaction terms of flops_per_term FP32
+    operations and one rsqrt each, moving n_bytes: bound_ms, bound_by
+    ("operations" or "bytes") and the resource ("fp32", "mufu", "hbm")."""
+    secs = {"fp32": terms * flops_per_term / FP32_FLOPS,
+            "mufu": terms / MUFU_RATE, "hbm": n_bytes / HBM_BYTES}
+    res = max(secs, key=secs.get)
+    return {"bound_ms": secs[res] * 1e3,
+            "bound_by": "bytes" if res == "hbm" else "operations",
+            "bound_resource": res}
+
+
+def with_share(rec, work):
+    """rec updated with the bound of `work` (bound()'s result) and the
+    share bound / time."""
+    rec.update(work)
+    rec["share"] = rec["bound_ms"] / rec["ms"]
+    return rec
+
+
+def repeat_equal(name, fn):
+    """Two launches of fn() on the same inputs must give the same bits."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{name}: two launches on the same inputs "
+                             "differ")
+    return True
 
 
 def run(cmd):
@@ -121,14 +188,22 @@ def phase_environment():
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0]
     log(f"device 0: {torch.cuda.get_device_name(0)}  "
-        f"(count {torch.cuda.device_count()}); nvidia-smi: {smi}")
+        f"(count {torch.cuda.device_count()}); nvidia-smi: {smi}; SM clock, "
+        f"max: {clocks()}")
     # Plain versions run einsum through matmul: keep it in full f32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return smi
 
 
+def clocks():
+    return run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                "--format=csv,noheader"]).splitlines()[0]
+
+
 def phase_build():
+    """Build and load the kernels; returns {kernel: SASS instructions a pair
+    of its main-path inner loop}."""
     t0 = time.perf_counter()
     lib = build.build()
     build.load_library()
@@ -136,6 +211,21 @@ def phase_build():
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line):
             log(f"  {line.strip()}")
+    loops, usage = sass.inner_loops(lib), sass.ptxas_usage(lib)
+    per_pair = {}
+    for name, instance in MAIN_INSTANCE.items():
+        found = [m for m in loops if instance in m]
+        if len(found) != 1:
+            raise AssertionError(f"{name}: {len(found)} kernels match "
+                                 f"{instance} in the SASS")
+        rec = loops[found[0]]
+        per_pair[name] = rec["per_pair"]
+        regs, smem = usage.get(found[0], (None, None))
+        log(f"SASS {name} ({instance}): inner loop {rec['instructions']} "
+            f"instructions, {rec['pairs']} MUFU.RSQ, {rec['per_pair']:.3f} a "
+            f"pair; {regs} registers, {smem} bytes static shared; "
+            f"{json.dumps(rec['opcodes'])}")
+    return per_pair
 
 
 def cuda_ms(fn, reps=1):
@@ -149,6 +239,16 @@ def cuda_ms(fn, reps=1):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end) / reps
+
+
+def clocks_under_load(fn, reps=KERNEL_REPS):
+    """The SM clock and its maximum, sampled by nvidia-smi while reps
+    launches of fn(), queued beforehand, keep the card busy."""
+    for _ in range(reps):
+        fn()
+    sample = clocks()
+    torch.cuda.synchronize()
+    return sample
 
 
 def max_err(name, got, want):
@@ -189,7 +289,7 @@ def lists_for(cfg, state):
         raise AssertionError(f"list overflow {int(of)} at calibrated budgets")
     return dict(pos_s=pos_s, mass_s=mass_s,
                 tgt=pos_s.reshape(n_leaves, leaf, 3), ni=ni, nv=nv, fk=fk,
-                fv=fv, nodes8=nodes8)
+                fv=fv, nodes8=nodes8, work=bh_kernels.near_work(nv))
 
 
 def near_args(L, rows=None):
@@ -204,6 +304,24 @@ def far_args(L, rows=None):
         return L["tgt"], L["nodes8"], L["fk"], L["fv"]
     return (L["tgt"][rows].contiguous(), L["nodes8"],
             L["fk"][rows].contiguous(), L["fv"][rows].contiguous())
+
+
+def list_work(name, L, n_comp=None):
+    """bound() of one call of K1 (name "near_field") or K2 on the lists L
+    with compute_pot=False: K1 sums cnt x G^2 pair terms a row, K2 G
+    node-target terms for each accepted child of each listed octet."""
+    tgt = L["tgt"]
+    n_slice, leaf, _ = tgt.shape
+    out_bytes = n_slice * leaf * 16                       # acc + pot
+    if name == "near_field":
+        terms = int(L["nv"].sum()) * leaf * leaf
+        return bound(terms, FLOPS_MONOPOLE, out_bytes + nbytes(
+            L["pos_s"], L["mass_s"], tgt, L["ni"], L["nv"]))
+    mask = torch.where(L["fv"], L["fk"] & 0xFF, 0)
+    children = sum(int(((mask >> b) & 1).sum()) for b in range(8))
+    flops = FLOPS_QUADRUPOLE if L["nodes8"].shape[1] >= 9 else FLOPS_MONOPOLE
+    return bound(children * leaf, flops, out_bytes + nbytes(
+        tgt, L["nodes8"], L["fk"], L["fv"]))
 
 
 def phase_kernel_parity(cfg_json):
@@ -232,21 +350,25 @@ def phase_kernel_parity(cfg_json):
 
     for name, (kernel, plain, args) in funcs.items():
         rec = out[name]
-        # The main path's setting (track_potential=False) at its shapes.
+        # The main path's setting (track_potential=False) at its shapes; K1
+        # on the items the path builds with the lists.
         full = args(L)
-        got = kernel(*full, compute_pot=False, **kw)
+        fkw = dict(kw, work=L["work"]) if name == "near_field" else kw
+        got = kernel(*full, compute_pot=False, **fkw)
         plain(*args(L, rows), compute_pot=False, **kw)      # warm-up
         want, rec["plain_ms"] = cuda_ms(
             lambda: plain(*full, compute_pot=False, **kw))
         err = max_err(f"{name} N={cfg.n} full", got, want)
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         del want
-        kernel(*full, compute_pot=False, **kw)               # warm-up
-        _, rec["ms"] = cuda_ms(lambda: kernel(*full, compute_pot=False, **kw),
-                               KERNEL_REPS)
+        kernel(*full, compute_pot=False, **fkw)              # warm-up
+        _, rec["ms"] = cuda_ms(lambda: kernel(*full, compute_pot=False,
+                                              **fkw), KERNEL_REPS)
+        with_share(rec, list_work(name, L))
         log(f"{name} at N={cfg.n} (compute_pot=False): kernel "
-            f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.1f} ms; full max "
-            f"abs err {rec['max_abs_err']:.3e}")
+            f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.1f} ms, bound "
+            f"{rec['bound_ms']:.3f} ms ({rec['bound_resource']}), share "
+            f"{rec['share']:.3f}; full max abs err {rec['max_abs_err']:.3e}")
         # With the potential, on a sample of target leaves.
         sub = args(L, rows)
         err = max_err(f"{name} N={cfg.n} {SAMPLE_ROWS} rows pot",
@@ -255,21 +377,86 @@ def phase_kernel_parity(cfg_json):
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         log(f"{name} at N={cfg.n}, {SAMPLE_ROWS} sampled target leaves "
             f"(compute_pot=True): max abs err {err:.3e}")
+    rec = out["near_field"]
+    rec["clocks"] = clocks_under_load(lambda: bh_kernels.near_field(
+        *near_args(L), compute_pot=False, work=L["work"], **kw))
+    rec["pair_terms"] = int(L["nv"].sum()) * L["tgt"].shape[1] ** 2
+    rec["deterministic"] = repeat_equal(
+        "near_field", lambda: bh_kernels.near_field(
+            *near_args(L), compute_pot=False, **kw))
+    # The work items' own cost, host wait included: once per list build.
+    bh_kernels.near_work(L["nv"])                            # warm-up
+    _, rec["work_ms"] = cuda_ms(lambda: bh_kernels.near_work(L["nv"]),
+                                KERNEL_REPS)
+    log(f"near_field work items at N={cfg.n}: "
+        f"{L['work'].items.shape[0]} items, {L['work'].splits.shape[0]} "
+        f"split rows, {L['work'].n_partial} partial slots; built in "
+        f"{rec['work_ms']:.3f} ms (host wait included); SM clock, max while "
+        f"K1 runs: {rec['clocks']}")
     del L, state
 
-    # Full parity at a second size, both potential settings.
-    small = SimConfig.from_json(cfg_json).replace(n=PARITY_N)
-    state = init_simulation(small, dev, compute_forces=False)
-    small = calibrate_budgets(small, state)
-    L = lists_for(small, state)
-    for name, (kernel, plain, args) in funcs.items():
-        for compute_pot in (True, False):
-            err = max_err(f"{name} N={PARITY_N} pot={compute_pot}",
-                          kernel(*args(L), compute_pot=compute_pot, **kw),
-                          plain(*args(L), compute_pot=compute_pot, **kw))
-            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
-            log(f"{name} at N={PARITY_N} (compute_pot={compute_pot}): "
-                f"max abs err {err:.3e}")
+    # K1 again on the lists of the state after LATER_STEPS octet steps,
+    # where the t = 0 lists' longest rows have relaxed.
+    sim = Simulation(cfg, device=DEVICE)
+    sim.step(LATER_STEPS)
+    L = lists_for(sim.cfg, sim.state)
+    del sim
+    full = near_args(L)
+    got = bh_kernels.near_field(*full, compute_pot=False, **kw)
+    rec["max_abs_err"] = max(rec["max_abs_err"], max_err(
+        f"near_field N={cfg.n} after {LATER_STEPS} steps", got,
+        bh_kernels.near_field_plain(*full, compute_pot=False, **kw)))
+    _, ms = cuda_ms(lambda: bh_kernels.near_field(
+        *full, compute_pot=False, work=L["work"], **kw), KERNEL_REPS)
+    later = with_share({"ms": ms}, list_work("near_field", L))
+    pairs = int(L["nv"].sum()) * L["tgt"].shape[1] ** 2
+    rec.update({f"{k}_step{LATER_STEPS}": later[k]
+                for k in ("ms", "bound_ms", "share")},
+               **{f"pair_terms_step{LATER_STEPS}": pairs})
+    per_pair = [rec["ms"] / rec["pair_terms"], ms / pairs]
+    rec["per_pair_ratio"] = max(per_pair) / min(per_pair)
+    log(f"near_field on the lists after {LATER_STEPS} steps: near entries "
+        f"mean {float(L['nv'].sum(1).float().mean()):.1f} max "
+        f"{int(L['nv'].sum(1).max())}; {pairs:.4e} pair terms (t = 0: "
+        f"{rec['pair_terms']:.4e}); kernel {ms:.3f} ms, bound "
+        f"{later['bound_ms']:.3f} ms, share {later['share']:.3f}; time per "
+        f"pair term {per_pair[1] * 1e9:.4f} ps against {per_pair[0] * 1e9:.4f}"
+        f" ps at t = 0 (ratio {rec['per_pair_ratio']:.3f}); repeat launches "
+        "bit-equal")
+    del L, full, got
+
+    # Full parity at two more sizes, both potential settings: N = 65536 at
+    # leaf 256, and N = 262144 at its auto leaf size 128 (K1 then holds 4
+    # targets a thread), where K1 is timed too.
+    for n, leaf in ((PARITY_N, None), (LEAF128_N, 0)):
+        small = SimConfig.from_json(cfg_json).replace(n=n)
+        if leaf is not None:
+            small = small.replace(bh_leaf_size=leaf)
+        state = init_simulation(small, dev, compute_forces=False)
+        small = calibrate_budgets(small, state)
+        L = lists_for(small, state)
+        label = f"N={n}, leaf {small.resolve_bh_leaf_size()}"
+        for name, (kernel, plain, args) in funcs.items():
+            for compute_pot in (True, False):
+                err = max_err(f"{name} {label} pot={compute_pot}",
+                              kernel(*args(L), compute_pot=compute_pot, **kw),
+                              plain(*args(L), compute_pot=compute_pot, **kw))
+                out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+                log(f"{name} at {label} (compute_pot={compute_pot}): max abs "
+                    f"err {err:.3e}")
+        if leaf is None:
+            continue
+        full = near_args(L)
+        bh_kernels.near_field(*full, compute_pot=False, work=L["work"], **kw)
+        _, ms = cuda_ms(lambda: bh_kernels.near_field(
+            *full, compute_pot=False, work=L["work"], **kw), KERNEL_REPS)
+        at = with_share({"ms": ms}, list_work("near_field", L))
+        out["near_field"].update({f"{k}_leaf128": at[k]
+                                  for k in ("ms", "bound_ms", "share")})
+        log(f"near_field at {label} (compute_pot=False): kernel {ms:.3f} ms, "
+            f"bound {at['bound_ms']:.3f} ms, share {at['share']:.3f}; "
+            f"near entries mean {float(L['nv'].sum(1).float().mean()):.1f} "
+            f"max {int(L['nv'].sum(1).max())}")
     return out
 
 
@@ -306,9 +493,17 @@ def phase_allpairs_parity(cfg_json):
     kernel(*full, compute_pot=False, **kw)                   # warm-up
     _, rec["ms"] = cuda_ms(lambda: kernel(*full, compute_pot=False, **kw),
                            KERNEL_REPS)
+    rec["clocks"] = clocks_under_load(
+        lambda: kernel(*full, compute_pot=False, **kw))
+    with_share(rec, bound(cfg.n * cfg.n, FLOPS_MONOPOLE,
+                          nbytes(*full) + cfg.n * 16))
+    rec["deterministic"] = repeat_equal(
+        "allpairs", lambda: (kernel(*full, compute_pot=False, **kw),))
     log(f"allpairs at N={cfg.n} (compute_pot=False): kernel {rec['ms']:.3f} "
-        f"ms, plain {rec['plain_ms']:.1f} ms; full max abs err "
-        f"{rec['max_abs_err']:.3e}")
+        f"ms, plain {rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.3f} ms "
+        f"({rec['bound_resource']}), share {rec['share']:.3f}; full max abs "
+        f"err {rec['max_abs_err']:.3e}; repeat launches bit-equal; SM clock, "
+        f"max while K3 runs: {rec['clocks']}")
     del state, full
 
     def sample(n):
@@ -389,9 +584,16 @@ def phase_gather_parity(cfg_json):
     del want
     both(kernel)                                             # warm-up
     _, rec["ms"] = cuda_ms(lambda: both(kernel), KERNEL_REPS)
+    leaf = tgt.shape[1]
+    terms = sum(int(v.sum()) * leaf for *_, v in classes)
+    flops = FLOPS_QUADRUPOLE if classes[0][1].shape[1] >= 9 else FLOPS_MONOPOLE
+    with_share(rec, bound(terms, flops, sum(
+        nbytes(tgt, table, idx, valid) + tgt.shape[0] * leaf * 16
+        for _, table, idx, valid in classes)))
     log(f"far_gather at N={cfg.n}, upper + leaf list (compute_pot=False): "
-        f"kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.1f} ms; full "
-        f"max abs err {rec['max_abs_err']:.3e}")
+        f"kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.1f} ms, bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_resource']}), share "
+        f"{rec['share']:.3f}; full max abs err {rec['max_abs_err']:.3e}")
     rows = torch.linspace(0, tgt.shape[0] - 1, SAMPLE_ROWS, device=dev).long()
     held(f"N={cfg.n}, {SAMPLE_ROWS} sampled target leaves", tgt, classes,
          True, rows)
@@ -573,23 +775,25 @@ def main():
         cfg_json = f.read()
     with open(ALLPAIRS_CONFIG) as f:
         allpairs_json = f.read()
-    phase_build()
+    per_pair = phase_build()
     kernels = phase_kernel_parity(cfg_json)
     kernels["allpairs"] = phase_allpairs_parity(allpairs_json)
     kernels["far_gather"] = phase_gather_parity(cfg_json)
+    for name, value in per_pair.items():
+        kernels[name]["sass_per_pair"] = value
     # Each kernel's launches are read from the path that carries it.
     launches = phase_octet_path(cfg_json)
     launches["allpairs"] = phase_allpairs_path(allpairs_json)["allpairs"]
     launches["far_gather"] = phase_gather_path(cfg_json)["far_gather"]
     phase_crossover()
 
+    # No single PyTorch call computes any of the four functions.
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": kernels[name]["max_abs_err"],
-         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
+         "launches": launches[name], **kernels[name], "library_ms": None}
         for name, (src, rep) in KERNELS.items()]}
     print(json.dumps(line))
+    print(kernels["near_field"]["clocks"])
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,8 @@ from parallelnbody_tpu_torch.config import SimConfig
 from parallelnbody_tpu_torch.models import get_ic
 from parallelnbody_tpu_torch.ops import energy as energy_ops
 from parallelnbody_tpu_torch.ops.integrators import get_integrator
-from parallelnbody_tpu_torch.state import SimState, make_state, torch_dtype
+from parallelnbody_tpu_torch.state import (SimState, make_state, resolve_device,
+                                           torch_dtype)
 
 
 def _zero_count(device):
@@ -75,10 +76,12 @@ def virialize_state(state: SimState) -> SimState:
     return state._replace(vel=state.vel * scale)
 
 
-def init_simulation(cfg: SimConfig, device="cpu",
+def init_simulation(cfg: SimConfig, device="cuda",
                     compute_forces: bool = True) -> SimState:
-    """Generate ICs on the CPU from cfg.seed, move them to `device`, and
-    (compute_forces=True) evaluate the t=0 forces so leapfrog can start."""
+    """Generate ICs on the CPU from cfg.seed, move them to `device` (the
+    card unless the caller names another), and (compute_forces=True)
+    evaluate the t=0 forces so leapfrog can start."""
+    device = resolve_device(device)
     gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
     pos, vel, mass = get_ic(cfg.ic)(gen, cfg)
     state = make_state(pos, vel, mass, seed=cfg.seed, device=device,
@@ -140,7 +143,7 @@ def calibrate_budgets(cfg: SimConfig, state: SimState,
     return cfg.replace(**kw)
 
 
-def prepare_simulation(cfg: SimConfig, device="cpu"
+def prepare_simulation(cfg: SimConfig, device="cuda"
                        ) -> tuple[SimConfig, SimState]:
     """ICs + budget auto-calibration + t=0 forces, in that order. Returns
     (calibrated cfg, initialized state); make_step/make_run are built from
@@ -341,15 +344,6 @@ def make_run(cfg: SimConfig, n_steps: int,
 
 
 # ----------------------------------------------------------------- host shell
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "Simulation(device='cuda') needs a CUDA device, and "
-            "torch.cuda.is_available() is False")
-    return device
-
-
 class Simulation:
     """Host-side shell: owns cfg + state on one device and drives steps.
 
@@ -357,7 +351,7 @@ class Simulation:
     every step taken (a device tensor; 0 means nothing was clipped)."""
 
     def __init__(self, cfg: SimConfig, device="cuda"):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         # prepare_simulation calibrates any auto (0) Barnes-Hut budgets
         # against the actual ICs before the first force evaluation; the
         # calibrated cfg is what every step function is built from.

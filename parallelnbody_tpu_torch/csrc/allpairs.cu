@@ -8,109 +8,158 @@
 //
 // What it computes. The raw sums out (Ni, 4) =
 // [sum w dx, sum w dy, sum w dz, sum m u] of every target i of pos_i (Ni, 3)
-// against every source j of pos_j (Nj, 3), mass_j (Nj,), with
-// d = x_j - x_i, u = rsqrt(|d|^2 + eps^2), w = m_j u^3 (terms.cuh). The
-// caller scales by g and negates the last column into the potential;
+// against every source j of the packed table src (Nj, 4) = [x, y, z, m],
+// with d = x_j - x_i, u = rsqrt(|d|^2 + eps^2), w = m_j u^3 (terms.cuh).
+// The caller scales by g and negates the last column into the potential;
 // COMPUTE_POT false writes 0 there. With softening > 0 a target that is also
 // a source adds m_i / eps to its own potential sum, as the JAX package does.
 //
-// Design. One thread per target, THREADS targets per block, four sums in
-// registers. The block walks the sources in tiles of THREADS: each thread
-// stages one source as float4 [x, y, z, m] in shared memory, then every
-// thread sweeps the tile (one broadcast LDS.128 per pair). The last tile is
-// cut to the sources that exist, and threads past Ni only help to stage, so
-// any Ni and Nj work without padding. The TPU kernel's (TILE_I, TILE_J) grid,
-// whose j-innermost steps carry the sums in VMEM, becomes the loop over
-// tiles inside one block.
+// What bounds it. A pair is 18 FP32 operations (FMA as two) and one rsqrt on
+// the MUFU; the sources (4 MB at N = 262144) stay in L2 and a staged tile
+// serves every target of the block. The kernel is bound by FP32 issue:
+// 6.87e10 pairs at N = 262144 need 18.5 ms at the H100's 67 TFLOP/s.
 //
-// What bounds it. Each pair costs ~12 FP32 instructions, one MUFU rsqrt and
-// one LDS, while the sources (4 MB at N = 262144) stay in L2 and each staged
-// tile serves THREADS^2 pairs. So the kernel is bound by instruction issue:
-// at N = 262144, 6.9e10 pairs need >= 16 ms of the H100's rsqrt rate alone
-// and ~20-30 ms of issue slots. Several targets per thread (fewer LDS per
-// pair) and a tuned tile are later work.
+// Design. The register-blocked n-body tile: a block of THREADS threads owns
+// THREADS * R targets (thread i holds i, i + THREADS, ...), so one
+// broadcast LDS.128 serves R pairs, and walks its sources in tiles of TILE
+// float4 that terms.cuh sweep_tiles streams through a cp.async ring. The
+// last tile is zero-filled past Nj (massless sources add exactly 0) and threads past Ni only help to
+// stage, so any Ni and Nj work without padding in memory. The TPU kernel's
+// (TILE_I, TILE_J) grid, whose j-innermost steps carry the sums in VMEM,
+// becomes the loop over tiles inside one block.
+//
+// Split over sources. Ni / (THREADS * R) blocks alone leave most of the card
+// idle below N ~ 100k, and at N = 262144 give 16 warps an SM, too few to
+// hide the rsqrt's latency. pnb_allpairs_splits cuts the source tiles into S
+// contiguous ranges, S the most that still fits the grid in one wave of
+// resident blocks; block (x, s) sums range s into partial[s], and
+// allpairs_combine_kernel adds the S partials in range order. No float
+// atomics: the output is bit-equal from run to run.
+//
+// Block size, R and the tile were chosen on the card at N = 262144 among 12
+// shapes (PERF.md §6): 256 threads, R = 4 and 1024-source tiles ran
+// fastest (R = 2 pays an LDS every second pair, R = 8 loses occupancy to
+// registers); a longer tile halves the __syncthreads a pair, and a ring of
+// 3 beat 2.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "terms.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 256;  // threads a block
+constexpr int R = 4;          // targets a thread
+constexpr int TILE = 1024;    // sources a shared-memory tile
 
+// Block (x, s) sums source tiles [s * per_split, (s + 1) * per_split) on its
+// THREADS * R targets into out + s * ni.
 template <bool GUARD_ZERO, bool COMPUTE_POT>
 __global__ void __launch_bounds__(THREADS)
     allpairs_kernel(const float* __restrict__ pos_i,
-                    const float* __restrict__ pos_j,
-                    const float* __restrict__ mass_j,
-                    float* __restrict__ out, int ni, int nj, float eps2) {
-  __shared__ float4 src[THREADS];
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = i < ni;
-  const float xi = live ? pos_i[(long long)i * 3 + 0] : 0.f;
-  const float yi = live ? pos_i[(long long)i * 3 + 1] : 0.f;
-  const float zi = live ? pos_i[(long long)i * 3 + 2] : 0.f;
-  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int j0 = 0; j0 < nj; j0 += THREADS) {
-    const int m = min(THREADS, nj - j0);
-    const long long j = j0 + threadIdx.x;
-    __syncthreads();  // the previous tile is fully consumed
-    if (threadIdx.x < m)
-      src[threadIdx.x] = make_float4(pos_j[j * 3 + 0], pos_j[j * 3 + 1],
-                                     pos_j[j * 3 + 2], mass_j[j]);
-    __syncthreads();
-    if (m == THREADS) {
-#pragma unroll 8
-      for (int k = 0; k < THREADS; ++k) {
-        const float4 p = src[k];
-        pnb::monopole_term<GUARD_ZERO, COMPUTE_POT>(
-            p.x - xi, p.y - yi, p.z - zi, p.w, eps2, sum);
-      }
-    } else {
-      for (int k = 0; k < m; ++k) {
-        const float4 p = src[k];
-        pnb::monopole_term<GUARD_ZERO, COMPUTE_POT>(
-            p.x - xi, p.y - yi, p.z - zi, p.w, eps2, sum);
-      }
-    }
+                    const float4* __restrict__ src, float4* __restrict__ out,
+                    int ni, int nj, int per_split, float eps2) {
+  __shared__ float4 ring[pnb::kStages * TILE];
+  const long long base = (long long)blockIdx.x * THREADS * R + threadIdx.x;
+  pnb::Targets<R> t;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = base + r * THREADS;
+    const bool live = i < ni;
+    t.x[r] = live ? pos_i[i * 3 + 0] : 0.f;
+    t.y[r] = live ? pos_i[i * 3 + 1] : 0.f;
+    t.z[r] = live ? pos_i[i * 3 + 2] : 0.f;
+    t.s[r] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  if (live) {
-    reinterpret_cast<float4*>(out)[i] =
-        make_float4(sum.x, sum.y, sum.z, COMPUTE_POT ? sum.w : 0.f);
+  const int first = blockIdx.y * per_split;
+  const int n_tiles = min(per_split, (nj + TILE - 1) / TILE - first);
+  pnb::sweep_tiles<R, GUARD_ZERO, COMPUTE_POT>(
+      ring, TILE, n_tiles,
+      [&](int k) { return src + (long long)(first + k) * TILE; },
+      [&](int k) { return min(TILE, nj - (first + k) * TILE); }, eps2, t);
+  float4* dst = out + (long long)blockIdx.y * ni;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = base + r * THREADS;
+    if (i < ni) {
+      const float4 s = t.s[r];
+      dst[i] = make_float4(s.x, s.y, s.z, COMPUTE_POT ? s.w : 0.f);
+    }
   }
 }
 
+// out[i] = partial[0][i] + partial[1][i] + ... in range order.
+__global__ void allpairs_combine_kernel(const float4* __restrict__ partial,
+                                        float4* __restrict__ out, int ni,
+                                        int n_split) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= ni) return;
+  float4 s = partial[i];
+  for (int k = 1; k < n_split; ++k) {
+    const float4 q = partial[(long long)k * ni + i];
+    s.x += q.x;
+    s.y += q.y;
+    s.z += q.z;
+    s.w += q.w;
+  }
+  out[i] = s;
+}
+
+int tiles_of(int nj) { return (nj + TILE - 1) / TILE; }
+
 template <bool GUARD_ZERO, bool COMPUTE_POT>
-void launch(const float* pos_i, const float* pos_j, const float* mass_j,
-            float* out, int ni, int nj, float eps2, cudaStream_t stream) {
-  const int blocks = (ni + THREADS - 1) / THREADS;
-  allpairs_kernel<GUARD_ZERO, COMPUTE_POT><<<blocks, THREADS, 0, stream>>>(
-      pos_i, pos_j, mass_j, out, ni, nj, eps2);
+cudaError_t launch(const float* pos_i, const float4* src, float4* out,
+                   float4* partial, int ni, int nj, int n_split, float eps2,
+                   cudaStream_t stream) {
+  const int per_split = (tiles_of(nj) + n_split - 1) / n_split;
+  const dim3 grid((ni + THREADS * R - 1) / (THREADS * R), n_split);
+  allpairs_kernel<GUARD_ZERO, COMPUTE_POT><<<grid, THREADS, 0, stream>>>(
+      pos_i, src, n_split > 1 ? partial : out, ni, nj, per_split, eps2);
+  if (n_split > 1)
+    allpairs_combine_kernel<<<(ni + 255) / 256, 256, 0, stream>>>(
+        partial, out, ni, n_split);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int pnb_allpairs(const void* pos_i, const void* pos_j,
-                            const void* mass_j, void* out, int ni, int nj,
+// The number S of source ranges for (ni, nj): the most that keeps the grid
+// within one wave of resident blocks on the current device, at most one
+// range a tile, and no range empty. Negative: a CUDA error.
+extern "C" int pnb_allpairs_splits(int ni, int nj) {
+  int dev, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, allpairs_kernel<false, false>, THREADS, 0);
+  if (err != cudaSuccess) return -(int)err;
+  const int blocks = (ni + THREADS * R - 1) / (THREADS * R);
+  const int tiles = tiles_of(nj);
+  if (tiles <= 1 || blocks <= 0) return 1;
+  const int s = std::max(1, std::min(tiles, sms * per_sm / blocks));
+  const int per_split = (tiles + s - 1) / s;
+  return std::max(1, (tiles + per_split - 1) / per_split);
+}
+
+// out (ni, 4); partial (n_split, ni, 4), unused when n_split is 1.
+extern "C" int pnb_allpairs(const void* pos_i, const void* src, void* out,
+                            void* partial, int ni, int nj, int n_split,
                             float eps2, int guard_zero, int compute_pot,
                             void* stream) {
   if (ni <= 0) return (int)cudaSuccess;
   auto pi = static_cast<const float*>(pos_i);
-  auto pj = static_cast<const float*>(pos_j);
-  auto mj = static_cast<const float*>(mass_j);
-  auto o = static_cast<float*>(out);
+  auto s = static_cast<const float4*>(src);
+  auto o = static_cast<float4*>(out);
+  auto pa = static_cast<float4*>(partial);
   auto st = static_cast<cudaStream_t>(stream);
-  if (guard_zero) {
-    if (compute_pot)
-      launch<true, true>(pi, pj, mj, o, ni, nj, eps2, st);
-    else
-      launch<true, false>(pi, pj, mj, o, ni, nj, eps2, st);
-  } else {
-    if (compute_pot)
-      launch<false, true>(pi, pj, mj, o, ni, nj, eps2, st);
-    else
-      launch<false, false>(pi, pj, mj, o, ni, nj, eps2, st);
-  }
-  return (int)cudaGetLastError();
+  auto go = [&](auto fn) {
+    return (int)fn(pi, s, o, pa, ni, nj, n_split, eps2, st);
+  };
+  if (guard_zero)
+    return compute_pot ? go(launch<true, true>) : go(launch<true, false>);
+  return compute_pot ? go(launch<false, true>) : go(launch<false, false>);
 }

@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas kernel `_near_table_kernel` in
 // parallelnbody_tpu/ops/pallas_bh.py (called through `near_field_pallas`).
-// Wrapper and plain PyTorch version: parallelnbody_tpu_torch/ops/bh_kernels.py
-// (`near_field`, `near_field_plain`).
+// Wrapper, work-item builder and plain PyTorch version:
+// parallelnbody_tpu_torch/ops/bh_kernels.py (`near_field`, `near_items`,
+// `near_field_plain`).
 //
 // What it computes. Target leaf t holds G particles (rows t*G .. t*G+G-1 of
 // the curve-sorted arrays). Its near list idx[t, 0:cnt[t]] names source
@@ -15,112 +16,179 @@
 // exact overlaps and the self pair; with softening > 0 the self pair adds
 // m_i / eps to the potential, as the JAX package does.
 //
-// Design. One block per target leaf, one thread per target particle
-// (blockDim = G); the four sums stay in registers. For each list entry the
-// block stages the source leaf's G (x, y, z, m) into shared memory as float4
-// (thread i loads particle i, so the reads of pos/mass are coalesced), then
-// every thread sweeps the G sources. The TPU kernel's VMEM table segments,
-// unroll tables and (L, 4, G) lane layout are not needed here: the whole
-// source table (16 MB at N = 1M) sits in the 50 MB L2.
+// What bounds it. A pair is 18 FP32 operations (FMA as two) and one rsqrt on
+// the MUFU, while a staged source leaf (4 KB at G = 256) serves G^2 pairs and the
+// whole packed source table (16 MB at N = 1M) sits in the 50 MB L2: the
+// kernel is bound by FP32 issue, not by memory.
 //
-// What bounds it. Each pair costs ~20 FP32 operations and one rsqrt, while
-// a staged source leaf (4 KB at G = 256) serves G^2 pairs, so the kernel is
-// bound by FP32 FMA and MUFU rsqrt throughput, not by memory. The design
-// answers that with the shared-memory broadcast (one LDS.128 per pair, the
-// same address across the warp) and FMAs for every accumulation; several
-// targets per thread, double-buffered staging and tensor-core variants are
-// later work.
+// Design.
+//   * Balance. The near lists are uneven (at N = 1M, t = 0: 96.5 entries a
+//     row on average, 1164 on the longest), and one block per row left the
+//     longest rows as the kernel's tail. The wrapper cuts every row into
+//     work items of at most C (bh_kernels.NEAR_CHUNK) entries, heaviest
+//     first, one block per item. An item of a row that has one item writes
+//     the row's output; the items of a longer row write raw partial sums to
+//     `partial`, and near_combine_kernel adds them in chunk order. No float
+//     atomics: the output is bit-equal from run to run.
+//   * Staging. The wrapper packs [x, y, z, m] into one (n_pad, 4) table, so
+//     a source leaf is one contiguous G-float4 block; terms.cuh sweep_tiles
+//     streams a row's entries through a ring of pnb::kStages shared buffers
+//     with cp.async, one __syncthreads per entry.
+//   * Register blocking. A thread holds R targets (i, i + T, ...) of the
+//     leaf, T = ceil(G / R) threads a block, so one broadcast LDS.128 serves
+//     R pairs. R is the largest of 8, 4, 2 that still gives a block a full
+//     warp (G >= 32 R), else 1: one warp at leaf 256 (N = 1M) and leaf 128
+//     (the auto leaf up to N = 2^19), so no lane idles.
+//   * C and R were chosen on the card at N = 1M (PERF.md §6): one-warp
+//     blocks (R = 8 at G = 256) ran a few per cent faster than two-warp
+//     ones (R = 4), and every C from 8 to 64 lost the tail and ran within
+//     the spread between runs; C = 32 keeps the items few (3.5 a row at
+//     N = 1M) and the partial buffer at 60 MB there.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "terms.cuh"
 
 namespace {
 
-template <bool GUARD_ZERO, bool COMPUTE_POT>
-__global__ void near_field_kernel(const float* __restrict__ pos,
-                                  const float* __restrict__ mass,
-                                  const float* __restrict__ tgt,
-                                  const int* __restrict__ idx,
-                                  const int* __restrict__ cnt,
-                                  float* __restrict__ acc,
-                                  float* __restrict__ pot,
-                                  int leaf_size, int budget, float g,
-                                  float eps2) {
-  extern __shared__ float4 src[];
-  const int t = blockIdx.x;
-  const int i = threadIdx.x;
-  const long long row = (long long)t * leaf_size + i;
-  const float xi = tgt[row * 3 + 0];
-  const float yi = tgt[row * 3 + 1];
-  const float zi = tgt[row * 3 + 2];
-  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  const int n = cnt[t];
-  const int* list = idx + (long long)t * budget;
-  for (int k = 0; k < n; ++k) {
-    const long long s = (long long)list[k] * leaf_size + i;
-    __syncthreads();  // the previous source leaf is fully consumed
-    src[i] = make_float4(pos[s * 3 + 0], pos[s * 3 + 1], pos[s * 3 + 2],
-                         mass[s]);
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < leaf_size; ++j) {
-      const float4 p = src[j];
-      pnb::monopole_term<GUARD_ZERO, COMPUTE_POT>(
-          p.x - xi, p.y - yi, p.z - zi, p.w, eps2, sum);
+// One block per work item (row, begin, end, dst) of `items`; R targets a
+// thread.
+template <int R, bool GUARD_ZERO, bool COMPUTE_POT>
+__global__ void __launch_bounds__(1024 / R)
+    near_field_kernel(const float4* __restrict__ table,
+                      const float* __restrict__ tgt,
+                      const int* __restrict__ idx,
+                      const int4* __restrict__ items,
+                      float* __restrict__ acc, float* __restrict__ pot,
+                      float4* __restrict__ partial, int leaf_size,
+                      int budget, float g, float eps2) {
+  extern __shared__ float4 ring[];
+  const int4 item = items[blockIdx.x];
+  const int G = leaf_size;
+  pnb::Targets<R> t;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = threadIdx.x + r * blockDim.x;
+    const long long row = (long long)item.x * G + (i < G ? i : 0);
+    t.x[r] = tgt[row * 3 + 0];
+    t.y[r] = tgt[row * 3 + 1];
+    t.z[r] = tgt[row * 3 + 2];
+    t.s[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int* list = idx + (long long)item.x * budget + item.y;
+  pnb::sweep_tiles<R, GUARD_ZERO, COMPUTE_POT>(
+      ring, G, item.z - item.y,
+      [&](int k) { return table + (long long)list[k] * G; },
+      [&](int) { return G; }, eps2, t);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = threadIdx.x + r * blockDim.x;
+    if (i >= G) continue;
+    const long long row = (long long)item.x * G + i;
+    const float4 s = t.s[r];
+    if (item.w < 0) {
+      acc[row * 3 + 0] = g * s.x;
+      acc[row * 3 + 1] = g * s.y;
+      acc[row * 3 + 2] = g * s.z;
+      pot[row] = COMPUTE_POT ? -g * s.w : 0.f;
+    } else {
+      partial[(long long)item.w * G + i] = s;
     }
   }
-  acc[row * 3 + 0] = g * sum.x;
-  acc[row * 3 + 1] = g * sum.y;
-  acc[row * 3 + 2] = g * sum.z;
-  pot[row] = COMPUTE_POT ? -g * sum.w : 0.f;
 }
 
-template <bool GUARD_ZERO, bool COMPUTE_POT>
-void launch(const float* pos, const float* mass, const float* tgt,
-            const int* idx, const int* cnt, float* acc, float* pot,
-            int n_slice, int leaf_size, int budget, float g, float eps2,
-            cudaStream_t stream) {
-  const size_t smem = (size_t)leaf_size * sizeof(float4);
-  near_field_kernel<GUARD_ZERO, COMPUTE_POT>
-      <<<n_slice, leaf_size, smem, stream>>>(pos, mass, tgt, idx, cnt, acc,
-                                             pot, leaf_size, budget, g, eps2);
+// Rows cut into several items: splits[k] = (row, first partial, count);
+// one thread per (split row, target) adds the partials in chunk order.
+template <bool COMPUTE_POT>
+__global__ void near_combine_kernel(const float4* __restrict__ partial,
+                                    const int* __restrict__ splits,
+                                    float* __restrict__ acc,
+                                    float* __restrict__ pot, int n_split,
+                                    int leaf_size, float g) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= (long long)n_split * leaf_size) return;
+  const int sr = (int)(k / leaf_size);
+  const int i = (int)(k % leaf_size);
+  const int* sp = splits + 3 * sr;
+  const float4* p = partial + (long long)sp[1] * leaf_size + i;
+  float4 s = p[0];
+  for (int c = 1; c < sp[2]; ++c) {
+    const float4 q = p[(long long)c * leaf_size];
+    s.x += q.x;
+    s.y += q.y;
+    s.z += q.z;
+    s.w += q.w;
+  }
+  const long long row = (long long)sp[0] * leaf_size + i;
+  acc[row * 3 + 0] = g * s.x;
+  acc[row * 3 + 1] = g * s.y;
+  acc[row * 3 + 2] = g * s.z;
+  pot[row] = COMPUTE_POT ? -g * s.w : 0.f;
+}
+
+template <int R, bool GUARD_ZERO, bool COMPUTE_POT>
+cudaError_t launch(const float4* table, const float* tgt, const int* idx,
+                   const int4* items, const int* splits, float* acc,
+                   float* pot, float4* partial, int n_items, int n_split,
+                   int leaf_size, int budget, float g, float eps2,
+                   cudaStream_t stream) {
+  const int threads = (leaf_size + R - 1) / R;
+  const size_t smem = (size_t)pnb::kStages * leaf_size * sizeof(float4);
+  auto kernel = near_field_kernel<R, GUARD_ZERO, COMPUTE_POT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<n_items, threads, smem, stream>>>(table, tgt, idx, items, acc, pot,
+                                             partial, leaf_size, budget, g,
+                                             eps2);
+  if (n_split > 0) {
+    const long long n = (long long)n_split * leaf_size;
+    near_combine_kernel<COMPUTE_POT><<<(int)((n + 255) / 256), 256, 0,
+                                       stream>>>(partial, splits, acc, pot,
+                                                 n_split, leaf_size, g);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int pnb_near_field(const void* pos, const void* mass,
-                              const void* tgt, const void* idx,
-                              const void* cnt, void* acc, void* pot,
-                              int n_slice, int leaf_size, int budget, float g,
-                              float eps2, int guard_zero, int compute_pot,
-                              void* stream) {
-  if (n_slice <= 0) return (int)cudaSuccess;
-  auto p = static_cast<const float*>(pos);
-  auto m = static_cast<const float*>(mass);
+extern "C" int pnb_near_field(const void* table, const void* tgt,
+                              const void* idx, const void* items,
+                              const void* splits, void* acc, void* pot,
+                              void* partial, int n_items, int n_split,
+                              int leaf_size, int budget, float g, float eps2,
+                              int guard_zero, int compute_pot, void* stream) {
+  if (n_items <= 0) return (int)cudaSuccess;
+  auto tb = static_cast<const float4*>(table);
   auto t = static_cast<const float*>(tgt);
   auto ix = static_cast<const int*>(idx);
-  auto c = static_cast<const int*>(cnt);
+  auto it = static_cast<const int4*>(items);
+  auto sp = static_cast<const int*>(splits);
   auto a = static_cast<float*>(acc);
   auto ph = static_cast<float*>(pot);
+  auto pa = static_cast<float4*>(partial);
   auto st = static_cast<cudaStream_t>(stream);
-  if (guard_zero) {
-    if (compute_pot)
-      launch<true, true>(p, m, t, ix, c, a, ph, n_slice, leaf_size, budget, g,
-                         eps2, st);
-    else
-      launch<true, false>(p, m, t, ix, c, a, ph, n_slice, leaf_size, budget,
-                          g, eps2, st);
-  } else {
-    if (compute_pot)
-      launch<false, true>(p, m, t, ix, c, a, ph, n_slice, leaf_size, budget,
-                          g, eps2, st);
-    else
-      launch<false, false>(p, m, t, ix, c, a, ph, n_slice, leaf_size, budget,
-                           g, eps2, st);
-  }
-  return (int)cudaGetLastError();
+  auto go = [&](auto fn) {
+    return (int)fn(tb, t, ix, it, sp, a, ph, pa, n_items, n_split, leaf_size,
+                   budget, g, eps2, st);
+  };
+  auto with_r = [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (guard_zero)
+      return compute_pot ? go(launch<R, true, true>)
+                         : go(launch<R, true, false>);
+    return compute_pot ? go(launch<R, false, true>)
+                       : go(launch<R, false, false>);
+  };
+  // The most targets a thread that still leave a block one full warp.
+  if (leaf_size >= 256) return with_r(std::integral_constant<int, 8>());
+  if (leaf_size >= 128) return with_r(std::integral_constant<int, 4>());
+  if (leaf_size >= 64) return with_r(std::integral_constant<int, 2>());
+  return with_r(std::integral_constant<int, 1>());
 }
 
 extern "C" const char* pnb_error_string(int err) {

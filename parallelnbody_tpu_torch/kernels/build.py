@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu) at first use.
 
 `nvcc` compiles every source under parallelnbody_tpu_torch/csrc/ for Hopper
-(sm_90a) into one shared library with a plain C interface under
+(sm_90a), one process per source, all started together, and links the
+objects into one shared library with a plain C interface under
 build/kernels/ at the root of the checkout. The file name carries a hash of
 the sources and flags, so an edit forces a rebuild and a stale library is
 never loaded. The library is loaded with ctypes; every pointer and the
@@ -23,7 +24,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,11 +32,12 @@ _F = ctypes.c_float
 # C entry points: (name, argtypes, restype).
 _SIGNATURES = (
     ("pnb_near_field",
-     [_VP] * 7 + [_I, _I, _I, _F, _F, _I, _I, _VP], _I),
+     [_VP] * 8 + [_I, _I, _I, _I, _F, _F, _I, _I, _VP], _I),
     ("pnb_far_octet",
      [_VP] * 6 + [_I, _I, _I, _I, _F, _F, _I, _I, _VP], _I),
     ("pnb_allpairs",
-     [_VP] * 4 + [_I, _I, _F, _I, _I, _VP], _I),
+     [_VP] * 4 + [_I, _I, _I, _F, _I, _I, _VP], _I),
+    ("pnb_allpairs_splits", [_I, _I], _I),
     ("pnb_far_gather",
      [_VP] * 7 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _VP], _I),
     ("pnb_error_string", [_I], ctypes.c_char_p),
@@ -72,6 +74,19 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpnb_kernels_{source_hash()}.so"
 
 
+def _run_all(cmds) -> list[tuple[list[str], subprocess.CompletedProcess]]:
+    """Run the commands at once; wait for all of them."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    out = []
+    for cmd, p in procs:
+        stdout, _ = p.communicate()
+        out.append((cmd, subprocess.CompletedProcess(cmd, p.returncode,
+                                                     stdout)))
+    return out
+
+
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists.
     Returns its path; nvcc's output (register and shared-memory use) is kept
@@ -80,17 +95,27 @@ def build() -> Path:
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
+    nvcc = find_nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    try:
+        steps = _run_all([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                          str(src)] for src, obj in zip(sources(), objs))
+        if all(p.returncode == 0 for _, p in steps):
+            steps += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                                *map(str, objs)]])
+        log = "".join(f"$ {' '.join(cmd)}\n{p.stdout}" for cmd, p in steps)
+        failed = [p.returncode for _, p in steps if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed with exit code {failed[0]}:\n"
+                               f"{log}")
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{log}")
-    lib.with_suffix(".log").write_text(log)
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return lib
 
 

@@ -42,13 +42,26 @@ def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def query(fn: str, *args) -> int:
+    """The int that the C entry point `fn` (no kernel launch) returns for
+    `args`; raise where it reports a CUDA error (a negative value)."""
+    from parallelnbody_tpu_torch.kernels import build
+
+    lib = build.load_library()
+    value = getattr(lib, fn)(*args)
+    if value < 0:
+        raise RuntimeError(f"{fn} failed: CUDA error {-value} "
+                           f"({lib.pnb_error_string(-value).decode()})")
+    return value
+
+
 def launch(counts: dict, name: str, fn: str, *args):
     """Call the C entry point `fn` of the kernel library with `args` and the
     current stream; raise on a nonzero CUDA error, else add one to
     counts[name]."""
-    from parallelnbody_tpu_torch.kernels.build import load_library
+    from parallelnbody_tpu_torch.kernels import build
 
-    lib = load_library()
+    lib = build.load_library()
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     err = getattr(lib, fn)(*args, stream)
     if err != 0:

@@ -494,6 +494,7 @@ def _forces_sorted(pos_s, mass_s, tree, far_masks, rejects, *, start_leaf,
         (near_idx, near_valid, far_keys, far_valid, nodes8,
          overflow) = build_interaction_lists_octet(
             tree, far_masks, rejects, far_budget=far0_budget, **kw)
+        work = bh_kernels.near_work(near_valid)
         acc, pot = _eval_far_octet(tgt_leaves, nodes8, far_keys, far_valid,
                                    g=g, softening=softening,
                                    compute_pot=compute_pot)
@@ -501,13 +502,14 @@ def _forces_sorted(pos_s, mass_s, tree, far_masks, rejects, *, start_leaf,
         (near_idx, near_valid, far0_idx, far0_valid, up_idx, up_valid,
          nodes_up, leaf_nodes, overflow) = build_interaction_lists(
             tree, far_masks, rejects, far0_budget=far0_budget, **kw)
+        work = bh_kernels.near_work(near_valid)
         acc, pot = eval_far_lists(tgt_leaves, nodes_up, up_idx, up_valid,
                                   leaf_nodes, far0_idx, far0_valid, g=g,
                                   softening=softening,
                                   compute_pot=compute_pot)
     a, ph = bh_kernels.near_field(pos_s, mass_s, tgt_leaves, near_idx,
                                   near_valid, g=g, softening=softening,
-                                  compute_pot=compute_pot)
+                                  compute_pot=compute_pot, work=work)
     return acc + a, pot + ph, overflow
 
 
@@ -602,13 +604,16 @@ def bh_accel(pos, mass, *, leaf_size=256, theta=0.5, g=1.0, softening=1e-2,
 # ------------------------------------------------------------- list reuse
 class BHListPlan(NamedTuple):
     """Frozen interaction lists for rebuild-interval reuse
-    (bh_rebuild_every). overflow is the list-build clip counter."""
+    (bh_rebuild_every). overflow is the list-build clip counter; near_work
+    holds K1's work items for the near lists (None: built at each
+    evaluation, or not needed on the CPU)."""
 
     near_idx: torch.Tensor    # (n_leaves, near_budget) source-leaf ids
     near_valid: torch.Tensor  # (n_leaves, near_budget) bool
     far_keys: torch.Tensor    # (n_leaves, far_budget) (octet_id<<8)|child_mask
     far_valid: torch.Tensor   # (n_leaves, far_budget) bool
     overflow: torch.Tensor    # () int32
+    near_work: bh_kernels.NearWork | None = None
 
 
 def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
@@ -624,7 +629,8 @@ def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
         tree, far_masks, rejects, theta=theta, start_leaf=0,
         n_slice=n_leaves, near_budget=near_budget, far_budget=far_budget,
         dtype=dtype)
-    return BHListPlan(ni, nv, fk, fv, of.to(torch.int32))
+    return BHListPlan(ni, nv, fk, fv, of.to(torch.int32),
+                      bh_kernels.near_work(nv))
 
 
 def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
@@ -651,7 +657,7 @@ def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
                                compute_pot=compute_pot)
     a, ph = bh_kernels.near_field(pos_s, mass_s, tgt, plan.near_idx,
                                   plan.near_valid, g=g, softening=softening,
-                                  compute_pot=compute_pot)
+                                  compute_pot=compute_pot, work=plan.near_work)
     return acc + a, pot + ph
 
 

@@ -28,11 +28,26 @@ wrapper.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from parallelnbody_tpu_torch.kernels.launch import check, launch, on_cpu, ptr
 
 LAUNCHES = {"near_field": 0, "far_octet": 0, "far_gather": 0}
+
+# K1 work-item length: a near-list row is cut into items of at most this
+# many source leaves, one block each (csrc/near_field.cu; chosen on the card,
+# PERF.md §6).
+NEAR_CHUNK = 32
+
+
+class NearWork(NamedTuple):
+    """K1's work items for one set of near lists (`near_items`)."""
+
+    items: torch.Tensor   # (n_items, 4) int32 [row, begin, end, dst]
+    splits: torch.Tensor  # (n_split, 3) int32 [row, first, n]
+    n_partial: int
 
 
 def reset_launch_counts():
@@ -195,13 +210,67 @@ def far_gather_plain(tgt_leaves, table, idx, valid, *, g, softening,
 
 
 # ------------------------------------------------------------------ wrappers
+def near_items(counts, chunk):
+    """K1's work items from the live length counts (L,) of front-packed
+    near lists: every row is cut into ceil(count / chunk) items of at most
+    `chunk` entries (an empty row into one empty item, which writes its
+    zeros). Returns (items (n_items, 4) int32 [row, begin, end, dst],
+    splits (n_split, 3) int32 [row, first, n], n_partial), items longest
+    first (a stable sort, so a row's items keep their order among equals).
+    dst is -1 for the single item of a row, which writes the row's output;
+    the n items of a split row write partial slots first .. first + n - 1
+    in chunk order, which `splits` names for the combining pass; n_partial
+    slots in all.
+
+    Index bookkeeping in a few torch ops on the lists' device; reading the
+    three sizes back waits on the host once."""
+    counts = counts.to(torch.int64)
+    dev = counts.device
+    n_chunks = torch.clamp((counts + chunk - 1) // chunk, min=1)
+    split = n_chunks > 1
+    split_n = torch.where(split, n_chunks, 0)
+    n_items, n_partial, n_split = torch.stack(
+        [n_chunks.sum(), split_n.sum(), split.sum()]).tolist()
+    first_item = torch.cumsum(n_chunks, 0) - n_chunks
+    first_slot = torch.cumsum(split_n, 0) - split_n
+    rows = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev),
+                                   n_chunks, output_size=n_items)
+    k = torch.arange(n_items, device=dev) - first_item[rows]
+    begin = k * chunk
+    end = torch.minimum(begin + chunk, counts[rows])
+    dst = torch.where(split[rows], first_slot[rows] + k, -1)
+    order = torch.sort(end - begin, descending=True, stable=True).indices
+    items = torch.stack([rows, begin, end, dst], dim=1)[order]
+    # The split rows in ascending order, without a sync of their own.
+    split_rows = torch.sort((~split).to(torch.int8), stable=True).indices[
+        :n_split]
+    splits = torch.stack([split_rows, first_slot[split_rows],
+                          n_chunks[split_rows]], dim=1)
+    return NearWork(items.to(torch.int32).contiguous(),
+                    splits.to(torch.int32).contiguous(), n_partial)
+
+
+def near_work(valid):
+    """K1's work items (`near_items`, NEAR_CHUNK entries at most) for the
+    front-packed near lists whose mask is valid (L, B), where a row's valid
+    count is its live length. Built once per list build, next to the list
+    builder, so that lists evaluated several times (the rebuild-interval
+    runs) wait on the host once, not once a step. None for CPU lists:
+    `near_field_plain` needs no items."""
+    if valid.device.type == "cpu":
+        return None
+    return near_items(torch.sum(valid, dim=1), NEAR_CHUNK)
+
+
 def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
-               compute_pot=True):
+               compute_pot=True, work=None):
     """K1: exact near field of targets (L, G, 3) against their front-packed
     ascending lists of source leaves idx (L, B) int32 / valid (L, B) bool
     over the sorted particles pos_s (n_pad, 3), mass_s (n_pad,). Returns
     (acc (L*G, 3), pot (L*G,)). CPU tensors run `near_field_plain`; CUDA
-    tensors launch the kernel (f32 only)."""
+    tensors launch the kernel (f32 only) on the work items `work`
+    (`near_work(valid)`, built here when None) and a packed (n_pad, 4)
+    [x, y, z, m] source table."""
     if on_cpu(pos_s, mass_s, tgt_leaves, idx, valid):
         return near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, g=g,
                                 softening=softening, compute_pot=compute_pot)
@@ -210,22 +279,27 @@ def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
     budget = idx.shape[1]
     if n_pad % leaf_size or not 0 < leaf_size <= 1024:
         raise ValueError(f"leaf size {leaf_size} must divide {n_pad} and be "
-                         "at most 1024 (one thread per target)")
+                         "at most 1024")
     check("pos_s", pos_s, torch.float32, (n_pad, 3))
     check("mass_s", mass_s, torch.float32, (n_pad,))
     check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
     check("idx", idx, torch.int32, (n_slice, budget))
     check("valid", valid, torch.bool, (n_slice, budget))
-    # Lists are front-packed, so a row's valid count is its live length.
-    counts = torch.sum(valid, dim=1, dtype=torch.int32)
+    dev = pos_s.device
+    items, splits, n_partial = near_work(valid) if work is None else work
+    check("work.items", items, torch.int32, (items.shape[0], 4))
+    check("work.splits", splits, torch.int32, (splits.shape[0], 3))
+    table = torch.cat([pos_s, mass_s[:, None]], dim=1)
+    partial = torch.empty((n_partial, leaf_size, 4), dtype=torch.float32,
+                          device=dev)
     acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
-                      device=pos_s.device)
-    pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
-                      device=pos_s.device)
+                      device=dev)
+    pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32, device=dev)
     launch(LAUNCHES, "near_field", "pnb_near_field",
-           ptr(pos_s), ptr(mass_s), ptr(tgt_leaves), ptr(idx),
-           ptr(counts), ptr(acc), ptr(pot), n_slice, leaf_size, budget,
-           float(g), float(softening) ** 2, int(softening == 0.0),
+           ptr(table), ptr(tgt_leaves), ptr(idx), ptr(items), ptr(splits),
+           ptr(acc), ptr(pot), ptr(partial), items.shape[0],
+           splits.shape[0], leaf_size, budget, float(g),
+           float(softening) ** 2, int(softening == 0.0),
            int(bool(compute_pot)))
     return acc, pot
 

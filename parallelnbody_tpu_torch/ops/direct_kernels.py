@@ -27,7 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from parallelnbody_tpu_torch.kernels.launch import check, launch, on_cpu, ptr
+from parallelnbody_tpu_torch.kernels.launch import (check, launch, on_cpu, ptr,
+                                                    query)
 
 LAUNCHES = {"allpairs": 0}
 
@@ -67,7 +68,10 @@ def allpairs_plain(pos_i, pos_j, mass_j, *, softening, compute_pot=True):
 def allpairs(pos_i, pos_j, mass_j, *, softening, compute_pot=True):
     """K3: raw all-pairs sums (Ni, 4) of targets pos_i (Ni, 3) against
     sources pos_j (Nj, 3), mass_j (Nj,). CPU tensors run `allpairs_plain`;
-    CUDA tensors launch the kernel (f32 only)."""
+    CUDA tensors launch the kernel (f32 only) on a packed (Nj, 4)
+    [x, y, z, m] source table built here, with the sources cut into the
+    ranges of `pnb_allpairs_splits` and their partial sums added in range
+    order (csrc/allpairs.cu)."""
     if on_cpu(pos_i, pos_j, mass_j):
         return allpairs_plain(pos_i, pos_j, mass_j, softening=softening,
                               compute_pot=compute_pot)
@@ -75,9 +79,14 @@ def allpairs(pos_i, pos_j, mass_j, *, softening, compute_pot=True):
     check("pos_i", pos_i, torch.float32, (n_i, 3))
     check("pos_j", pos_j, torch.float32, (n_j, 3))
     check("mass_j", mass_j, torch.float32, (n_j,))
-    out = torch.empty((n_i, 4), dtype=torch.float32, device=pos_i.device)
+    dev = pos_i.device
+    table = torch.cat([pos_j, mass_j[:, None]], dim=1)
+    out = torch.empty((n_i, 4), dtype=torch.float32, device=dev)
+    n_split = query("pnb_allpairs_splits", n_i, n_j) if n_i else 1
+    partial = torch.empty((n_split if n_split > 1 else 0, n_i, 4),
+                          dtype=torch.float32, device=dev)
     launch(LAUNCHES, "allpairs", "pnb_allpairs",
-           ptr(pos_i), ptr(pos_j), ptr(mass_j), ptr(out), n_i, n_j,
+           ptr(pos_i), ptr(table), ptr(out), ptr(partial), n_i, n_j, n_split,
            float(softening) ** 2, int(softening == 0.0),
            int(bool(compute_pot)))
     return out

@@ -6,6 +6,10 @@ draws random numbers after the initial conditions.
 
 `state_from_numpy` / `state_to_numpy` carry a state between the two packages
 as numpy arrays (the JAX package's `SimState` fields of the same names).
+
+States are made on the card unless the caller names another device
+(`device="cpu"` runs the plain versions of the kernels, as the tests do);
+without a card, a call that names no device raises.
 """
 
 from __future__ import annotations
@@ -47,9 +51,23 @@ def torch_dtype(name) -> torch.dtype:
         raise ValueError(f"unsupported dtype {name!r}; float32 or float64")
 
 
-def make_state(pos, vel, mass, *, seed: int = 0, device="cpu",
+def resolve_device(device) -> torch.device:
+    """torch.device(device); raises for a CUDA device when there is none,
+    rather than carrying on somewhere else."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} needs a CUDA device, and "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "on the CPU")
+    return device
+
+
+def make_state(pos, vel, mass, *, seed: int = 0, device="cuda",
                dtype=torch.float32) -> SimState:
-    """Build a SimState from raw arrays; acc/pot start zeroed."""
+    """Build a SimState from raw arrays on `device`; acc/pot start
+    zeroed."""
+    device = resolve_device(device)
     dtype = torch_dtype(dtype)
     pos = torch.as_tensor(pos, dtype=dtype, device=device)
     vel = torch.as_tensor(vel, dtype=dtype, device=device)
@@ -70,7 +88,7 @@ def make_state(pos, vel, mass, *, seed: int = 0, device="cpu",
     )
 
 
-def state_from_numpy(arrays, device="cpu", dtype=torch.float32) -> SimState:
+def state_from_numpy(arrays, device="cuda", dtype=torch.float32) -> SimState:
     """SimState from a mapping (or object with attributes) of numpy arrays
     named like the SimState fields: pos, vel, mass and optionally acc, pot,
     time, step and seed. Missing acc/pot start at zero."""

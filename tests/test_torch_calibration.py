@@ -36,7 +36,7 @@ def _overflow(state, cfg):
 def test_requirements_exact_dense():
     """Zero overflow at exactly the measured maxima, overflow one below."""
     cfg = _cfg(n=2048, bh_leaf_size=32)
-    state = init_simulation(cfg, compute_forces=False)
+    state = init_simulation(cfg, "cpu", compute_forces=False)
     req = measure_budget_requirements(state.pos, state.mass, cfg)
     assert req["refine"] == "dense" and req["far_mode"] == "octet"
     exact = cfg.replace(bh_near_budget=req["near_max"],
@@ -53,7 +53,7 @@ def test_untuned_fresh_ic_runs_overflow_free():
     rebuild-interval run with zero overflow."""
     cfg = _cfg(n=3000, bh_leaf_size=32, bh_rebuild_every=2)
     assert cfg.bh_near_budget == 0 and cfg.bh_far_budget == 0
-    ccfg, state = prepare_simulation(cfg)
+    ccfg, state = prepare_simulation(cfg, "cpu")
     assert ccfg.bh_near_budget > 0 and ccfg.bh_far_budget > 0
     out, of = make_run(ccfg, 4, report_overflow=True)(state)
     assert int(of) == 0
@@ -62,12 +62,12 @@ def test_untuned_fresh_ic_runs_overflow_free():
 
 def test_explicit_budgets_respected():
     cfg = _cfg(n=2048, bh_leaf_size=32, bh_near_budget=77, bh_far_budget=99)
-    state = init_simulation(cfg, compute_forces=False)
+    state = init_simulation(cfg, "cpu", compute_forces=False)
     out = calibrate_budgets(cfg, state)
     assert out.bh_near_budget == 77 and out.bh_far_budget == 99
 
 
 def test_non_bh_noop():
     cfg = _cfg(n=512, force="direct")
-    state = init_simulation(cfg, compute_forces=False)
+    state = init_simulation(cfg, "cpu", compute_forces=False)
     assert calibrate_budgets(cfg, state) is cfg

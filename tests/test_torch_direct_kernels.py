@@ -143,7 +143,7 @@ def runs():
     j17 = jsim.step(16)
     ic = japi.init_simulation(JaxConfig(**KW), compute_forces=False)
     st = state_from_numpy({k: np.array(getattr(ic, k))
-                           for k in ("pos", "vel", "mass")})
+                           for k in ("pos", "vel", "mass")}, device="cpu")
     cfg = SimConfig(**KW)
     t0 = tapi._fill_initial_forces(cfg, st)
     t1 = tapi.make_step(cfg)(t0)

@@ -208,7 +208,7 @@ def test_gather_requirements_exact():
     below (the dense cases of tests/test_calibration.py, gather)."""
     cfg = SimConfig(n=2048, ic="plummer", theta=0.72, bh_leaf_size=32,
                     force="barnes_hut", bh_far_mode="gather")
-    state = tapi.init_simulation(cfg, compute_forces=False)
+    state = tapi.init_simulation(cfg, "cpu", compute_forces=False)
     req = tbh.measure_budget_requirements(state.pos, state.mass, cfg)
     exact = cfg.replace(bh_near_budget=req["near_max"],
                         bh_far_budget=req["far_max"])
@@ -249,7 +249,7 @@ def runs():
     j1 = jsim.step(1)
     ic = japi.init_simulation(JaxConfig(**KW), compute_forces=False)
     st = state_from_numpy({k: np.array(getattr(ic, k))
-                           for k in ("pos", "vel", "mass")})
+                           for k in ("pos", "vel", "mass")}, device="cpu")
     bh_kernels.reset_launch_counts()
     cfg = tapi.calibrate_budgets(SimConfig(**KW), st)
     t0 = tapi._fill_initial_forces(cfg, st)

@@ -122,12 +122,16 @@ def test_far_octet_kernel_matches_plain(lists, softening, compute_pot, quad):
 
 @pytest.mark.parametrize("softening", [0.02, 0.0], ids=["soft", "guard0"])
 @pytest.mark.parametrize("compute_pot", [True, False])
-@pytest.mark.parametrize("n_i,n_j", [(8192, 8192), (1000, 1000), (333, 700)],
-                         ids=["square", "odd", "rect"])
+@pytest.mark.parametrize("n_i,n_j", [(8192, 8192), (1000, 1000), (333, 700),
+                                     (1, 7), (1500, 5000)],
+                         ids=["square", "odd", "rect", "tiny", "ragged"])
 def test_allpairs_kernel_matches_plain(lists, softening, compute_pot, n_i,
                                        n_j):
-    """K3 at tile multiples, at an odd N (bounds checks in place of
-    padding) and with targets != sources."""
+    """K3 at tile multiples (the sources cut into ranges whose partial
+    sums are added in order), at an odd N (a ragged last tile and a block
+    only partly filled with targets), with targets != sources, with one
+    target against fewer sources than a tile, and with ranges over a
+    ragged last tile."""
     pos, mass = lists["pos_s"], lists["mass_s"]
     args = (pos[:n_i].contiguous(), pos[-n_j:].contiguous(),
             mass[-n_j:].contiguous())
@@ -137,6 +141,112 @@ def test_allpairs_kernel_matches_plain(lists, softening, compute_pot, n_i,
     assert direct_kernels.LAUNCHES["allpairs"] == before + 1
     _close(out, direct_kernels.allpairs_plain(*args, **kw))
     assert bool(torch.any(out[:, 3] != 0)) == compute_pot
+
+
+@pytest.fixture(scope="module")
+def uneven_lists(lists):
+    """A synthetic near list over the N = 8192 particles (128 source
+    leaves of 64) shaped like the N = 1M t = 0 lists' extremes: one row of
+    1164 entries (source leaves repeat) among short rows, empty rows and
+    rows of exactly NEAR_CHUNK entries and one more, budget 1536."""
+    n_src = lists["pos_s"].shape[0] // LEAF
+    chunk = bh_kernels.NEAR_CHUNK
+    counts = [5, 0, 1164, chunk, 0, chunk + 1, 37, 2 * chunk, 1, 0]
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    idx = torch.zeros((len(counts), 1536), dtype=torch.int32)
+    for row, c in enumerate(counts):
+        idx[row, :c] = torch.randint(0, n_src, (c,), generator=gen)
+    valid = torch.arange(1536)[None, :] < torch.tensor(counts)[:, None]
+    tgt_rows = torch.arange(len(counts)) * 11 % n_src
+    return (lists["pos_s"], lists["mass_s"],
+            lists["tgt"][tgt_rows.to(lists["tgt"].device)].contiguous(),
+            idx.cuda(), valid.cuda())
+
+
+@pytest.mark.parametrize("softening", [0.02, 0.0], ids=["soft", "guard0"])
+@pytest.mark.parametrize("compute_pot", [True, False])
+def test_near_field_kernel_uneven_rows(uneven_lists, softening, compute_pot):
+    """K1's work items: a row cut into 37 items, rows of one item, and
+    empty rows (zeros), against near_field_plain."""
+    kw = dict(g=1.5, softening=softening, compute_pot=compute_pot)
+    acc, pot = bh_kernels.near_field(*uneven_lists, **kw)
+    acc_p, pot_p = bh_kernels.near_field_plain(*uneven_lists, **kw)
+    _close(acc, acc_p)
+    _close(pot, pot_p)
+    empty = ~uneven_lists[4].any(1).repeat_interleave(LEAF)
+    assert bool((acc[empty] == 0).all()) and bool((pot[empty] == 0).all())
+
+
+@pytest.mark.parametrize("leaf", [16, 128, 256])
+@pytest.mark.parametrize("compute_pot", [True, False])
+def test_near_field_kernel_leaf_sizes(cuda, leaf, compute_pot):
+    """K1 holds 1, 4 and 8 targets a thread at leaf 16, 128 and 256 (a
+    block is one warp from leaf 128 on); the work items built beforehand
+    (near_work, as the paths build them) give the same bits as items built
+    inside the call."""
+    cfg = SimConfig(n=8192, ic="plummer", seed=4)
+    state = init_simulation(cfg, "cpu", compute_forces=False)
+    pos_s, mass_s, _, tree, _, n_pad = bh._prepare(
+        state.pos, state.mass, leaf_size=leaf, curve="hilbert",
+        multipole_order=2)
+    n_leaves = n_pad // leaf
+    far, rej = bh.traverse(tree, 0.6)
+    ni, nv, *_, of = bh.build_interaction_lists_octet(
+        tree, far, rej, theta=0.6, start_leaf=0, n_slice=n_leaves,
+        near_budget=n_leaves, far_budget=n_leaves, dtype=torch.float32)
+    assert int(of) == 0
+    args = tuple(t.contiguous().to(cuda) for t in (
+        pos_s, mass_s, pos_s.reshape(n_leaves, leaf, 3), ni, nv))
+    kw = dict(g=1.5, softening=0.02, compute_pot=compute_pot)
+    acc, pot = bh_kernels.near_field(*args, **kw)
+    acc_p, pot_p = bh_kernels.near_field_plain(*args, **kw)
+    _close(acc, acc_p)
+    _close(pot, pot_p)
+    acc_w, pot_w = bh_kernels.near_field(
+        *args, work=bh_kernels.near_work(args[4]), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, acc_w) and torch.equal(pot, pot_w)
+
+
+@pytest.mark.parametrize("softening", [0.02, 0.0], ids=["soft", "guard0"])
+@pytest.mark.parametrize("kernel", ["near_field", "allpairs"])
+def test_pair_kernels_repeat_bit_equal(lists, uneven_lists, kernel,
+                                       softening):
+    """K1 and K3 take no float atomics: two launches on the same inputs
+    give the same bits."""
+    if kernel == "near_field":
+        def run():
+            return bh_kernels.near_field(*uneven_lists, g=1.0,
+                                         softening=softening)
+    else:
+        pos, mass = lists["pos_s"], lists["mass_s"]
+
+        def run():
+            return (direct_kernels.allpairs(pos, pos, mass,
+                                            softening=softening),)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_rebuild_interval_plan_holds_the_work_items(cuda):
+    """bh_plan_lists builds K1's work items once with the lists, so the
+    frozen lists' evaluations wait on the host no more."""
+    cfg = SimConfig(n=4096, ic="plummer", seed=2)
+    state = init_simulation(cfg, cuda, compute_forces=False)
+    pos_s, mass_s, _, tree, _, _ = bh._prepare(
+        state.pos, state.mass, leaf_size=LEAF, curve="hilbert",
+        multipole_order=2)
+    plan = bh.bh_plan_lists(tree, theta=0.6, near_budget=64, far_budget=64,
+                            refine="dense", cand_budgets=(0, 0),
+                            dtype=torch.float32)
+    assert int(plan.overflow) == 0
+    want = bh_kernels.near_work(plan.near_valid)
+    assert plan.near_work is not None
+    assert torch.equal(plan.near_work.items, want.items)
+    assert torch.equal(plan.near_work.splits, want.splits)
+    assert plan.near_work.n_partial == want.n_partial
 
 
 @pytest.mark.parametrize("softening", [0.02, 0.0], ids=["soft", "guard0"])

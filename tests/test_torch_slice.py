@@ -35,7 +35,8 @@ from parallelnbody_tpu_torch import Simulation, SimConfig
 from parallelnbody_tpu_torch import api as tapi
 from parallelnbody_tpu_torch.ops import bh as tbh
 from parallelnbody_tpu_torch.ops import bh_kernels
-from parallelnbody_tpu_torch.state import state_from_numpy, state_to_numpy
+from parallelnbody_tpu_torch.state import (make_state, state_from_numpy,
+                                           state_to_numpy)
 from parallelnbody_tpu_torch.utils.accuracy import \
     rms_force_error_sample as t_rms
 
@@ -68,7 +69,7 @@ def runs():
 
     ic = japi.init_simulation(JaxConfig(**KW), compute_forces=False)
     st = state_from_numpy({k: np.array(getattr(ic, k))
-                           for k in ("pos", "vel", "mass")})
+                           for k in ("pos", "vel", "mass")}, device="cpu")
     cfg = tapi.calibrate_budgets(SimConfig(**KW), st)
     t0 = tapi._fill_initial_forces(cfg, st)
     t1, of1 = tapi.make_step(cfg, report_overflow=True)(t0)
@@ -182,6 +183,28 @@ def test_simulation_cuda_raises_without_cuda():
         Simulation(SimConfig(**KW), device="cuda")
 
 
+@pytest.mark.parametrize("entry", ["init_simulation", "prepare_simulation",
+                                   "make_state", "state_from_numpy"])
+def test_entry_points_default_to_the_card(entry):
+    """Without a device argument the entry points run on the card; where
+    there is none they raise, and do not carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    n = 64
+    arrays = {"pos": np.zeros((n, 3), np.float32),
+              "vel": np.zeros((n, 3), np.float32),
+              "mass": np.full(n, 1.0 / n, np.float32)}
+    call = {"init_simulation": lambda: tapi.init_simulation(
+                SimConfig(**KW)),
+            "prepare_simulation": lambda: tapi.prepare_simulation(
+                SimConfig(**KW)),
+            "make_state": lambda: make_state(arrays["pos"], arrays["vel"],
+                                             arrays["mass"]),
+            "state_from_numpy": lambda: state_from_numpy(arrays)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+
+
 @pytest.mark.parametrize("change", [
     {"bh_refine": "staged"}, {"bh_far_mode": "gather", "bh_refine": "staged"},
     {"force": "direct_pallas", "ic": "disk"}, {"ic": "hernquist"},
@@ -244,7 +267,7 @@ def test_diagnostics_match(runs):
     j = runs["j0"]
     t = state_from_numpy({k: np.array(getattr(j, k)) for k in
                           ("pos", "vel", "mass", "acc", "pot", "time",
-                           "step")})
+                           "step")}, device="cpu")
     jd, td = j_diag(j), t_diag(t)
     assert set(jd) == set(td)
     for k in jd:
@@ -257,7 +280,7 @@ def test_state_numpy_round_trip(runs):
     j = runs["j17"]
     arrays = {k: np.array(getattr(j, k)) for k in
               ("pos", "vel", "mass", "acc", "pot", "time", "step")}
-    back = state_to_numpy(state_from_numpy(arrays))
+    back = state_to_numpy(state_from_numpy(arrays, device="cpu"))
     for k, v in arrays.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
         assert back[k].dtype == v.dtype, k
