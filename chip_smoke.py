@@ -18,16 +18,19 @@ Phases, each of which exits non-zero on failure:
      version's at the main path's shapes:
        K1 (near field) and K2 (octet far field) at the lists of the N = 1M
        operating point (examples/barneshut_1m_reuse.json) and in full at
-       N = 65536, for both potential settings; K1 also, timed, on the lists
-       of the state after 8 steps of the octet path, and, timed, in full at
-       N = 262144 with the auto leaf size 128 (both potential settings);
+       N = 65536, for both potential settings; both also, timed, on the
+       lists of the state after 8 steps of the octet path (K2 with the
+       accepted children per target leaf, mean and max, on both list
+       sets), and in full at N = 262144 with the auto leaf size 128 (both
+       potential settings; K1 and K2 timed);
        K3 (all-pairs) in full at N = 262144 (examples/allpairs_262k.json)
        and at N = 65536, on 4096 sampled targets with the potential, and
        at an odd N = 1000;
-       K1 and K3 launched twice on the same inputs give the same bits;
        K4 (gather far field) at the N = 1M gather lists (upper and leaf
-       list), in full at N = 65536, and on a scattered (front_packed=False)
-       list.
+       list), in full at N = 65536 and at N = 262144 with leaf 128, and on
+       a scattered (front_packed=False) list;
+       each of the four launched twice on the same inputs gives the same
+       bits.
   4. Octet main path: Simulation(cfg, device="cuda") on the N = 1M config,
      then step(1) (per step) and step(16) (two rebuild blocks of 8).
   5. All-pairs path: examples/allpairs_262k.json, step(1) and step(16);
@@ -41,7 +44,9 @@ Before each path every launch count is set to 0 and after it the counts
 are read: each kernel of the path must have been launched, the list
 overflow must be 0, every output finite, and the sampled rms force error
 against the direct sum below the path's bound. ms/step comes from CUDA
-events after a warm-up.
+events after a warm-up; the device's busy time in one more step (or
+rebuild block) from torch.profiler's CUDA activity, whose share of the
+step says how far the host holds the card back.
 
 Each kernel's bound is the least time the card could take for the work of
 this run's inputs: the larger of its FP32 operations over 67 TFLOP/s, its
@@ -49,9 +54,12 @@ rsqrts over the MUFU rate (16 a clock per SM, 1/16 of the FP32 rate) and
 the bytes of its inputs and outputs, each moved once, over 3.35 TB/s (the
 H100 SXM's published rates at 700 W). A monopole pair term without the
 potential is 18 FP32 operations (an FMA as two) and one rsqrt, which the
-MUFU term counts; a quadrupole term 57 and one rsqrt. share = bound / time.
-K1 is timed on work items built beforehand, as the paths build them once
-per list build; the items' own cost is timed apart.
+MUFU term counts; a quadrupole term 48 (terms.cuh quad_term) and one
+rsqrt, with the share against the former term's 57 printed beside.
+share = bound / time.
+K1 is timed on work items built beforehand, K2 and K4 on launch orders
+built beforehand, as the paths build them once per list build; their own
+cost is timed apart.
 
 The last four lines of standard output are one JSON object with the
 kernels' numbers, the card's SM clock and its maximum as nvidia-smi gives
@@ -87,12 +95,12 @@ GATHER_OCTET_BOUND = 1e-5   # relative force norm, tests/test_bh.py:752
 RMS_SAMPLES = 4096
 SAMPLE_ROWS = 64            # target leaves of the 1M lists held with the potential
 PARITY_N = 65536            # second, full-size parity point
-LEAF128_N = 262144          # K1/K2 parity and K1 time at the auto leaf 128
+LEAF128_N = 262144          # K1/K2/K4 parity and K1/K2 time at the auto leaf 128
 ALLPAIRS_SAMPLE = 4096      # K3 targets held with the potential at N=262144
 ODD_N = 1000                # K3 at an N that is no multiple of its tile
 KERNEL_REPS = 10
-LATER_STEPS = 8             # K1 is timed again on the lists after this many
-STEP_REPS = 3
+LATER_STEPS = 8             # K1 and K2 are timed again on the lists after this many
+STEP_REPS = 5
 REUSE_STEPS = 16
 GATHER_STEPS = 8
 DEFAULT_STEPS = 10
@@ -103,7 +111,12 @@ FP32_FLOPS = 67e12          # H100 SXM, FP32 outside the tensor cores, 700 W
 MUFU_RATE = FP32_FLOPS / 16  # rsqrt/s: 16 a clock per SM against 256 FP32 flops
 HBM_BYTES = 3.35e12         # B/s
 FLOPS_MONOPOLE = 18         # d 3, r^2 6, w 3, sums 6 (terms.cuh); + 1 rsqrt
-FLOPS_QUADRUPOLE = 57       # + 39 for the traceless quadrupole (node_term)
+# The quadrupole term K2 and K4 evaluate (terms.cuh quad_term): d 3, r^2 6,
+# qd 15, qq 5, u^2 and u^5 3, m r^2 and qq u^2 2, the coefficient 2, the
+# sums 12; + 1 rsqrt. The former term (Qzz and u^7 formed per target) took
+# 57; shares against that count are printed beside ("share_57ops").
+FLOPS_QUADRUPOLE = 48
+FLOPS_QUADRUPOLE_OLD = 57
 
 KERNELS = {
     "near_field": ("parallelnbody_tpu_torch/csrc/near_field.cu",
@@ -116,12 +129,13 @@ KERNELS = {
                    "parallelnbody_tpu/ops/pallas_bh.py:41"),
 }
 # Each kernel's instantiation on the main path (compute_pot=False, softened;
-# K1 at leaf 256, K2/K4 with quadrupoles), as its mangled name spells it.
+# leaf 256: K1 with 8 targets a thread, K2 and K4 with 4 and quadrupoles,
+# K4 front-packed), as its mangled name spells it.
 MAIN_INSTANCE = {
     "near_field": "near_field_kernelILi8ELb0ELb0E",
-    "far_octet": "far_octet_kernelILb1ELb0ELb0E",
+    "far_octet": "far_octet_kernelILi4ELb1ELb0ELb0E",
     "allpairs": "allpairs_kernelILb0ELb0E",
-    "far_gather": "far_gather_kernelILb1ELb0ELb0ELb0E",
+    "far_gather": "far_gather_kernelILi4ELb1ELb0ELb0ELb0E",
 }
 
 
@@ -151,14 +165,19 @@ def bound(terms, flops_per_term, n_bytes):
     res = max(secs, key=secs.get)
     return {"bound_ms": secs[res] * 1e3,
             "bound_by": "bytes" if res == "hbm" else "operations",
-            "bound_resource": res}
+            "bound_resource": res, "terms": terms,
+            "flops_per_term": flops_per_term}
 
 
 def with_share(rec, work):
     """rec updated with the bound of `work` (bound()'s result) and the
-    share bound / time."""
+    share bound / time; for quadrupole terms also the share against the
+    former term's FLOPS_QUADRUPOLE_OLD operations."""
     rec.update(work)
     rec["share"] = rec["bound_ms"] / rec["ms"]
+    if rec.get("flops_per_term") == FLOPS_QUADRUPOLE:
+        old = bound(rec["terms"], FLOPS_QUADRUPOLE_OLD, 0)["bound_ms"]
+        rec["share_57ops"] = old / rec["ms"]
     return rec
 
 
@@ -241,6 +260,26 @@ def cuda_ms(fn, reps=1):
     return out, start.elapsed_time(end) / reps
 
 
+def device_ms(fn):
+    """The device time (ms) of the kernels and copies that one call of fn()
+    runs, summed from torch.profiler's CUDA activity; None where the
+    profiler records no device activity. Beside the call's time on the
+    events clock it gives the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 if busy > 0 else None
+
+
+def busy_share(dev_ms, ms):
+    return "not measured" if dev_ms is None else f"{dev_ms / ms:.3f}"
+
+
 def clocks_under_load(fn, reps=KERNEL_REPS):
     """The SM clock and its maximum, sampled by nvidia-smi while reps
     launches of fn(), queued beforehand, keep the card busy."""
@@ -289,7 +328,8 @@ def lists_for(cfg, state):
         raise AssertionError(f"list overflow {int(of)} at calibrated budgets")
     return dict(pos_s=pos_s, mass_s=mass_s,
                 tgt=pos_s.reshape(n_leaves, leaf, 3), ni=ni, nv=nv, fk=fk,
-                fv=fv, nodes8=nodes8, work=bh_kernels.near_work(nv))
+                fv=fv, nodes8=nodes8, work=bh_kernels.near_work(nv),
+                order=bh_kernels.far_order(fv))
 
 
 def near_args(L, rows=None):
@@ -317,11 +357,23 @@ def list_work(name, L, n_comp=None):
         terms = int(L["nv"].sum()) * leaf * leaf
         return bound(terms, FLOPS_MONOPOLE, out_bytes + nbytes(
             L["pos_s"], L["mass_s"], tgt, L["ni"], L["nv"]))
-    mask = torch.where(L["fv"], L["fk"] & 0xFF, 0)
-    children = sum(int(((mask >> b) & 1).sum()) for b in range(8))
+    children = int(children_per_leaf(L).sum())
     flops = FLOPS_QUADRUPOLE if L["nodes8"].shape[1] >= 9 else FLOPS_MONOPOLE
     return bound(children * leaf, flops, out_bytes + nbytes(
         tgt, L["nodes8"], L["fk"], L["fv"]))
+
+
+def children_per_leaf(L):
+    """(L,) the accepted children (set mask bits) of each target leaf's
+    K2 list: the node rows K2 sweeps for it."""
+    mask = torch.where(L["fv"], L["fk"] & 0xFF, 0)
+    return sum(((mask >> b) & 1).sum(1) for b in range(8))
+
+
+def balance(counts):
+    """'mean M max X (max/mean R)' of a per-leaf count (L,)."""
+    mean, top = float(counts.float().mean()), int(counts.max())
+    return f"mean {mean:.1f} max {top} (max/mean {top / mean:.2f})"
 
 
 def phase_kernel_parity(cfg_json):
@@ -351,9 +403,11 @@ def phase_kernel_parity(cfg_json):
     for name, (kernel, plain, args) in funcs.items():
         rec = out[name]
         # The main path's setting (track_potential=False) at its shapes; K1
-        # on the items the path builds with the lists.
+        # on the items and K2 in the launch order the paths build with the
+        # lists.
         full = args(L)
-        fkw = dict(kw, work=L["work"]) if name == "near_field" else kw
+        fkw = (dict(kw, work=L["work"]) if name == "near_field" else
+               dict(kw, order=L["order"]))
         got = kernel(*full, compute_pot=False, **fkw)
         plain(*args(L, rows), compute_pot=False, **kw)      # warm-up
         want, rec["plain_ms"] = cuda_ms(
@@ -393,14 +447,54 @@ def phase_kernel_parity(cfg_json):
         f"split rows, {L['work'].n_partial} partial slots; built in "
         f"{rec['work_ms']:.3f} ms (host wait included); SM clock, max while "
         f"K1 runs: {rec['clocks']}")
+    far = out["far_octet"]
+    far["deterministic"] = repeat_equal(
+        "far_octet", lambda: bh_kernels.far_octet(*far_args(L),
+                                                  compute_pot=False, **kw))
+    far["children_t0"] = balance(children_per_leaf(L))
+    # The launch order's own cost: once per list build, as the items'. And
+    # what it buys: the same lists with the leaves in curve order.
+    bh_kernels.far_order(L["fv"])                            # warm-up
+    _, far["order_ms"] = cuda_ms(lambda: bh_kernels.far_order(L["fv"]),
+                                 KERNEL_REPS)
+    curve = torch.arange(n_leaves, dtype=torch.int32, device=dev)
+    _, far["ms_curve_order"] = cuda_ms(lambda: bh_kernels.far_octet(
+        *far_args(L), compute_pot=False, order=curve, **kw), KERNEL_REPS)
+    log(f"far_octet at N={cfg.n}: accepted children per target leaf "
+        f"{far['children_t0']}; {far['terms']:.4e} node-target terms; "
+        f"share against {FLOPS_QUADRUPOLE_OLD} operations a term "
+        f"{far.get('share_57ops', float('nan')):.3f}; launch order built in "
+        f"{far['order_ms']:.3f} ms; {far['ms_curve_order']:.3f} ms with the "
+        "leaves in curve order; repeat launches bit-equal")
     del L, state
 
-    # K1 again on the lists of the state after LATER_STEPS octet steps,
-    # where the t = 0 lists' longest rows have relaxed.
+    # K1 and K2 again on the lists of the state after LATER_STEPS octet
+    # steps, where the t = 0 lists' longest rows have relaxed.
     sim = Simulation(cfg, device=DEVICE)
     sim.step(LATER_STEPS)
     L = lists_for(sim.cfg, sim.state)
     del sim
+    full = far_args(L)
+    got = bh_kernels.far_octet(*full, compute_pot=False, **kw)
+    far["max_abs_err"] = max(far["max_abs_err"], max_err(
+        f"far_octet N={cfg.n} after {LATER_STEPS} steps", got,
+        bh_kernels.far_octet_plain(*full, compute_pot=False, **kw)))
+    _, ms = cuda_ms(lambda: bh_kernels.far_octet(
+        *full, compute_pot=False, order=L["order"], **kw), KERNEL_REPS)
+    later = with_share({"ms": ms}, list_work("far_octet", L))
+    far.update({f"{k}_step{LATER_STEPS}": later[k]
+                for k in ("ms", "bound_ms", "share", "terms")})
+    far[f"children_step{LATER_STEPS}"] = balance(children_per_leaf(L))
+    per_term = [far["ms"] / far["terms"], ms / later["terms"]]
+    far["per_term_ratio"] = max(per_term) / min(per_term)
+    log(f"far_octet on the lists after {LATER_STEPS} steps: accepted "
+        f"children per target leaf {far[f'children_step{LATER_STEPS}']}; "
+        f"{later['terms']:.4e} node-target terms (t = 0: "
+        f"{far['terms']:.4e}); kernel {ms:.3f} ms, bound "
+        f"{later['bound_ms']:.3f} ms, share {later['share']:.3f}; time per "
+        f"term {per_term[1] * 1e9:.4f} ps against {per_term[0] * 1e9:.4f} ps "
+        f"at t = 0 (ratio {far['per_term_ratio']:.3f})")
+    del full, got
     full = near_args(L)
     got = bh_kernels.near_field(*full, compute_pot=False, **kw)
     rec["max_abs_err"] = max(rec["max_abs_err"], max_err(
@@ -427,7 +521,8 @@ def phase_kernel_parity(cfg_json):
 
     # Full parity at two more sizes, both potential settings: N = 65536 at
     # leaf 256, and N = 262144 at its auto leaf size 128 (K1 then holds 4
-    # targets a thread), where K1 is timed too.
+    # targets a thread, K2's blocks are one warp), where K1 and K2 are timed
+    # too.
     for n, leaf in ((PARITY_N, None), (LEAF128_N, 0)):
         small = SimConfig.from_json(cfg_json).replace(n=n)
         if leaf is not None:
@@ -457,6 +552,17 @@ def phase_kernel_parity(cfg_json):
             f"bound {at['bound_ms']:.3f} ms, share {at['share']:.3f}; "
             f"near entries mean {float(L['nv'].sum(1).float().mean()):.1f} "
             f"max {int(L['nv'].sum(1).max())}")
+        full = far_args(L)
+        bh_kernels.far_octet(*full, compute_pot=False, order=L["order"], **kw)
+        _, ms = cuda_ms(lambda: bh_kernels.far_octet(
+            *full, compute_pot=False, order=L["order"], **kw), KERNEL_REPS)
+        at = with_share({"ms": ms}, list_work("far_octet", L))
+        out["far_octet"].update({f"{k}_leaf128": at[k]
+                                 for k in ("ms", "bound_ms", "share")})
+        log(f"far_octet at {label} (compute_pot=False): kernel {ms:.3f} ms, "
+            f"bound {at['bound_ms']:.3f} ms, share {at['share']:.3f}; "
+            f"accepted children per target leaf "
+            f"{balance(children_per_leaf(L))}")
     return out
 
 
@@ -569,9 +675,14 @@ def phase_gather_parity(cfg_json):
             f"{int(v.sum(1).max())}" for name, _, _, v in classes)
         + f" ({time.perf_counter() - t0:.1f} s)")
 
+    # The launch orders the gather path builds with its lists.
+    orders = [bh_kernels.far_order(valid) for *_, valid in classes]
+
     def both(fn):
-        return [fn(tgt, table, idx, valid, compute_pot=False, **kw)
-                for _, table, idx, valid in classes]
+        extra = ([{}] * len(classes) if fn is plain else
+                 [{"order": o} for o in orders])
+        return [fn(tgt, table, idx, valid, compute_pot=False, **kw, **x)
+                for (_, table, idx, valid), x in zip(classes, extra)]
 
     got = both(kernel)
     _, table, idx, valid = classes[1]
@@ -590,20 +701,34 @@ def phase_gather_parity(cfg_json):
     with_share(rec, bound(terms, flops, sum(
         nbytes(tgt, table, idx, valid) + tgt.shape[0] * leaf * 16
         for _, table, idx, valid in classes)))
+    rec["deterministic"] = repeat_equal(
+        "far_gather", lambda: [t for out in both(kernel) for t in out])
+    _, rec["order_ms"] = cuda_ms(lambda: [bh_kernels.far_order(v)
+                                          for *_, v in classes], KERNEL_REPS)
     log(f"far_gather at N={cfg.n}, upper + leaf list (compute_pot=False): "
         f"kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.1f} ms, bound "
         f"{rec['bound_ms']:.3f} ms ({rec['bound_resource']}), share "
-        f"{rec['share']:.3f}; full max abs err {rec['max_abs_err']:.3e}")
+        f"{rec['share']:.3f} (against {FLOPS_QUADRUPOLE_OLD} operations a "
+        f"term {rec.get('share_57ops', float('nan')):.3f}); launch orders "
+        f"built in {rec['order_ms']:.3f} ms; full max abs err "
+        f"{rec['max_abs_err']:.3e}; repeat launches bit-equal")
     rows = torch.linspace(0, tgt.shape[0] - 1, SAMPLE_ROWS, device=dev).long()
     held(f"N={cfg.n}, {SAMPLE_ROWS} sampled target leaves", tgt, classes,
          True, rows)
     del state, tgt, classes, got
 
-    small = cfg.replace(n=PARITY_N, bh_near_budget=0, bh_far_budget=0)
-    state = init_simulation(small, dev, compute_forces=False)
-    tgt, classes = gather_lists_for(calibrate_budgets(small, state), state)
-    for compute_pot in (True, False):
-        held(f"N={PARITY_N} full", tgt, classes, compute_pot)
+    # In full at N = 65536 (leaf 256) and at N = 262144 with its auto leaf
+    # size 128 (4 targets a thread), both potential settings.
+    for n, leaf in ((PARITY_N, None), (LEAF128_N, 0)):
+        small = cfg.replace(n=n, bh_near_budget=0, bh_far_budget=0)
+        if leaf is not None:
+            small = small.replace(bh_leaf_size=leaf)
+        state = init_simulation(small, dev, compute_forces=False)
+        small = calibrate_budgets(small, state)
+        tgt, classes = gather_lists_for(small, state)
+        for compute_pot in (True, False):
+            held(f"N={n}, leaf {small.resolve_bh_leaf_size()}", tgt, classes,
+                 compute_pot)
 
     # A scattered list (tests/test_bh.py:394): one valid source at node 600
     # of 700, past the kernel's first chunk of entries.
@@ -694,9 +819,16 @@ def phase_octet_path(cfg_json):
                                (1, REUSE_STEPS), RMS_BOUND)
     _, ms_step = cuda_ms(lambda: sim.step(1), STEP_REPS)
     _, ms_block = cuda_ms(lambda: sim.step(REUSE_STEPS))
+    dev_step = device_ms(lambda: sim.step(1))
+    dev_block = device_ms(lambda: sim.step(REUSE_STEPS))
+    ms_reuse = ms_block / REUSE_STEPS
     log(f"octet path: ms/step at N={cfg.n}: per-step {ms_step:.2f} (mean of "
         f"{STEP_REPS} step(1)), rebuild every {cfg.bh_rebuild_every} "
-        f"{ms_block / REUSE_STEPS:.2f} (step({REUSE_STEPS}))")
+        f"{ms_reuse:.2f} (step({REUSE_STEPS})); device busy per step "
+        f"{dev_step or float('nan'):.2f} ms (share "
+        f"{busy_share(dev_step, ms_step)}) and "
+        f"{(dev_block or float('nan')) / REUSE_STEPS:.2f} ms (share "
+        f"{busy_share(dev_block and dev_block / REUSE_STEPS, ms_reuse)})")
     report_diagnostics("octet path", sim)
     return launches
 
@@ -725,12 +857,8 @@ def phase_gather_path(cfg_json):
     sim, launches = drive_path("gather path", cfg,
                                ("near_field", "far_gather"),
                                (1, GATHER_STEPS), RMS_BOUND)
-    _, ms_step = cuda_ms(lambda: sim.step(1), STEP_REPS)
-    log(f"gather path: ms/step at N={cfg.n}: {ms_step:.2f} (mean of "
-        f"{STEP_REPS} step(1); gather rebuilds the lists every step)")
-    report_diagnostics("gather path", sim)
-
-    # The same state through both far modes (tests/test_bh.py:752).
+    # The same state through both far modes (tests/test_bh.py:752), before
+    # the timed steps carry it past the budgets calibrated at t = 0.
     c, s = sim.cfg, sim.state
     kw = dict(leaf_size=c.resolve_bh_leaf_size(), theta=c.theta, g=c.g,
               softening=c.softening, near_budget=c.bh_near_budget,
@@ -749,6 +877,14 @@ def phase_gather_path(cfg_json):
         raise AssertionError(f"gather vs octet: relative norm {rel:.3e} "
                              f"(bound {GATHER_OCTET_BOUND}), overflow "
                              f"{int(og)} / {int(oo)}")
+
+    _, ms_step = cuda_ms(lambda: sim.step(1), STEP_REPS)
+    dev_step = device_ms(lambda: sim.step(1))
+    log(f"gather path: ms/step at N={cfg.n}: {ms_step:.2f} (mean of "
+        f"{STEP_REPS} step(1); gather rebuilds the lists every step); device "
+        f"busy per step {dev_step or float('nan'):.2f} ms (share "
+        f"{busy_share(dev_step, ms_step)})")
+    report_diagnostics("gather path", sim)
     return launches
 
 

@@ -34,12 +34,12 @@ _SIGNATURES = (
     ("pnb_near_field",
      [_VP] * 8 + [_I, _I, _I, _I, _F, _F, _I, _I, _VP], _I),
     ("pnb_far_octet",
-     [_VP] * 6 + [_I, _I, _I, _I, _F, _F, _I, _I, _VP], _I),
+     [_VP] * 7 + [_I, _I, _I, _I, _F, _F, _I, _I, _VP], _I),
     ("pnb_allpairs",
      [_VP] * 4 + [_I, _I, _I, _F, _I, _I, _VP], _I),
     ("pnb_allpairs_splits", [_I, _I], _I),
     ("pnb_far_gather",
-     [_VP] * 7 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _VP], _I),
+     [_VP] * 8 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _VP], _I),
     ("pnb_error_string", [_I], ctypes.c_char_p),
 )
 

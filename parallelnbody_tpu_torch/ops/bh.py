@@ -385,11 +385,13 @@ def build_interaction_lists_octet(tree, far_masks, rejects_l1, *, theta,
 
 
 def _eval_far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,
-                    compute_pot=True):
+                    compute_pot=True, order=None):
     """Evaluate ONE octet-masked far list over the 8-aligned combined node
-    table -> (acc, pot) flat over the window's particles (kernel K2)."""
+    table -> (acc, pot) flat over the window's particles (kernel K2, its
+    leaves launched in `order`, bh_kernels.far_order)."""
     return bh_kernels.far_octet(tgt_leaves, nodes8, keys, valid, g=g,
-                                softening=softening, compute_pot=compute_pot)
+                                softening=softening, compute_pot=compute_pot,
+                                order=order)
 
 
 # ------------------------------------------------------ gather far lists
@@ -605,8 +607,9 @@ def bh_accel(pos, mass, *, leaf_size=256, theta=0.5, g=1.0, softening=1e-2,
 class BHListPlan(NamedTuple):
     """Frozen interaction lists for rebuild-interval reuse
     (bh_rebuild_every). overflow is the list-build clip counter; near_work
-    holds K1's work items for the near lists (None: built at each
-    evaluation, or not needed on the CPU)."""
+    holds K1's work items for the near lists and far_order K2's launch
+    order for the far lists (None: built at each evaluation, or not needed
+    on the CPU)."""
 
     near_idx: torch.Tensor    # (n_leaves, near_budget) source-leaf ids
     near_valid: torch.Tensor  # (n_leaves, near_budget) bool
@@ -614,6 +617,7 @@ class BHListPlan(NamedTuple):
     far_valid: torch.Tensor   # (n_leaves, far_budget) bool
     overflow: torch.Tensor    # () int32
     near_work: bh_kernels.NearWork | None = None
+    far_order: torch.Tensor | None = None
 
 
 def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
@@ -630,7 +634,7 @@ def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
         n_slice=n_leaves, near_budget=near_budget, far_budget=far_budget,
         dtype=dtype)
     return BHListPlan(ni, nv, fk, fv, of.to(torch.int32),
-                      bh_kernels.near_work(nv))
+                      bh_kernels.near_work(nv), bh_kernels.far_order(fv))
 
 
 def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
@@ -654,7 +658,7 @@ def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
     tgt = pos_s.reshape(n_leaves, leaf_size, 3)
     acc, pot = _eval_far_octet(tgt, nodes8, plan.far_keys, plan.far_valid,
                                g=g, softening=softening,
-                               compute_pot=compute_pot)
+                               compute_pot=compute_pot, order=plan.far_order)
     a, ph = bh_kernels.near_field(pos_s, mass_s, tgt, plan.near_idx,
                                   plan.near_valid, g=g, softening=softening,
                                   compute_pot=compute_pot, work=plan.near_work)

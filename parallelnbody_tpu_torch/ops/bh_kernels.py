@@ -210,6 +210,43 @@ def far_gather_plain(tgt_leaves, table, idx, valid, *, g, softening,
 
 
 # ------------------------------------------------------------------ wrappers
+def far_rows(table):
+    """The node rows that K2 and K4 stage with 16-byte copies, from a
+    multipole table (n, 9) [x, y, z, m, Qxx, Qyy, Qxy, Qxz, Qyz]: (n, 12)
+    [x, y, z, m, Qxx, Qyy, Qxy, Qxz, Qyz, Qzz, 0, 0], Qzz = -(Qxx + Qyy)
+    formed once per node (csrc/terms.cuh quad_term). A monopole table
+    (n, 4) is its own packing, returned as it is, or copied where its rows
+    do not start on a 16-byte boundary. Three small torch ops on every call
+    of the wrappers; the plain versions read the (n, 9) table."""
+    if table.shape[1] == 4:
+        return table if table.data_ptr() % 16 == 0 else table.clone()
+    rows = torch.nn.functional.pad(table, (0, 3))
+    torch.add(table[:, 4], table[:, 5], out=rows[:, 9]).neg_()
+    return rows
+
+
+def heaviest_first(counts):
+    """The order in which K2 and K4 run their target leaves, one block
+    each: by live list length (L,), longest first, as int32. The card
+    starts blocks in this order, so the longest lists no longer finish
+    last (csrc/far_octet.cu); any order gives the same bits, since a
+    leaf's sums never leave its block. A stable sort on the lists'
+    device."""
+    return torch.argsort(counts, descending=True, stable=True).to(
+        torch.int32)
+
+
+def far_order(valid):
+    """K2's or K4's launch order (`heaviest_first`) for the front-packed
+    far lists whose mask is valid (L, B). Built once per list build, next
+    to the list builder, so that lists evaluated several times (the
+    rebuild-interval runs) sort once, not once a step. None for CPU lists:
+    the plain versions need no order."""
+    if valid.device.type == "cpu":
+        return None
+    return heaviest_first(torch.sum(valid, dim=1, dtype=torch.int32))
+
+
 def near_items(counts, chunk):
     """K1's work items from the live length counts (L,) of front-packed
     near lists: every row is cut into ceil(count / chunk) items of at most
@@ -305,12 +342,14 @@ def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
 
 
 def far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,
-              compute_pot=True):
+              compute_pot=True, order=None):
     """K2: octet-masked multipole far field of targets (L, G, 3) against
     their front-packed lists of (octet_id << 8) | child_mask keys (L, B)
     int32 / valid (L, B) bool over the 8-row-aligned node table nodes8
     (n8, 4|9). Returns (acc (L*G, 3), pot (L*G,)). CPU tensors run
-    `far_octet_plain`; CUDA tensors launch the kernel (f32 only)."""
+    `far_octet_plain`; CUDA tensors launch the kernel (f32 only) on the
+    table packed by `far_rows`, target leaves in the launch order `order`
+    (`far_order(valid)`, built here when None)."""
     if on_cpu(tgt_leaves, nodes8, keys, valid):
         return far_octet_plain(tgt_leaves, nodes8, keys, valid, g=g,
                                softening=softening, compute_pot=compute_pot)
@@ -321,34 +360,40 @@ def far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,
         raise ValueError(f"nodes8 {tuple(nodes8.shape)}: rows must be a "
                          "multiple of 8 and columns 4 or 9")
     if not 0 < leaf_size <= 1024:
-        raise ValueError(f"leaf size {leaf_size} above 1024 (one thread "
-                         "per target)")
+        raise ValueError(f"leaf size {leaf_size} above 1024")
     check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
     check("nodes8", nodes8, torch.float32, (n8, n_comp))
     check("keys", keys, torch.int32, (n_slice, budget))
     check("valid", valid, torch.bool, (n_slice, budget))
+    rows = far_rows(nodes8)
     counts = torch.sum(valid, dim=1, dtype=torch.int32)
+    order = heaviest_first(counts) if order is None else order
+    check("order", order, torch.int32, (n_slice,))
+    if order.device != counts.device:
+        raise ValueError(f"order on {order.device}, lists on {counts.device}")
     acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
                       device=nodes8.device)
     pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
                       device=nodes8.device)
     launch(LAUNCHES, "far_octet", "pnb_far_octet",
-           ptr(nodes8), ptr(tgt_leaves), ptr(keys), ptr(counts),
-           ptr(acc), ptr(pot), n_slice, leaf_size, budget, n_comp,
+           ptr(rows), ptr(tgt_leaves), ptr(keys), ptr(counts), ptr(order),
+           ptr(acc), ptr(pot), n_slice, leaf_size, budget, rows.shape[1],
            float(g), float(softening) ** 2, int(softening == 0.0),
            int(bool(compute_pot)))
     return acc, pot
 
 
 def far_gather(tgt_leaves, table, idx, valid, *, g, softening,
-               compute_pot=True, front_packed=True):
+               compute_pot=True, front_packed=True, order=None):
     """K4: multipole far field of targets (L, G, 3) against their lists of
     node rows idx (L, B) int32 / valid (L, B) bool over table
     (n_nodes, 4|9). front_packed=True: each row's valid entries come first
     and the kernel walks only those; front_packed=False: `valid` is a
-    scattered mask and every entry is walked and masked. Returns
-    (acc (L*G, 3), pot (L*G,)). CPU tensors run `far_gather_plain`; CUDA
-    tensors launch the kernel (f32 only)."""
+    scattered mask and every entry is read, the valid ones compacted as
+    they are staged. Returns (acc (L*G, 3), pot (L*G,)). CPU tensors run
+    `far_gather_plain`; CUDA tensors launch the kernel (f32 only) on the
+    table packed by `far_rows`, target leaves in the launch order `order`
+    (`heaviest_first` of the valid counts, built here when None)."""
     if on_cpu(tgt_leaves, table, idx, valid):
         return far_gather_plain(tgt_leaves, table, idx, valid, g=g,
                                 softening=softening, compute_pot=compute_pot)
@@ -359,20 +404,25 @@ def far_gather(tgt_leaves, table, idx, valid, *, g, softening,
         raise ValueError(f"table {tuple(table.shape)}: columns must be 4 "
                          "or 9")
     if not 0 < leaf_size <= 1024:
-        raise ValueError(f"leaf size {leaf_size} above 1024 (one thread "
-                         "per target)")
+        raise ValueError(f"leaf size {leaf_size} above 1024")
     check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
     check("table", table, torch.float32, (n_nodes, n_comp))
     check("idx", idx, torch.int32, (n_slice, budget))
     check("valid", valid, torch.bool, (n_slice, budget))
+    rows = far_rows(table)
     counts = torch.sum(valid, dim=1, dtype=torch.int32)
+    order = heaviest_first(counts) if order is None else order
+    check("order", order, torch.int32, (n_slice,))
+    if order.device != counts.device:
+        raise ValueError(f"order on {order.device}, lists on {counts.device}")
     acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
                       device=table.device)
     pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
                       device=table.device)
     launch(LAUNCHES, "far_gather", "pnb_far_gather",
-           ptr(table), ptr(tgt_leaves), ptr(idx), ptr(valid), ptr(counts),
-           ptr(acc), ptr(pot), n_slice, leaf_size, budget, n_comp,
+           ptr(rows), ptr(tgt_leaves), ptr(idx), ptr(valid), ptr(counts),
+           ptr(order), ptr(acc), ptr(pot), n_slice, leaf_size, budget,
+           rows.shape[1],
            float(g), float(softening) ** 2, int(softening == 0.0),
            int(bool(compute_pot)), int(not front_packed))
     return acc, pot

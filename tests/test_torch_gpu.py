@@ -209,21 +209,34 @@ def test_near_field_kernel_leaf_sizes(cuda, leaf, compute_pot):
 
 
 @pytest.mark.parametrize("softening", [0.02, 0.0], ids=["soft", "guard0"])
-@pytest.mark.parametrize("kernel", ["near_field", "allpairs"])
-def test_pair_kernels_repeat_bit_equal(lists, uneven_lists, kernel,
-                                       softening):
-    """K1 and K3 take no float atomics: two launches on the same inputs
-    give the same bits."""
+@pytest.mark.parametrize("kernel", ["near_field", "allpairs", "far_octet",
+                                    "far_gather"])
+def test_pair_kernels_repeat_bit_equal(lists, uneven_lists, gather_lists,
+                                       kernel, softening):
+    """K1-K4 take no float atomics: two launches on the same inputs give the
+    same bits."""
+    kw = dict(g=1.0, softening=softening)
     if kernel == "near_field":
         def run():
-            return bh_kernels.near_field(*uneven_lists, g=1.0,
-                                         softening=softening)
-    else:
+            return bh_kernels.near_field(*uneven_lists, **kw)
+    elif kernel == "allpairs":
         pos, mass = lists["pos_s"], lists["mass_s"]
 
         def run():
             return (direct_kernels.allpairs(pos, pos, mass,
                                             softening=softening),)
+    elif kernel == "far_octet":
+        L = lists
+
+        def run():
+            return bh_kernels.far_octet(L["tgt"], L["nodes8"], L["fk"],
+                                        L["fv"], **kw)
+    else:
+        G = gather_lists
+
+        def run():
+            return bh_kernels.far_gather(G["tgt"], G["leaf_nodes"], G["f0i"],
+                                         G["f0v"], **kw)
     first, second = run(), run()
     torch.cuda.synchronize()
     for a, b in zip(first, second):
@@ -231,8 +244,9 @@ def test_pair_kernels_repeat_bit_equal(lists, uneven_lists, kernel,
 
 
 def test_rebuild_interval_plan_holds_the_work_items(cuda):
-    """bh_plan_lists builds K1's work items once with the lists, so the
-    frozen lists' evaluations wait on the host no more."""
+    """bh_plan_lists builds K1's work items and K2's launch order once with
+    the lists, so the frozen lists' evaluations wait on the host and sort
+    no more."""
     cfg = SimConfig(n=4096, ic="plummer", seed=2)
     state = init_simulation(cfg, cuda, compute_forces=False)
     pos_s, mass_s, _, tree, _, _ = bh._prepare(
@@ -247,6 +261,35 @@ def test_rebuild_interval_plan_holds_the_work_items(cuda):
     assert torch.equal(plan.near_work.items, want.items)
     assert torch.equal(plan.near_work.splits, want.splits)
     assert plan.near_work.n_partial == want.n_partial
+    assert torch.equal(plan.far_order, bh_kernels.far_order(plan.far_valid))
+
+
+@pytest.mark.parametrize("kernel", ["far_octet", "far_gather"])
+def test_far_kernels_give_the_same_bits_in_any_launch_order(
+        lists, gather_lists, kernel):
+    """K2 and K4 run their target leaves longest list first; a leaf's sums
+    never leave its block, so the order built with the lists, the one the
+    wrapper builds, the identity and a reversed order give the same bits."""
+    if kernel == "far_octet":
+        L = lists
+        args, valid = (L["tgt"], L["nodes8"], L["fk"], L["fv"]), L["fv"]
+        fn = bh_kernels.far_octet
+    else:
+        G = gather_lists
+        args = (G["tgt"], G["leaf_nodes"], G["f0i"], G["f0v"])
+        valid, fn = G["f0v"], bh_kernels.far_gather
+    n = valid.shape[0]
+    ident = torch.arange(n, dtype=torch.int32, device="cuda")
+    kw = dict(g=1.0, softening=0.02)
+    want = fn(*args, **kw)
+    for order in (bh_kernels.far_order(valid), ident, ident.flip(0)):
+        got = fn(*args, order=order.contiguous(), **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError):  # an order must name every leaf
+        fn(*args, order=ident[:-1], **kw)
+    with pytest.raises(ValueError):  # on the lists' device
+        fn(*args, order=ident.cpu(), **kw)
 
 
 @pytest.mark.parametrize("softening", [0.02, 0.0], ids=["soft", "guard0"])
@@ -285,6 +328,103 @@ def test_far_gather_kernel_scattered_mask(gather_lists):
     acc_p, pot_p = bh_kernels.far_gather_plain(*args, **kw)
     _close(acc, acc_p)
     _close(pot, pot_p)
+
+
+@pytest.mark.parametrize("quad", [True, False], ids=["quad", "mono"])
+def test_far_gather_kernel_scattered_late_entries(gather_lists, quad):
+    """front_packed=False with no valid entry in the first 100 of a row (the
+    first windows the kernel stages are empty), a row with one valid entry
+    at its last column, an empty row, and rows valid from entry 100 on."""
+    L = gather_lists
+    table = L["leaf_nodes"] if quad else L["leaf_nodes"][:, :4].contiguous()
+    n_leaves = L["tgt"].shape[0]
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    valid = torch.rand((n_leaves, n_leaves), generator=gen) < 0.5
+    valid[:, :100] = False
+    valid[0] = False
+    valid[0, -1] = True
+    valid[1] = False
+    idx = torch.randperm(n_leaves, generator=gen).to(torch.int32)
+    idx = idx[None].expand(n_leaves, n_leaves).contiguous()
+    args = (L["tgt"], table, idx.cuda(), valid.cuda())
+    kw = dict(g=1.0, softening=0.02, compute_pot=True)
+    acc, pot = bh_kernels.far_gather(*args, front_packed=False, **kw)
+    acc_p, pot_p = bh_kernels.far_gather_plain(*args, **kw)
+    _close(acc, acc_p)
+    _close(pot, pot_p)
+    leaf = L["tgt"].shape[1]
+    assert bool((acc[leaf:2 * leaf] == 0).all())
+    assert bool((acc[:leaf] != 0).any())
+
+
+@pytest.mark.parametrize("softening", [0.02, 0.0], ids=["soft", "guard0"])
+@pytest.mark.parametrize("quad", [True, False], ids=["quad", "mono"])
+def test_far_octet_kernel_child_masks(lists, softening, quad):
+    """K2 expands only the accepted children of a key: rows of keys whose
+    masks are all 0x01, all 0x80 or all 0xff (20 full octets, so the dense
+    rows cross buffer boundaries), a row of three keys whose children do
+    not fill one buffer, and an empty row, against far_octet_plain."""
+    L = lists
+    nodes8 = L["nodes8"] if quad else L["nodes8"][:, :4].contiguous()
+    n_oct = nodes8.shape[0] // 8
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    budget = 24
+    rows = []
+    for mask, count in ((0x01, 24), (0x80, 24), (0xFF, 20), (None, 3),
+                        (0x01, 0)):
+        octs = torch.sort(torch.randint(0, n_oct, (count,),
+                                        generator=gen)).values
+        masks = (torch.randint(1, 256, (count,), generator=gen)
+                 if mask is None else torch.full((count,), mask))
+        row = torch.full((budget,), 2**31 - 1, dtype=torch.int32)
+        row[:count] = ((octs << 8) | masks).to(torch.int32)
+        rows.append(row)
+    keys = torch.stack(rows).cuda()
+    valid = keys != 2**31 - 1
+    tgt = L["tgt"][torch.arange(len(rows), device="cuda") * 7].contiguous()
+    kw = dict(g=1.5, softening=softening, compute_pot=True)
+    acc, pot = bh_kernels.far_octet(tgt, nodes8, keys, valid, **kw)
+    acc_p, pot_p = bh_kernels.far_octet_plain(tgt, nodes8, keys, valid, **kw)
+    _close(acc, acc_p)
+    _close(pot, pot_p)
+    assert bool((acc[-LEAF:] == 0).all()) and bool((pot[-LEAF:] == 0).all())
+
+
+@pytest.mark.parametrize("leaf", [128, 256])
+@pytest.mark.parametrize("compute_pot", [True, False])
+def test_far_kernels_leaf_sizes(cuda, leaf, compute_pot):
+    """K2 and K4 hold 4 and 8 targets a thread at leaf 128 and 256 (a
+    block is one warp), on the port's octet and gather lists at N = 16384,
+    theta 0.6, quadrupole tables."""
+    cfg = SimConfig(n=16384, ic="plummer", seed=5)
+    state = init_simulation(cfg, "cpu", compute_forces=False)
+    pos_s, _, _, tree, _, n_pad = bh._prepare(
+        state.pos, state.mass, leaf_size=leaf, curve="hilbert",
+        multipole_order=2)
+    n_leaves = n_pad // leaf
+    far, rej = bh.traverse(tree, 0.6)
+    *_, fk, fv, nodes8, of = bh.build_interaction_lists_octet(
+        tree, far, rej, theta=0.6, start_leaf=0, n_slice=n_leaves,
+        near_budget=n_leaves, far_budget=n_leaves, dtype=torch.float32)
+    _, _, f0i, f0v, upi, upv, nodes_up, leaf_nodes, of_g = \
+        bh.build_interaction_lists(tree, far, rej, theta=0.6, start_leaf=0,
+                                   n_slice=n_leaves, near_budget=n_leaves,
+                                   far0_budget=n_leaves, dtype=torch.float32)
+    assert int(of) == 0 and int(of_g) == 0 and bool(fv.any())
+    tgt = pos_s.reshape(n_leaves, leaf, 3).contiguous().cuda()
+    kw = dict(g=1.5, softening=0.02, compute_pot=compute_pot)
+    cases = [(bh_kernels.far_octet, bh_kernels.far_octet_plain,
+              (nodes8, fk, fv)),
+             (bh_kernels.far_gather, bh_kernels.far_gather_plain,
+              (nodes_up, upi, upv)),
+             (bh_kernels.far_gather, bh_kernels.far_gather_plain,
+              (leaf_nodes, f0i, f0v))]
+    for kernel, plain, lists_ in cases:
+        args = (tgt, *(t.contiguous().cuda() for t in lists_))
+        acc, pot = kernel(*args, **kw)
+        acc_p, pot_p = plain(*args, **kw)
+        _close(acc, acc_p)
+        _close(pot, pot_p)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(lists, gather_lists):
