@@ -39,6 +39,26 @@ Phases, each of which exits non-zero on failure:
      step(8), and its forces against the octet path's on the same state.
   7. Crossover (printed, no gate): ms/step of force="direct_pallas"
      against per-step Barnes-Hut at N = 16384 to 262144.
+  8. Staged kernel parity on the t = 0 lists of examples/barneshut_8m.json
+     (staged refinement, 32768 leaves of 256): K1 on the staged near
+     lists, K2 on the staged octet keys, K4 on the one staged gather list,
+     each timed in full with its bound and against its plain version on
+     sampled target leaves with and without the potential; K2 on a row
+     naming one octet in keys with disjoint masks; K1's items and K2's
+     accepted children per leaf; the work items' and launch orders' own
+     build time.
+  9. Staged path: examples/barneshut_8m.json through Simulation, step(1)
+     and step(16), with its calibrated budgets; then with
+     bh_far_mode="gather", step(1), its forces against the octet path's.
+ 10. Galaxy path: examples/galaxy_2m.json (galaxy_collision ICs, auto
+     leaf, staged, potential on), step(1) and step(8).
+ 11. Sections: at N = 8M, bh_accel and one rebuild-8 block in 4 windows
+     against one, bit for bit; then examples/barneshut_32m.json through
+     Simulation and step(1) at its resolved sections, and in 8 windows
+     where the auto resolves 1.
+ 12. Each IC family through Simulation at N = 65536, step(1);
+     reference_compat_config() (the direct sum, softening 0), step(1); and
+     a Barnes-Hut run with softening 0 (K1's guard_zero).
 
 Before each path every launch count is set to 0 and after it the counts
 are read: each kernel of the path must have been launched, the list
@@ -61,8 +81,9 @@ K1 is timed on work items built beforehand, K2 and K4 on launch orders
 built beforehand, as the paths build them once per list build; their own
 cost is timed apart.
 
-The last four lines of standard output are one JSON object with the
-kernels' numbers, the card's SM clock and its maximum as nvidia-smi gives
+The script prints its wall time. The last four lines of standard output
+are one JSON object with the kernels' numbers (the 8M staged lists' under
+keys ending in _staged8m), the card's SM clock and its maximum as nvidia-smi gives
 them (sampled while K1's timed launches run), the card's nvidia-smi name
 and power limit, and {"ok": true, "device": {...}}.
 """
@@ -79,7 +100,9 @@ import time
 import torch
 
 from parallelnbody_tpu_torch import SimConfig, Simulation
-from parallelnbody_tpu_torch.api import calibrate_budgets, init_simulation
+from parallelnbody_tpu_torch.api import (calibrate_budgets, init_simulation,
+                                         make_run)
+from parallelnbody_tpu_torch.config import IC_KINDS, reference_compat_config
 from parallelnbody_tpu_torch.kernels import build
 from parallelnbody_tpu_torch.ops import bh, bh_kernels, direct_kernels
 from parallelnbody_tpu_torch.tools import sass
@@ -88,6 +111,9 @@ from parallelnbody_tpu_torch.utils.accuracy import rms_force_error_sample
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "examples", "barneshut_1m_reuse.json")
 ALLPAIRS_CONFIG = os.path.join(ROOT, "examples", "allpairs_262k.json")
+STAGED_CONFIG = os.path.join(ROOT, "examples", "barneshut_8m.json")
+GALAXY_CONFIG = os.path.join(ROOT, "examples", "galaxy_2m.json")
+XL_CONFIG = os.path.join(ROOT, "examples", "barneshut_32m.json")
 RTOL, ATOL = 2e-4, 2e-5     # the Pallas-vs-jnp kernel bound of tests/test_bh.py
 RMS_BOUND = 2e-3            # the accuracy class of the N=1M operating point
 RMS_BOUND_ALLPAIRS = 1e-4   # all-pairs is exact: f32 rounding only
@@ -105,6 +131,13 @@ REUSE_STEPS = 16
 GATHER_STEPS = 8
 DEFAULT_STEPS = 10
 CROSSOVER_N = (16384, 32768, 65536, 131072, 262144)
+STAGED_SAMPLE_ROWS = 256    # target leaves of the 8M lists held with the plain versions
+STAGED_STEP_REPS = 3
+GALAXY_STEPS = 8
+SECTIONS_8M = 4
+XL_SECTIONS = 8             # explicit windows at 32M where the auto resolves 1
+XL_RMS_SAMPLES = 2048       # the direct sum over 32M sources for each target
+IC_N = 65536
 DEVICE = "cuda"
 
 FP32_FLOPS = 67e12          # H100 SXM, FP32 outside the tensor cores, 700 W
@@ -760,7 +793,7 @@ def check_state(label, state, n):
                                  "finite or of the wrong shape")
 
 
-def drive_path(label, cfg, kernels, steps, rms_bound):
+def drive_path(label, cfg, kernels, steps, rms_bound, rms_k=RMS_SAMPLES):
     """Simulation(cfg) on the card through step(k) for k in steps, with
     every launch count set to 0 just before and read just after. Fails
     unless each of `kernels` was launched, nothing overflowed, every state
@@ -797,9 +830,9 @@ def drive_path(label, cfg, kernels, steps, rms_bound):
         check_state(f"{label} {step_label}", state, cfg.n)
         rms = rms_force_error_sample(state.pos, state.mass, state.acc,
                                      g=cfg.g, softening=cfg.softening,
-                                     k=RMS_SAMPLES)
+                                     k=rms_k)
         log(f"{label}: rms force error vs direct sum after {step_label} "
-            f"(k={min(RMS_SAMPLES, cfg.n)}): {rms:.4e}")
+            f"(k={min(rms_k, cfg.n)}): {rms:.4e}")
         if not rms < rms_bound:
             raise AssertionError(f"{label} {step_label}: rms {rms:.4e} >= "
                                  f"{rms_bound}")
@@ -905,12 +938,326 @@ def phase_crossover():
         log("crossover " + json.dumps(row))
 
 
+def staged_lists_for(cfg, gather_far_budget, state):
+    """The staged lists of the per-step path at state for cfg (calibrated
+    budgets): the near list, the octet far list (K2) and the gather far
+    list over every level's node table (K4, gather_far_budget node
+    entries), with the work items and launch orders the paths build."""
+    leaf = cfg.resolve_bh_leaf_size()
+    pos_s, mass_s, _, tree, _, n_pad = bh._prepare(
+        state.pos, state.mass, leaf_size=leaf, curve=cfg.bh_curve,
+        multipole_order=cfg.bh_multipole, max_levels=cfg.bh_max_levels)
+    n_leaves = n_pad // leaf
+    far, rej2 = bh.traverse(tree, cfg.theta, stop_level=2)
+    kw = dict(theta=cfg.theta, start_leaf=0, n_slice=n_leaves,
+              near_budget=cfg.bh_near_budget,
+              cand2_budget=cfg.bh_cand2_budget,
+              cand1_budget=cfg.bh_cand_budget, dtype=torch.float32)
+    ni, nv, fk, fv, nodes8, of = bh.build_interaction_lists_staged(
+        tree, far, rej2, far_budget=cfg.bh_far_budget, octet_far=True, **kw)
+    _, _, gi, gv, nodes_all, of_g = bh.build_interaction_lists_staged(
+        tree, far, rej2, far_budget=gather_far_budget, octet_far=False, **kw)
+    if int(of) != 0 or int(of_g) != 0:
+        raise AssertionError(f"staged list overflow {int(of)} / {int(of_g)} "
+                             "at calibrated budgets")
+    return dict(pos_s=pos_s, mass_s=mass_s,
+                tgt=pos_s.reshape(n_leaves, leaf, 3), ni=ni, nv=nv, fk=fk,
+                fv=fv, nodes8=nodes8, gi=gi, gv=gv, nodes_all=nodes_all,
+                work=bh_kernels.near_work(nv),
+                order=bh_kernels.far_order(fv),
+                gorder=bh_kernels.far_order(gv))
+
+
+def phase_staged_parity(staged_json, kernels):
+    """K1, K2 and K4 on the staged t = 0 lists at N = 8M: timed in full
+    with their bound, held against their plain versions on sampled target
+    leaves (both potential settings), K2 on a duplicate-octet row. Adds
+    the numbers to `kernels` under keys ending in _staged8m."""
+    dev = torch.device(DEVICE)
+    cfg = SimConfig.from_json(staged_json)
+    t0 = time.perf_counter()
+    state = init_simulation(cfg, dev, compute_forces=False)
+    cfg = calibrate_budgets(cfg, state)
+    gcfg = calibrate_budgets(cfg.replace(bh_far_mode="gather",
+                                         bh_far_budget=0), state)
+    L = staged_lists_for(cfg, gcfg.bh_far_budget, state)
+    torch.cuda.synchronize()
+    n_leaves, leaf, _ = L["tgt"].shape
+    near_n = L["nv"].sum(1)
+    items = torch.clamp((near_n + bh_kernels.NEAR_CHUNK - 1)
+                        // bh_kernels.NEAR_CHUNK, min=1)
+    log(f"staged N={cfg.n}: {n_leaves} leaves of {leaf}, refine "
+        f"{cfg.resolve_bh_refine()}; calibrated budgets near "
+        f"{cfg.bh_near_budget} far {cfg.bh_far_budget} (gather "
+        f"{gcfg.bh_far_budget}) cand2 {cfg.bh_cand2_budget} cand1 "
+        f"{cfg.bh_cand_budget}; near entries per leaf {balance(near_n)}; "
+        f"K1 work items per leaf {balance(items)} ({int(items.sum())}"
+        f" items); K2 accepted children per leaf "
+        f"{balance(children_per_leaf(L))}; far octets per leaf "
+        f"{balance(L['fv'].sum(1))}; K4 node entries per leaf "
+        f"{balance(L['gv'].sum(1))} ({time.perf_counter() - t0:.1f} s)")
+    kw = dict(g=cfg.g, softening=cfg.softening)
+    gather_args = (lambda rows=None: (L["tgt"], L["nodes_all"], L["gi"],
+                                      L["gv"]) if rows is None else
+                   (L["tgt"][rows].contiguous(), L["nodes_all"],
+                    L["gi"][rows].contiguous(), L["gv"][rows].contiguous()))
+    funcs = {"near_field": (bh_kernels.near_field,
+                            bh_kernels.near_field_plain,
+                            lambda rows=None: near_args(L, rows),
+                            dict(work=L["work"])),
+             "far_octet": (bh_kernels.far_octet, bh_kernels.far_octet_plain,
+                           lambda rows=None: far_args(L, rows),
+                           dict(order=L["order"])),
+             "far_gather": (bh_kernels.far_gather,
+                            bh_kernels.far_gather_plain, gather_args,
+                            dict(order=L["gorder"]))}
+    rows = torch.linspace(0, n_leaves - 1, STAGED_SAMPLE_ROWS,
+                          device=dev).long()
+    out_bytes = n_leaves * leaf * 16
+    for name, (kernel, plain, args, built) in funcs.items():
+        full = args()
+        kernel(*full, compute_pot=False, **kw, **built)          # warm-up
+        _, ms = cuda_ms(lambda: kernel(*full, compute_pot=False, **kw,
+                                       **built), KERNEL_REPS)
+        if name == "far_gather":
+            flops = (FLOPS_QUADRUPOLE if L["nodes_all"].shape[1] >= 9
+                     else FLOPS_MONOPOLE)
+            work = bound(int(L["gv"].sum()) * leaf, flops, out_bytes + nbytes(
+                L["tgt"], L["nodes_all"], L["gi"], L["gv"]))
+        else:
+            work = list_work(name, L)
+        rec = with_share({"ms": ms}, work)
+        err = 0.0
+        for compute_pot in (True, False):
+            sub = args(rows)
+            err = max(err, max_err(
+                f"{name} staged N={cfg.n} {STAGED_SAMPLE_ROWS} rows "
+                f"pot={compute_pot}",
+                kernel(*sub, compute_pot=compute_pot, **kw),
+                plain(*sub, compute_pot=compute_pot, **kw)))
+        k = kernels[name]
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        k.update({f"{key}_staged8m": rec[key]
+                  for key in ("ms", "bound_ms", "share", "terms")})
+        log(f"{name} on the staged N={cfg.n} lists (compute_pot=False): "
+            f"kernel {ms:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+            f"({rec['bound_resource']}), share {rec['share']:.3f}, "
+            f"{rec['terms']:.4e} terms; {STAGED_SAMPLE_ROWS} sampled target "
+            f"leaves against the plain version, both potential settings: "
+            f"max abs err {err:.3e}")
+    # The work items' and launch orders' own cost, once per list build.
+    for label, fn in (("K1 work items", lambda: bh_kernels.near_work(L["nv"])),
+                      ("K2 launch order",
+                       lambda: bh_kernels.far_order(L["fv"])),
+                      ("K4 launch order",
+                       lambda: bh_kernels.far_order(L["gv"]))):
+        fn()
+        _, ms = cuda_ms(fn, KERNEL_REPS)
+        log(f"staged N={cfg.n}: {label} built in {ms:.3f} ms (host wait "
+            "included)")
+
+    # A row naming one octet in keys with disjoint masks, as two parents
+    # of branch factor < 8 emit them, against the plain version and one key
+    # of the union mask.
+    big = bh.INT32_MAX
+    o = int(L["fk"][0, 0]) >> 8
+    split = torch.tensor([[(o << 8) | 0x0F, (o << 8) | 0x30, (o << 8) | 0xC0,
+                           big]], dtype=torch.int32, device=dev)
+    union = torch.tensor([[(o << 8) | 0xFF, big, big, big]],
+                         dtype=torch.int32, device=dev)
+    tgt = L["tgt"][:1].contiguous()
+    args = (tgt, L["nodes8"], split, split != big)
+    got = bh_kernels.far_octet(*args, **kw)
+    err = max_err("far_octet duplicate-octet row", got,
+                  bh_kernels.far_octet_plain(*args, **kw))
+    err = max(err, max_err("far_octet duplicate-octet row against the "
+                           "union key", got, bh_kernels.far_octet(
+                               tgt, L["nodes8"], union, union != big, **kw)))
+    kernels["far_octet"]["max_abs_err"] = max(
+        kernels["far_octet"]["max_abs_err"], err)
+    log(f"far_octet on a row of three keys for octet {o} with disjoint "
+        f"masks: max abs err {err:.3e} against the plain version and the "
+        "union key")
+    return cfg
+
+
+def phase_staged_path(staged_json):
+    """The 8M staged config through Simulation, octet then gather."""
+    cfg = SimConfig.from_json(staged_json)
+    sim, launches = drive_path("staged path", cfg, ("near_field", "far_octet"),
+                               (1, REUSE_STEPS), RMS_BOUND)
+    c = sim.cfg
+    log(f"staged path: refine {c.resolve_bh_refine()}, calibrated budgets "
+        f"near {c.bh_near_budget} far {c.bh_far_budget} cand2 "
+        f"{c.bh_cand2_budget} cand1 {c.bh_cand_budget}")
+    _, ms_step = cuda_ms(lambda: sim.step(1), STAGED_STEP_REPS)
+    _, ms_block = cuda_ms(lambda: sim.step(REUSE_STEPS))
+    dev_step = device_ms(lambda: sim.step(1))
+    dev_block = device_ms(lambda: sim.step(REUSE_STEPS))
+    ms_reuse = ms_block / REUSE_STEPS
+    log(f"staged path: ms/step at N={cfg.n}: per-step {ms_step:.2f} (mean of "
+        f"{STAGED_STEP_REPS} step(1)), rebuild every {c.bh_rebuild_every} "
+        f"{ms_reuse:.2f} (step({REUSE_STEPS})); device busy per step "
+        f"{dev_step or float('nan'):.2f} ms (share "
+        f"{busy_share(dev_step, ms_step)}) and "
+        f"{(dev_block or float('nan')) / REUSE_STEPS:.2f} ms (share "
+        f"{busy_share(dev_block and dev_block / REUSE_STEPS, ms_reuse)})")
+    octet_cfg = c
+    del sim
+    torch.cuda.empty_cache()
+
+    gcfg = cfg.replace(bh_far_mode="gather")
+    gsim, glaunches = drive_path("staged gather path", gcfg,
+                                 ("near_field", "far_gather"), (1,),
+                                 RMS_BOUND)
+    c, s = gsim.cfg, gsim.state
+    kw = dict(leaf_size=c.resolve_bh_leaf_size(), theta=c.theta, g=c.g,
+              softening=c.softening, near_budget=c.bh_near_budget,
+              curve=c.bh_curve, multipole=c.bh_multipole,
+              max_levels=c.bh_max_levels, compute_pot=False, refine="staged")
+    ag, _, og = bh.bh_accel(s.pos, s.mass, far0_budget=c.bh_far_budget,
+                            cand_budgets=(c.bh_cand2_budget,
+                                          c.bh_cand_budget),
+                            far_mode="gather", **kw)
+    ao, _, oo = bh.bh_accel(s.pos, s.mass, far0_budget=octet_cfg.bh_far_budget,
+                            cand_budgets=(octet_cfg.bh_cand2_budget,
+                                          octet_cfg.bh_cand_budget),
+                            far_mode="octet", **kw)
+    rel = float(torch.linalg.norm(ag - ao) / torch.linalg.norm(ag))
+    log(f"staged gather path: gather far budget {c.bh_far_budget} node "
+        f"entries; forces against the octet path on the same state: "
+        f"relative norm {rel:.3e}; overflow {int(og)} / {int(oo)}")
+    if int(og) != 0 or int(oo) != 0 or not rel < GATHER_OCTET_BOUND:
+        raise AssertionError(f"staged gather vs octet: relative norm "
+                             f"{rel:.3e} (bound {GATHER_OCTET_BOUND}), "
+                             f"overflow {int(og)} / {int(oo)}")
+    del ag, ao
+    _, ms_g = cuda_ms(lambda: gsim.step(1), STAGED_STEP_REPS)
+    dev_g = device_ms(lambda: gsim.step(1))
+    log(f"staged gather path: ms/step at N={cfg.n}: {ms_g:.2f} (mean of "
+        f"{STAGED_STEP_REPS} step(1)); device busy per step "
+        f"{dev_g or float('nan'):.2f} ms (share {busy_share(dev_g, ms_g)})")
+    del gsim
+    torch.cuda.empty_cache()
+    return launches, glaunches, octet_cfg
+
+
+def phase_galaxy_path(galaxy_json):
+    cfg = SimConfig.from_json(galaxy_json)
+    sim, launches = drive_path("galaxy path", cfg, ("near_field", "far_octet"),
+                               (1, GALAXY_STEPS), RMS_BOUND)
+    c = sim.cfg
+    _, ms_step = cuda_ms(lambda: sim.step(1), STAGED_STEP_REPS)
+    log(f"galaxy path: ic {c.ic}, leaf {c.resolve_bh_leaf_size()} (auto), "
+        f"refine {c.resolve_bh_refine()}, track_potential "
+        f"{c.track_potential}; budgets near {c.bh_near_budget} far "
+        f"{c.bh_far_budget} cand2 {c.bh_cand2_budget} cand1 "
+        f"{c.bh_cand_budget}; ms/step per step {ms_step:.2f} (mean of "
+        f"{STAGED_STEP_REPS} step(1))")
+    report_diagnostics("galaxy path", sim)
+    del sim
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sections(cfg8, xl_json):
+    """Sections at 8M (bit for bit against one window) and the 32M config
+    through Simulation."""
+    dev = torch.device(DEVICE)
+    c = cfg8
+    state = init_simulation(c, dev)
+    kw = dict(leaf_size=c.resolve_bh_leaf_size(), theta=c.theta, g=c.g,
+              softening=c.softening, near_budget=c.bh_near_budget,
+              far0_budget=c.bh_far_budget, curve=c.bh_curve,
+              multipole=c.bh_multipole, max_levels=c.bh_max_levels,
+              compute_pot=False, refine="staged",
+              cand_budgets=(c.bh_cand2_budget, c.bh_cand_budget))
+    a1, _, o1 = bh.bh_accel(state.pos, state.mass, sections=1, **kw)
+    a4, _, o4 = bh.bh_accel(state.pos, state.mass, sections=SECTIONS_8M,
+                            **kw)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(a1, a4)) and int(o1) == int(o4) == 0
+    del a1, a4
+    r1 = make_run(c.replace(bh_sections=1), 8)(state)
+    r4 = make_run(c.replace(bh_sections=SECTIONS_8M), 8)(state)
+    torch.cuda.synchronize()
+    same_block = all(torch.equal(getattr(r1, f), getattr(r4, f))
+                     for f in ("pos", "vel", "acc"))
+    log(f"sections at N={c.n}: bh_accel in {SECTIONS_8M} windows against "
+        f"one bit-equal: {same} (overflow {int(o1)} / {int(o4)}); one "
+        f"rebuild-8 block bit-equal: {same_block}")
+    if not (same and same_block):
+        raise AssertionError("sectioned results differ from unsectioned")
+    del state, r1, r4
+    torch.cuda.empty_cache()
+
+    xcfg = SimConfig.from_json(xl_json)
+    leaf = xcfg.resolve_bh_leaf_size()
+    n_leaves = bh.plan_tree(xcfg.n, leaf, xcfg.bh_max_levels)[0]
+    resolved = bh.resolve_sections(xcfg.bh_sections, n_leaves,
+                                   xcfg.resolve_bh_refine())
+    runs = [(f"32M path (auto sections = {resolved})", xcfg)]
+    if resolved == 1:
+        runs.append((f"32M path (bh_sections={XL_SECTIONS})",
+                     xcfg.replace(bh_sections=XL_SECTIONS)))
+    launches = None
+    for label, cfg in runs:
+        sim, got = drive_path(label, cfg, ("near_field", "far_octet"), (1,),
+                              RMS_BOUND, rms_k=XL_RMS_SAMPLES)
+        launches = launches or got
+        _, ms = cuda_ms(lambda: sim.step(1), 2)
+        log(f"{label}: ms/step {ms:.2f} (mean of 2 step(1)); budgets near "
+            f"{sim.cfg.bh_near_budget} far {sim.cfg.bh_far_budget} cand2 "
+            f"{sim.cfg.bh_cand2_budget} cand1 {sim.cfg.bh_cand_budget}")
+        del sim
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ics():
+    """Each IC family through Simulation on the card at N = IC_N, step(1);
+    the reference's compat profile; a Barnes-Hut run with softening 0."""
+    # The reference's slab at its own scale (reference_compat_config's
+    # size): at ic_size 1 its speeds of 250-500 carry the particles five
+    # slab widths in one step, past any budget calibrated at t = 0.
+    cases = [(name, SimConfig(n=IC_N, ic=name, ic_size=200.0
+                              if name == "reference_slab" else 1.0))
+             for name in IC_KINDS]
+    cases.append(("reference_compat_config()", reference_compat_config()))
+    cases.append(("plummer, barnes_hut, softening 0",
+                  SimConfig(n=IC_N, force="barnes_hut", softening=0.0)))
+    for label, cfg in cases:
+        reset_launch_counts()
+        sim = Simulation(cfg, device=DEVICE)
+        sim.step(1)
+        torch.cuda.synchronize()
+        check_state(f"IC {label}", sim.state, cfg.n)
+        overflow = int(sim.overflow)
+        launched = sorted(k for k, v in launch_counts().items() if v > 0)
+        log(f"IC {label}: N={cfg.n}, force {cfg.resolve_force(DEVICE)}, "
+            f"softening {cfg.softening}; launched {launched}; overflow "
+            f"{overflow}; finite")
+        if overflow != 0:
+            raise AssertionError(f"IC {label}: overflow {overflow}")
+        if cfg.softening == 0.0 and cfg.force == "barnes_hut" and \
+                "near_field" not in launched:
+            raise AssertionError("softening 0: near_field was not launched")
+        del sim
+
+
 def main():
+    t_start = time.perf_counter()
     smi = phase_environment()
     with open(CONFIG) as f:
         cfg_json = f.read()
     with open(ALLPAIRS_CONFIG) as f:
         allpairs_json = f.read()
+    with open(STAGED_CONFIG) as f:
+        staged_json = f.read()
+    with open(GALAXY_CONFIG) as f:
+        galaxy_json = f.read()
+    with open(XL_CONFIG) as f:
+        xl_json = f.read()
     per_pair = phase_build()
     kernels = phase_kernel_parity(cfg_json)
     kernels["allpairs"] = phase_allpairs_parity(allpairs_json)
@@ -922,6 +1269,20 @@ def main():
     launches["allpairs"] = phase_allpairs_path(allpairs_json)["allpairs"]
     launches["far_gather"] = phase_gather_path(cfg_json)["far_gather"]
     phase_crossover()
+
+    phase_staged_parity(staged_json, kernels)
+    staged, staged_gather, cfg8 = phase_staged_path(staged_json)
+    galaxy = phase_galaxy_path(galaxy_json)
+    xl = phase_sections(cfg8, xl_json)
+    for name in ("near_field", "far_octet"):
+        kernels[name]["launches_staged8m"] = staged[name]
+        kernels[name]["launches_galaxy2m"] = galaxy[name]
+        kernels[name]["launches_32m"] = xl[name]
+    kernels["near_field"]["launches_staged8m_gather"] = \
+        staged_gather["near_field"]
+    kernels["far_gather"]["launches_staged8m"] = staged_gather["far_gather"]
+    phase_ics()
+    log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     # No single PyTorch call computes any of the four functions.
     line = {"kernels": [

@@ -6,11 +6,13 @@ package so that each counterpart is easy to find. Plain tensor code is
 PyTorch; the TPU's Pallas kernels on the ported path are CUDA C++ kernels
 for Hopper (csrc/, built at first use by kernels/build.py).
 
-Ported so far: the single-device Barnes-Hut path with dense refinement and
-either far field (octet or gather), the all-pairs path
-(force="direct_pallas"), both through `Simulation(cfg, device="cuda")`,
-Plummer ICs, the plain direct sum, the six integrators and the diagnostics. This package never imports
-JAX.
+Ported so far: the single-device Barnes-Hut path with dense or staged
+refinement, either far field (octet or gather) and target sections, the
+all-pairs path (force="direct_pallas"), both through
+`Simulation(cfg, device="cuda")`, all eleven IC families and
+`config.reference_compat_config`, the plain direct sum, the six integrators
+and the diagnostics. Not yet: `utils/` (snapshots, checkpoints, metrics),
+the CLI and the multi-device paths. This package never imports JAX.
 """
 
 from parallelnbody_tpu_torch.config import SimConfig

@@ -110,21 +110,21 @@ def calibrate_budgets(cfg: SimConfig, state: SimState,
                       headroom: float = 1.25) -> SimConfig:
     """Resolve bh_*_budget = 0 (auto) fields by measuring this state's exact
     per-target interaction-list requirements (ops/bh.py
-    measure_budget_requirements) and adding `headroom` for evolution.
+    measure_budget_requirements) and adding `headroom` for evolution: the
+    near and far list budgets, and with staged refinement the level-2 and
+    level-1 candidate budgets (bh_cand2_budget, bh_cand_budget).
     Explicitly-set (nonzero) budgets are kept. Returns cfg with concrete
-    budgets (unchanged for non-Barnes-Hut forces). Dense refinement only;
-    staged refinement is not ported yet and raises."""
+    budgets (unchanged for non-Barnes-Hut forces)."""
     if cfg.resolve_force(state.pos.device) != "barnes_hut":
         return cfg
     from parallelnbody_tpu_torch.ops.bh import measure_budget_requirements
 
     want_near = cfg.bh_near_budget == 0
     want_far = cfg.bh_far_budget == 0
-    if cfg.resolve_bh_refine() == "staged":
-        raise NotImplementedError(
-            "budget calibration for bh_refine='staged' is not ported yet "
-            "(ROADMAP Queue 1: staged refinement)")
-    if not (want_near or want_far):
+    staged = cfg.resolve_bh_refine() == "staged"
+    want_c2 = staged and cfg.bh_cand2_budget == 0
+    want_c1 = staged and cfg.bh_cand_budget == 0
+    if not (want_near or want_far or want_c2 or want_c1):
         return cfg
     req = measure_budget_requirements(state.pos, state.mass, cfg)
 
@@ -140,6 +140,13 @@ def calibrate_budgets(cfg: SimConfig, state: SimState,
                                    req["n_leaves"])
     if want_far:
         kw["bh_far_budget"] = pad(req["far_max"], 128)
+    # Only where the measurement ran the staged pipeline (resolve_refine
+    # falls back to dense on shallow trees).
+    if req["refine"] == "staged":
+        if want_c2:
+            kw["bh_cand2_budget"] = pad(req["cand2_max"], 64)
+        if want_c1:
+            kw["bh_cand_budget"] = pad(req["cand1_max"], 64)
     return cfg.replace(**kw)
 
 

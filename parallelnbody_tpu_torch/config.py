@@ -69,12 +69,11 @@ class SimConfig:
     bh_distributed: bool = False   # multi-device Barnes-Hut (not ported)
     bh_multipole: int = 2          # 1 = monopole, 2 = + traceless quadrupole
     bh_max_levels: int = 12
-    bh_refine: str = "auto"        # dense | staged | auto (staged not ported)
-    bh_cand_budget: int = 0        # staged refinement budgets (not ported)
-    bh_cand2_budget: int = 0
+    bh_refine: str = "auto"        # dense | staged | auto
+    bh_cand_budget: int = 0        # staged candidate budgets (level 1,
+    bh_cand2_budget: int = 0       # level 2); 0 = calibrated
     bh_far_mode: str = "auto"      # octet | gather | auto (= octet)
     bh_sections: int = 0           # target-leaf windows; 0 = auto
-                                   # (sections > 1 not ported)
     bh_pair_slack: float = 2.0     # distributed Barnes-Hut (not ported)
     bh_own_slack: float = 0.25
     bh_comm: str = "ring"
@@ -229,3 +228,24 @@ class SimConfig:
         for s in self.mesh_shape:
             out *= s
         return out
+
+
+def reference_compat_config(n: int = 1024, size: float = 200.0) -> SimConfig:
+    """Config reproducing the reference's hardcoded semantics.
+
+    Force law a += G*M/d^3 * (CoM - x) with G=1e4 and no softening
+    (OctreeSearch.h:104,102), theta=1.0 (OctreeSearch.cpp:85), semi-implicit
+    Euler with dt=0.01 (OctreeSearch.cpp:8,28-31), slab ICs with a central body
+    (OctreeSearch.cpp:58-72).
+    """
+    return SimConfig(
+        n=n,
+        dt=0.01,
+        g=1.0e4,
+        softening=0.0,
+        theta=1.0,
+        integrator="euler_semi_implicit",
+        ic="reference_slab",
+        ic_size=size,
+        force="direct",
+    )

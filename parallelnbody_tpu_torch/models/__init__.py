@@ -1,5 +1,8 @@
 """Initial-condition model families. Counterpart of
-`parallelnbody_tpu/models/`; only the Plummer sphere is ported so far.
+`parallelnbody_tpu/models/`: the reference's slab scene (`reference_slab`),
+the Plummer, Hernquist, King and NFW spheres, uniform cube and sphere, the
+cold-collapse sphere, the two-body binary, the rotating disk and the
+two-Plummer galaxy collision.
 
 Every generator has the signature
 
@@ -13,5 +16,7 @@ from parallelnbody_tpu_torch.models.registry import get_ic, register_ic, IC_REGI
 
 # Importing registers the built-in families.
 from parallelnbody_tpu_torch.models import spheres as _spheres  # noqa: F401
+from parallelnbody_tpu_torch.models import disk as _disk  # noqa: F401
+from parallelnbody_tpu_torch.models import scenes as _scenes  # noqa: F401
 
 __all__ = ["get_ic", "register_ic", "IC_REGISTRY"]

@@ -4,8 +4,6 @@ from __future__ import annotations
 
 from typing import Callable
 
-from parallelnbody_tpu_torch.config import IC_KINDS
-
 IC_REGISTRY: dict[str, Callable] = {}
 
 
@@ -21,8 +19,4 @@ def get_ic(name: str) -> Callable:
     try:
         return IC_REGISTRY[name]
     except KeyError:
-        if name in IC_KINDS:
-            raise NotImplementedError(
-                f"IC {name!r} is not ported yet (ROADMAP: the other ICs); "
-                f"ported: {sorted(IC_REGISTRY)}") from None
         raise ValueError(f"unknown IC {name!r}; options: {sorted(IC_REGISTRY)}")

@@ -1,8 +1,8 @@
 """Barnes-Hut gravity: Hilbert sort + multipole pyramid + level-synchronous
 masked traversal + per-target interaction lists, in torch.
 
-Counterpart of `parallelnbody_tpu/ops/bh.py`, ported for dense refinement
-(the auto below 8192 leaves) with either far field:
+Counterpart of `parallelnbody_tpu/ops/bh.py`, for both refinements and
+either far field, unsectioned or in target windows:
 
   1. Hilbert-sort particles (ops/hilbert.py; Morton optional); the sorted
      order is the octree linearization.
@@ -10,19 +10,24 @@ Counterpart of `parallelnbody_tpu/ops/bh.py`, ported for dense refinement
      (mass, CoM, bounding radius, traceless quadrupole) by reshape-reductions.
   3. Level-synchronous traversal with dense boolean masks over the upper
      levels; the group MAC accepts a node or expands its children.
-  4. The dense (n_slice, n_leaves) leaf plane splits candidate leaves into
-     exact near pairs and far multipoles. far_mode="octet" (the auto) keys
-     every far node as (octet_id << 8) | child_mask over the 8-aligned node
-     table; far_mode="gather" keeps two lists of node rows, the accepted
-     upper nodes and the accepted leaves.
+  4. Candidates are split into exact near pairs and far multipoles, either
+     on the dense (n_slice, n_leaves) leaf plane (refine="dense", the auto
+     below 8192 leaves) or by staged refinement (refine="staged"): per
+     target, a list of rejected level-2 nodes, their level-1 children
+     tested and the rejected ones listed, their leaf children tested.
+     far_mode="octet" (the auto) keys every far node as
+     (octet_id << 8) | child_mask over the 8-aligned node table;
+     far_mode="gather" lists node rows (dense: the accepted upper nodes and
+     the accepted leaves; staged: one list over every level's table).
   5. The lists go to the hand-written kernels (ops/bh_kernels.py): K1 the
      near field, K2 the octet far field, K4 the gather far lists. List
      budget overflow is reported, never silently dropped.
+  6. sections > 1 evaluates the target leaves in that many windows, one
+     after the other, each through the same windowed traversal and lists;
+     the results and the overflow count are those of one window over all.
 
 Integer outputs (keys, sort order, masks, lists, overflow) equal the JAX
 package's on the same inputs; `INT32_MAX` stays the empty-entry sentinel.
-Staged refinement and sections > 1 are not ported yet and raise
-NotImplementedError (ROADMAP).
 
 The acceptance criterion is the conservative group MAC
     MAC_SIZE_SCALE * r_node < theta * (d - r_leaf)
@@ -394,6 +399,227 @@ def _eval_far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,
                                 order=order)
 
 
+# ------------------------------------------------- staged (hierarchical) lists
+def _nodes_all(tree: BHTree, dtype):
+    """All levels' node tables stacked: row offsets per _level_offsets."""
+    return torch.cat([_node_table(tree, k, dtype)
+                      for k in range(tree.n_levels)], dim=0).contiguous()
+
+
+def _level_offsets(widths):
+    """Global-id offset of each level's rows in _nodes_all."""
+    offs = [0]
+    for k in range(1, len(widths)):
+        offs.append(offs[-1] + widths[k - 1])
+    return offs
+
+
+def _upper_keys(far_masks, offs, n_levels):
+    """Accepted upper-level (k >= 2) nodes as global-id key columns
+    (INT32_MAX = invalid), ready for a _keys_compact far sort."""
+    return torch.cat(
+        [torch.where(far_masks[k], offs[k] + _iota(*far_masks[k].shape,
+                                                   far_masks[k].device),
+                     INT32_MAX)
+         for k in range(2, n_levels)], dim=1)
+
+
+def _octet_keys_children(mask_b, parent_idx, child_oct_off, b):
+    """Octet keys from per-candidate child masks mask_b (R, B, b) for
+    parents parent_idx (R, B): node j's children are rows [j*b, (j+1)*b) of
+    the child level, i.e. bits (j*b) % 8 .. of octet child_oct_off + j*b//8
+    (b is a power of two <= 8, so a parent's children never straddle an
+    octet). Parents with b < 8 may share an octet: their masks are
+    disjoint, so such duplicate-octet entries count each child once, and the
+    far kernels sum every entry."""
+    pw = 1 << torch.arange(b, dtype=torch.int32, device=mask_b.device)
+    small = torch.sum(mask_b.to(torch.int32) * pw, dim=2, dtype=torch.int32)
+    base = parent_idx * b
+    keys = ((child_oct_off + base // 8) << 8) | (small << (base % 8))
+    return torch.where(small > 0, keys, INT32_MAX)
+
+
+# Bytes a staged row block may hold in its per-child temporaries. Each
+# child slot of a candidate row, (R, B, b) for B candidates of b children,
+# carries 80 bytes in the port's stage: the gathered (R, B, 5b) f32 child
+# geometry (20), dx, dy, dz and d (16), the squares summed into d (12), the
+# MAC, live, accepted and rejected masks (4), the child ids (4), the keys
+# (4) and the row sort's int32 values and int64 indices (12), rounded up.
+# 1 GiB a block leaves the lists themselves most of the card.
+_STAGE_BLOCK_BYTES = 1 << 30
+_STAGE_BYTES_PER_CHILD = 80
+
+
+def _auto_row_block(child_slots):
+    """Target rows a staged row block holds so that its per-child
+    temporaries (child_slots a row) stay near _STAGE_BLOCK_BYTES."""
+    per_row = max(child_slots, 1) * _STAGE_BYTES_PER_CHILD
+    return max(8, _STAGE_BLOCK_BYTES // per_row)
+
+
+def _map_row_blocks(fn, args, n_rows, row_block):
+    """Apply fn over row blocks, one after the other, to bound the gathered
+    temporaries. The block is n_rows halved while it exceeds row_block or
+    does not divide n_rows (the JAX package's rule: single rows once it
+    turns odd); joins the blocks' outputs along their leading dimension
+    (scalar-per-block outputs come back as (n_blocks,): sum them)."""
+    block = n_rows
+    while block > row_block or (block > 1 and n_rows % block):
+        block = block // 2 if block % 2 == 0 else 1
+    if block == n_rows:
+        return fn(args)
+    outs = [fn(tuple(a[r0:r0 + block] for a in args))
+            for r0 in range(0, n_rows, block)]
+    return tuple(torch.cat(parts) if parts[0].ndim else torch.stack(parts)
+                 for parts in zip(*outs))
+
+
+def _child_pack(tree: BHTree, k: int):
+    """Packed child-geometry table for refining level-k nodes: row j of the
+    (n_k, 5*b) table holds node j's b children at level k-1 as
+    [cx*b | cy*b | cz*b | r*b | m*b], so one row gather per (target,
+    candidate) brings all b children at once."""
+    n_child = tree.com[k - 1].shape[0]
+    n_k = tree.com[k].shape[0]
+    b = n_child // n_k
+    cols = [tree.com[k - 1][:, 0], tree.com[k - 1][:, 1],
+            tree.com[k - 1][:, 2], tree.radius[k - 1], tree.mass[k - 1]]
+    return torch.cat([c.reshape(n_k, b) for c in cols], dim=1), b
+
+
+def _refine_stage(pack, b, cand_idx, cand_valid, tgt_com, tgt_r, theta):
+    """Gather each candidate node's packed children and test the group MAC
+    per child. Returns (acc, rej, gid): (R, B, b) masks of children accepted
+    as multipoles / needing further refinement, and their global child ids
+    (ascending along flattened columns when cand_idx rows are ascending).
+    Empty children (mass 0 => CoM = sentinel) are excluded from BOTH
+    classes: they carry no physics. The distance sums its squares in the
+    JAX package's order, so the f32 comparison rounds the same way."""
+    rows = pack[cand_idx.long()]                 # (R, B, 5b)
+    cx = rows[:, :, 0 * b:1 * b]
+    cy = rows[:, :, 1 * b:2 * b]
+    cz = rows[:, :, 2 * b:3 * b]
+    cr = rows[:, :, 3 * b:4 * b]
+    cm = rows[:, :, 4 * b:5 * b]
+    dx = cx - tgt_com[:, 0][:, None, None]
+    dy = cy - tgt_com[:, 1][:, None, None]
+    dz = cz - tgt_com[:, 2][:, None, None]
+    d = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    mac = (MAC_SIZE_SCALE * cr) < (theta * (d - tgt_r[:, None, None]))
+    live = cand_valid[:, :, None] & (cm > 0)
+    gid = (cand_idx[:, :, None] * b
+           + torch.arange(b, dtype=torch.int32, device=cand_idx.device))
+    return live & mac, live & ~mac, gid
+
+
+def build_interaction_lists_staged(tree: BHTree, far_masks, rejects_l2, *,
+                                   theta, start_leaf, n_slice, near_budget,
+                                   far_budget, cand2_budget, cand1_budget,
+                                   dtype, row_block=0, octet_far=False):
+    """Hierarchical candidate refinement: the staged replacement for the
+    dense (n_slice, n_leaves) leaf plane, O(n_slice * budget) instead of
+    O(n_slice * n_leaves), so n_leaves can grow past ~8-16k.
+
+    Inputs come from traverse(stop_level=2): far_masks[k] for k >= 2 are
+    the dense accepted-node masks (narrow: node counts shrink 8x per level)
+    and rejects_l2 is the (n_slice, n_l2) mask of level-2 nodes needing
+    refinement. Three stages, all row sorts and row gathers:
+
+      A. compact rejects_l2 into a per-target candidate list (cand2_budget);
+      B. gather each candidate's packed level-1 children (_child_pack) and
+         MAC them: accepted -> far entries at level 1; rejected -> compact
+         into a level-1 candidate list (cand1_budget);
+      C. gather level-1 candidates' packed leaf children and MAC them:
+         accepted -> far entries at level 0; rejected -> the exact near list.
+
+    ONE far list covers everything non-near (upper accepted nodes from the
+    dense masks, level-1 accepts, leaf accepts) as ascending global ids into
+    the combined node table nodes_all = [leaves | level1 | level2 | ...]
+    (returned); `far_budget` must cover their SUM per target. Returns
+    (near_idx, near_valid, far_idx, far_valid, nodes_all, overflow); near
+    ids are leaf ids as in the dense path, so K1 serves both. Overflow is
+    an UPPER BOUND on lost entries: candidate-list clips count the clipped
+    candidate's worst-case subtree size (b2*b1 per level-2 clip, b1 per
+    level-1 clip) since its live-descendant count is unknown at clip time,
+    plus exact near/far clips.
+
+    row_block: process targets in row blocks, one after the other, to
+    bound the gathered temporaries (0 = auto, _auto_row_block); blocking
+    changes no bit of the lists.
+
+    octet_far=True: the far list is emitted in octet-masked form, keys
+    (octet_id << 8) | child_mask over the 8-aligned combined table
+    (_nodes_all_octet, returned in place of _nodes_all); far_budget counts
+    octet entries, and a clipped far entry counts 8 into the overflow. The
+    stage masks are per-parent child masks, so emission is a bit-pack."""
+    n_levels = tree.n_levels
+    widths = [c.shape[0] for c in tree.com]
+    if n_levels < 3:
+        raise ValueError("staged refinement needs >= 3 tree levels")
+    offs = _level_offsets(widths)
+    offs8, n_oct = _octet_offsets(widths)
+
+    pack2, b2 = _child_pack(tree, 2)
+    pack1, b1 = _child_pack(tree, 1)
+    cand2_budget = min(cand2_budget, widths[2])
+    cand1_budget = min(cand1_budget, widths[1])
+    if octet_far:
+        far_budget = min(far_budget, n_oct)
+
+    window = slice(start_leaf, start_leaf + n_slice)
+    tgt_com = tree.com[0][window]
+    tgt_r = tree.radius[0][window]
+    tgt_m = tree.mass[0][window]
+    up_keys = (_octet_upper_keys(far_masks, offs8, n_levels) if octet_far
+               else _upper_keys(far_masks, offs, n_levels))
+
+    def block_fn(args):
+        rej2, upk, t_com, t_r, t_m = args
+        r = rej2.shape[0]
+        # Zero-mass (padding) target leaves get empty lists: phantom
+        # targets must not consume budgets.
+        rej2 = rej2 & (t_m > 0)[:, None]
+        upk = torch.where((t_m > 0)[:, None], upk, INT32_MAX)
+        cols2 = _iota(*rej2.shape, rej2.device)
+        c2_idx, c2_valid, of2 = _row_compact(rej2, cols2, cand2_budget)
+
+        acc1, rej1, gid1 = _refine_stage(pack2, b2, c2_idx, c2_valid,
+                                         t_com, t_r, theta)
+        c1_idx, c1_valid, of1 = _keys_compact(
+            torch.where(rej1, gid1, INT32_MAX).reshape(r, -1), cand1_budget)
+
+        acc0, near0, gid0 = _refine_stage(pack1, b1, c1_idx, c1_valid,
+                                          t_com, t_r, theta)
+        near_keys = torch.where(near0, gid0, INT32_MAX).reshape(r, -1)
+        near_idx, near_valid, of_n = _keys_compact(near_keys, near_budget)
+
+        if octet_far:
+            far1_keys = _octet_keys_children(acc1, c2_idx, offs8[1], b2)
+            far0_keys = _octet_keys_children(acc0, c1_idx, offs8[0], b1)
+        else:
+            far1_keys = torch.where(acc1, offs[1] + gid1, INT32_MAX)
+            far0_keys = torch.where(acc0, gid0, INT32_MAX)
+        far_idx, far_valid, of_f = _keys_compact(
+            torch.cat([far0_keys.reshape(r, -1), far1_keys.reshape(r, -1),
+                       upk], dim=1), far_budget)
+        if octet_far:
+            of_f = of_f * 8  # a clipped octet hides up to 8 nodes
+        # A clipped candidate hides up to b children from BOTH classes.
+        of = (of2 * (b2 * b1) + of1 * b1 + of_n + of_f).to(torch.int32)
+        return near_idx, near_valid, far_idx, far_valid, of
+
+    if row_block <= 0:
+        row_block = _auto_row_block(max(cand1_budget * b1,
+                                        cand2_budget * b2))
+    near_idx, near_valid, far_idx, far_valid, of = _map_row_blocks(
+        block_fn, (rejects_l2, up_keys, tgt_com, tgt_r, tgt_m), n_slice,
+        row_block)
+    overflow = torch.sum(of, dtype=torch.int32)
+    nodes = (_nodes_all_octet(tree, dtype) if octet_far
+             else _nodes_all(tree, dtype))
+    return near_idx, near_valid, far_idx, far_valid, nodes, overflow
+
+
 # ------------------------------------------------------ gather far lists
 def build_interaction_lists(tree, far_masks, rejects_l1, *, theta, start_leaf,
                             n_slice, near_budget, far0_budget, dtype):
@@ -418,17 +644,26 @@ def build_interaction_lists(tree, far_masks, rejects_l1, *, theta, start_leaf,
             nodes_up, _node_table(tree, 0, dtype), overflow)
 
 
+def _eval_far_list(tgt_leaves, table, idx, valid, *, g, softening,
+                   compute_pot=True, order=None):
+    """Evaluate ONE front-packed per-target list of node rows over `table`
+    ([com, mass] or [com, mass, quad]) -> (acc, pot) flat over the window's
+    particles (kernel K4, its leaves launched in `order`,
+    bh_kernels.far_order)."""
+    return bh_kernels.far_gather(tgt_leaves, table, idx, valid, g=g,
+                                 softening=softening, compute_pot=compute_pot,
+                                 order=order)
+
+
 def eval_far_lists(tgt_leaves, nodes_up, up_idx, up_valid, leaf_nodes,
                    far0_idx, far0_valid, *, g, softening, compute_pot=True):
-    """Both gather far classes for one target window, each a front-packed
-    list of node rows evaluated by K4 (the JAX package's `_eval_far_list`),
-    summed in the JAX package's order: the upper nodes, then the accepted
-    leaves."""
+    """Both dense gather far classes for one target window, each a list of
+    node rows evaluated by K4, summed in the JAX package's order: the upper
+    nodes, then the accepted leaves."""
     kw = dict(g=g, softening=softening, compute_pot=compute_pot)
-    acc, pot = bh_kernels.far_gather(tgt_leaves, nodes_up, up_idx, up_valid,
-                                     **kw)
-    a, ph = bh_kernels.far_gather(tgt_leaves, leaf_nodes, far0_idx,
-                                  far0_valid, **kw)
+    acc, pot = _eval_far_list(tgt_leaves, nodes_up, up_idx, up_valid, **kw)
+    a, ph = _eval_far_list(tgt_leaves, leaf_nodes, far0_idx, far0_valid,
+                           **kw)
     return acc + a, pot + ph
 
 
@@ -462,56 +697,54 @@ def _prepare(pos, mass, *, leaf_size, curve, multipole_order=1, max_levels=12):
     return pos_s, mass_s, perm, tree, n, n_pad
 
 
-def _require_ported(refine, far_mode, sections):
-    """Raise for the configurations outside the ported slice: dense
-    refinement with either far mode and one section is ported."""
-    if refine == "staged":
-        raise NotImplementedError(
-            f"bh_refine='staged' (auto from 8192 leaves; here with "
-            f"bh_far_mode={far_mode!r}) is not ported yet (ROADMAP Queue 1: "
-            "staged refinement)")
-    if sections != 1:
-        raise NotImplementedError(
-            f"bh_sections={sections} is not ported yet (ROADMAP Queue 1: "
-            "sections)")
-
-
 def _forces_sorted(pos_s, mass_s, tree, far_masks, rejects, *, start_leaf,
                    n_slice, leaf_size, theta, g, softening, near_budget,
                    far0_budget, compute_pot=True, refine="dense",
-                   far_mode="octet"):
+                   cand_budgets=(0, 0), far_mode="octet"):
     """Far+near forces for target leaves [start_leaf, start_leaf + n_slice),
-    in sorted order, from the dense leaf plane: far_mode="octet" evaluates
-    one octet-key far list by K2, far_mode="gather" the upper and leaf
-    far lists of node rows by K4 (far0_budget then counts leaf entries);
-    the near list goes to K1 either way. Returns
-    (acc (n_slice*G, 3), pot (n_slice*G,), overflow)."""
-    _require_ported(refine, far_mode, 1)
+    in sorted order. Returns (acc (n_slice*G, 3), pot (n_slice*G,),
+    overflow).
+
+    refine="dense": the dense leaf plane (far_masks/rejects from
+    traverse(stop_level=1)); far_mode="octet" evaluates one octet-key far
+    list by K2, far_mode="gather" the upper and leaf far lists of node rows
+    by K4 (far0_budget then counts leaf entries). refine="staged":
+    hierarchical candidate refinement (build_interaction_lists_staged;
+    traverse(stop_level=2)) with cand_budgets = (cand2, cand1); one far list
+    covers every far class, octet keys for K2 or node rows of _nodes_all for
+    K4, and far0_budget counts its entries. The near list goes to K1 with
+    its work items either way."""
     n_leaves = pos_s.shape[0] // leaf_size
     p_leaves = pos_s.reshape(n_leaves, leaf_size, 3)
     tgt_leaves = p_leaves[start_leaf:start_leaf + n_slice]
     kw = dict(theta=theta, start_leaf=start_leaf, n_slice=n_slice,
               near_budget=near_budget, dtype=pos_s.dtype)
-    if far_mode == "octet":
+    fkw = dict(g=g, softening=softening, compute_pot=compute_pot)
+    if refine == "staged":
+        (near_idx, near_valid, far_idx, far_valid, nodes_all,
+         overflow) = build_interaction_lists_staged(
+            tree, far_masks, rejects, far_budget=far0_budget,
+            cand2_budget=cand_budgets[0], cand1_budget=cand_budgets[1],
+            octet_far=far_mode == "octet", **kw)
+        work = bh_kernels.near_work(near_valid)
+        evaluate = _eval_far_octet if far_mode == "octet" else _eval_far_list
+        acc, pot = evaluate(tgt_leaves, nodes_all, far_idx, far_valid, **fkw)
+    elif far_mode == "octet":
         (near_idx, near_valid, far_keys, far_valid, nodes8,
          overflow) = build_interaction_lists_octet(
             tree, far_masks, rejects, far_budget=far0_budget, **kw)
         work = bh_kernels.near_work(near_valid)
         acc, pot = _eval_far_octet(tgt_leaves, nodes8, far_keys, far_valid,
-                                   g=g, softening=softening,
-                                   compute_pot=compute_pot)
+                                   **fkw)
     else:
         (near_idx, near_valid, far0_idx, far0_valid, up_idx, up_valid,
          nodes_up, leaf_nodes, overflow) = build_interaction_lists(
             tree, far_masks, rejects, far0_budget=far0_budget, **kw)
         work = bh_kernels.near_work(near_valid)
         acc, pot = eval_far_lists(tgt_leaves, nodes_up, up_idx, up_valid,
-                                  leaf_nodes, far0_idx, far0_valid, g=g,
-                                  softening=softening,
-                                  compute_pot=compute_pot)
+                                  leaf_nodes, far0_idx, far0_valid, **fkw)
     a, ph = bh_kernels.near_field(pos_s, mass_s, tgt_leaves, near_idx,
-                                  near_valid, g=g, softening=softening,
-                                  compute_pot=compute_pot, work=work)
+                                  near_valid, work=work, **fkw)
     return acc + a, pot + ph, overflow
 
 
@@ -541,18 +774,27 @@ def resolve_far_mode(far_mode, refine):
     return "octet" if far_mode == "auto" else far_mode
 
 
-# Sections auto threshold of the JAX package (a TPU v5e memory boundary);
-# kept so both packages resolve a config alike until the port measures its
-# own on the GPU.
-_SECTION_AUTO_LEAVES = 65536
-_SECTION_TARGET_ROWS = 16384
+# Sections auto threshold, from the card. Peak torch.cuda.max_memory_allocated
+# of Simulation(cfg) + step(1) + step(16) (tools/section_memory.py on an
+# NVIDIA H100 80GB HBM3, 700.00 W, 79.2 GiB usable), in GiB:
+#   N = 16M (65536 leaves):  unsectioned 2.95 / 3.33 / 4.88,
+#                            4 windows   1.91 / 2.29 / 4.22;
+#   N = 32M (131072 leaves): unsectioned 6.70 / 7.45 / 9.98,
+#                            8 windows   3.63 / 4.38 / 8.22.
+# Windows cost 3-5 % of the time of a step there and save at most 3.1 GiB,
+# so the auto stays unsectioned up to the largest leaf count measured
+# unsectioned (32M at leaf 256, 13 % of the card). Above it, windows of
+# 65536 rows: at 64M their traversal planes (rows x level-2 nodes) are the
+# size of the 32M unsectioned run's.
+_SECTION_AUTO_LEAVES = 131072
+_SECTION_TARGET_ROWS = 65536
 
 
 def resolve_sections(sections, n_leaves, refine):
     """Resolve the evaluation section count. 0 = auto: 1 up to
-    _SECTION_AUTO_LEAVES, then power-of-two windows of ~16384 rows.
-    Explicit counts are clamped to a power of two dividing n_leaves. Dense
-    refine never sections."""
+    _SECTION_AUTO_LEAVES, then power-of-two windows of about
+    _SECTION_TARGET_ROWS rows. Explicit counts are clamped to a power of two
+    dividing n_leaves. Dense refine never sections."""
     if refine == "dense":
         return 1
     if sections <= 0:
@@ -565,6 +807,17 @@ def resolve_sections(sections, n_leaves, refine):
     return s
 
 
+def _windows(n_leaves, sections):
+    """(start, n_slice) of each of the `sections` equal target windows."""
+    w = n_leaves // sections
+    return [(start, w) for start in range(0, n_leaves, w)]
+
+
+def _join(parts):
+    """Concatenate per-window results along rows (no copy for one)."""
+    return parts[0] if len(parts) == 1 else torch.cat(list(parts), dim=0)
+
+
 def bh_accel(pos, mass, *, leaf_size=256, theta=0.5, g=1.0, softening=1e-2,
              near_budget=64, far0_budget=2048, curve="hilbert", multipole=1,
              max_levels=12, compute_pot=True, refine="dense",
@@ -573,8 +826,20 @@ def bh_accel(pos, mass, *, leaf_size=256, theta=0.5, g=1.0, softening=1e-2,
 
     Returns (acc (N,3), pot (N,), overflow ()): overflow > 0 means the
     near/far budgets clipped some entries (an upper bound on lost entries:
-    clipped far octets count 8); zero means nothing was clipped. On a CUDA
-    device the two list evaluations run the hand-written kernels.
+    staged candidate-list clips count their worst-case subtree and clipped
+    far octets count 8); zero means nothing was clipped. On a CUDA device
+    the list evaluations run the hand-written kernels.
+
+    refine: "dense" (the (n_slice, n_leaves) leaf plane) or "staged"
+    (hierarchical candidate refinement, build_interaction_lists_staged;
+    falls back to dense on trees with fewer than 3 levels). cand_budgets =
+    (cand2, cand1); 0 resolves to a default derived from the list budgets.
+
+    sections: evaluate the target leaves in this many windows, one after
+    the other, each through its own windowed traversal and lists, so that
+    the traversal planes, the staged lists and their sort buffers are sized
+    by n_leaves / sections. 0 = auto (resolve_sections). The physics, lists
+    and overflow count are those of the unsectioned evaluation.
     """
     pos_s, mass_s, perm, tree, n, n_pad = _prepare(
         pos, mass, leaf_size=leaf_size, curve=curve, multipole_order=multipole,
@@ -583,16 +848,25 @@ def bh_accel(pos, mass, *, leaf_size=256, theta=0.5, g=1.0, softening=1e-2,
     refine, cand_budgets = resolve_refine(refine, cand_budgets, tree.n_levels,
                                           near_budget, far0_budget)
     far_mode = resolve_far_mode(far_mode, refine)
-    _require_ported(refine, far_mode,
-                    resolve_sections(sections, n_leaves, refine))
+    sections = resolve_sections(sections, n_leaves, refine)
+    stop = 1 if refine == "dense" else 2
 
-    far_masks, rejects = traverse(tree, theta, stop_level=1)
-    acc, pot, overflow = _forces_sorted(
-        pos_s, mass_s, tree, far_masks, rejects,
-        start_leaf=0, n_slice=n_leaves, leaf_size=leaf_size, theta=theta,
-        g=g, softening=softening, near_budget=near_budget,
-        far0_budget=far0_budget, compute_pot=compute_pot, refine=refine,
-        far_mode=far_mode)
+    accs, pots, ovfs = [], [], []
+    for start, w in _windows(n_leaves, sections):
+        far_masks, rejects = traverse(tree, theta, start_leaf=start,
+                                      n_slice=w, stop_level=stop)
+        acc, pot, of = _forces_sorted(
+            pos_s, mass_s, tree, far_masks, rejects,
+            start_leaf=start, n_slice=w, leaf_size=leaf_size, theta=theta,
+            g=g, softening=softening, near_budget=near_budget,
+            far0_budget=far0_budget, compute_pot=compute_pot, refine=refine,
+            cand_budgets=cand_budgets, far_mode=far_mode)
+        del far_masks, rejects
+        accs.append(acc)
+        pots.append(pot)
+        ovfs.append(of)
+    acc, pot = _join(accs), _join(pots)
+    overflow = torch.sum(torch.stack(ovfs), dtype=torch.int32)
 
     # Unsort back to the caller's particle order: sorted row i belongs at
     # original row perm[i] (perm is a permutation, so the scatter is exact).
@@ -606,18 +880,19 @@ def bh_accel(pos, mass, *, leaf_size=256, theta=0.5, g=1.0, softening=1e-2,
 # ------------------------------------------------------------- list reuse
 class BHListPlan(NamedTuple):
     """Frozen interaction lists for rebuild-interval reuse
-    (bh_rebuild_every). overflow is the list-build clip counter; near_work
-    holds K1's work items for the near lists and far_order K2's launch
-    order for the far lists (None: built at each evaluation, or not needed
-    on the CPU)."""
+    (bh_rebuild_every), full width over every target leaf. overflow is the
+    list-build clip counter. near_work holds K1's work items and far_order
+    K2's launch order, one of each per target window of the build (None:
+    built at each evaluation; an entry is None for CPU lists, which the
+    plain versions evaluate without)."""
 
     near_idx: torch.Tensor    # (n_leaves, near_budget) source-leaf ids
     near_valid: torch.Tensor  # (n_leaves, near_budget) bool
     far_keys: torch.Tensor    # (n_leaves, far_budget) (octet_id<<8)|child_mask
     far_valid: torch.Tensor   # (n_leaves, far_budget) bool
     overflow: torch.Tensor    # () int32
-    near_work: bh_kernels.NearWork | None = None
-    far_order: torch.Tensor | None = None
+    near_work: tuple | None = None
+    far_order: tuple | None = None
 
 
 def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
@@ -625,16 +900,39 @@ def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
     """Traverse + build the octet-far interaction lists for ALL target
     leaves of `tree`: the geometry half of bh_accel, used by the
     rebuild-interval runs (api._make_run_reuse). refine/cand_budgets must
-    arrive resolved (resolve_refine)."""
-    _require_ported(refine, "octet", sections)
+    arrive resolved (resolve_refine).
+
+    sections > 1: the traversal planes and list-build temporaries are sized
+    per target window exactly as in sectioned bh_accel, while the returned
+    plan is full width: the list functions emit global source ids, so the
+    windows' lists concatenate into the plan the unsectioned build makes.
+    K1's work items and K2's launch order are built per window, here, once
+    per list build."""
     n_leaves = tree.com[0].shape[0]
-    far_masks, rejects = traverse(tree, theta, stop_level=1)
-    ni, nv, fk, fv, _, of = build_interaction_lists_octet(
-        tree, far_masks, rejects, theta=theta, start_leaf=0,
-        n_slice=n_leaves, near_budget=near_budget, far_budget=far_budget,
-        dtype=dtype)
-    return BHListPlan(ni, nv, fk, fv, of.to(torch.int32),
-                      bh_kernels.near_work(nv), bh_kernels.far_order(fv))
+    stop = 1 if refine == "dense" else 2
+    parts, works, orders = [], [], []
+    for start, w in _windows(n_leaves, sections):
+        far_masks, rejects = traverse(tree, theta, start_leaf=start,
+                                      n_slice=w, stop_level=stop)
+        if refine == "staged":
+            ni, nv, fk, fv, _, of = build_interaction_lists_staged(
+                tree, far_masks, rejects, theta=theta, start_leaf=start,
+                n_slice=w, near_budget=near_budget, far_budget=far_budget,
+                cand2_budget=cand_budgets[0], cand1_budget=cand_budgets[1],
+                dtype=dtype, octet_far=True)
+        else:
+            ni, nv, fk, fv, _, of = build_interaction_lists_octet(
+                tree, far_masks, rejects, theta=theta, start_leaf=start,
+                n_slice=w, near_budget=near_budget, far_budget=far_budget,
+                dtype=dtype)
+        del far_masks, rejects
+        parts.append((ni, nv, fk, fv, of.to(torch.int32)))
+        works.append(bh_kernels.near_work(nv))
+        orders.append(bh_kernels.far_order(fv))
+    ni, nv, fk, fv, ofs = zip(*parts)
+    overflow = torch.sum(torch.stack(ofs), dtype=torch.int32)
+    return BHListPlan(_join(ni), _join(nv), _join(fk), _join(fv), overflow,
+                      tuple(works), tuple(orders))
 
 
 def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
@@ -644,8 +942,9 @@ def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
     pyramid + the near/far kernels; no sort, no traversal, no list build.
     Returns (acc (n_pad, 3), pot (n_pad,)) in sorted order. n_live: count
     of real rows (pads sit at rows [n_live:] and must not widen the domain
-    cube)."""
-    _require_ported("dense", "octet", sections)
+    cube). sections > 1 evaluates the target windows one after the other,
+    each with the work items and launch order the plan built for it;
+    physics identical to the unsectioned evaluation."""
     dtype = pos_s.dtype
     n_pad = pos_s.shape[0]
     n_leaves = n_pad // leaf_size
@@ -656,25 +955,43 @@ def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
                       multipole_order=multipole, max_levels=max_levels)
     nodes8 = _nodes_all_octet(tree, dtype)
     tgt = pos_s.reshape(n_leaves, leaf_size, 3)
-    acc, pot = _eval_far_octet(tgt, nodes8, plan.far_keys, plan.far_valid,
-                               g=g, softening=softening,
-                               compute_pot=compute_pot, order=plan.far_order)
-    a, ph = bh_kernels.near_field(pos_s, mass_s, tgt, plan.near_idx,
-                                  plan.near_valid, g=g, softening=softening,
-                                  compute_pot=compute_pot, work=plan.near_work)
-    return acc + a, pot + ph
+    windows = _windows(n_leaves, sections)
+    for built in (plan.near_work, plan.far_order):
+        if built is not None and len(built) != len(windows):
+            raise ValueError(f"plan built for {len(built)} windows, "
+                             f"evaluated in {len(windows)}")
+    kw = dict(g=g, softening=softening, compute_pot=compute_pot)
+    accs, pots = [], []
+    for i, (start, w) in enumerate(windows):
+        rows = slice(start, start + w)
+        acc, pot = _eval_far_octet(
+            tgt[rows], nodes8, plan.far_keys[rows], plan.far_valid[rows],
+            order=None if plan.far_order is None else plan.far_order[i], **kw)
+        a, ph = bh_kernels.near_field(
+            pos_s, mass_s, tgt[rows], plan.near_idx[rows],
+            plan.near_valid[rows],
+            work=None if plan.near_work is None else plan.near_work[i], **kw)
+        accs.append(acc + a)
+        pots.append(pot + ph)
+    return _join(accs), _join(pots)
 
 
 def measure_budget_requirements(pos, mass, cfg) -> dict:
     """EXACT per-target interaction-list requirements of cfg's resolved
     Barnes-Hut pipeline on THIS mass distribution (the measurement behind
     api.calibrate_budgets): counts from the same masks/keys the list
-    builders compact, summed per target row instead of budget-clipped.
+    functions compact (_dense_leaf_masks / _refine_stage / _octet_keys_*),
+    summed per target row instead of budget-clipped, so the maxima are
+    exact. The staged pipeline needs candidate lists to exist before stages
+    B and C can run, so it is measured in three stages: stage A (the
+    traversal) yields the exact level-2 candidate maximum, which sizes stage
+    B's lists exactly (no clipping by construction), whose reject maximum
+    sizes stage C. Sections > 1 traverse window by window, as the runs do.
 
     Returns {"near_max", "far_max", "cand2_max", "cand1_max", "refine",
-    "far_mode", "sections", "n_leaves", "leaf_size"}; far_max counts octet
-    entries for the octet far mode and leaf entries for gather. Dense
-    refinement only (staged is not ported yet)."""
+    "far_mode", "sections", "n_leaves", "leaf_size"} (cand maxima are 0
+    for dense refine); far_max counts octet entries for the octet far mode,
+    node entries for gather (dense gather: leaf entries)."""
     leaf_size = cfg.resolve_bh_leaf_size()
     theta = cfg.theta
     n = pos.shape[0]
@@ -683,7 +1000,7 @@ def measure_budget_requirements(pos, mass, cfg) -> dict:
                                1, 1)
     far_mode = resolve_far_mode(cfg.bh_far_mode, refine)
     sections = resolve_sections(cfg.bh_sections, n_leaves, refine)
-    _require_ported(refine, far_mode, sections)
+    octet = far_mode == "octet"
     out = {"refine": refine, "far_mode": far_mode, "sections": sections,
            "n_leaves": n_leaves, "leaf_size": leaf_size,
            "cand2_max": 0, "cand1_max": 0}
@@ -691,24 +1008,102 @@ def measure_budget_requirements(pos, mass, cfg) -> dict:
     _, _, _, tree, _, _ = _prepare(
         pos, mass, leaf_size=leaf_size, curve=cfg.bh_curve,
         multipole_order=cfg.bh_multipole, max_levels=cfg.bh_max_levels)
-    far_masks, rejects_l1 = traverse(tree, theta)
-    near_mask, far_mask = _dense_leaf_masks(tree, rejects_l1, theta, 0,
-                                            n_leaves)
-    near_req = torch.sum(near_mask, dim=1)
-    if far_mode == "octet":
-        offs8, _ = _octet_offsets([c.shape[0] for c in tree.com])
-        upk = _octet_upper_keys(far_masks, offs8, tree.n_levels, lo_level=1)
-        upk = torch.where((tree.mass[0] > 0)[:, None], upk,
-                          torch.full_like(upk, INT32_MAX))
-        far_req = (torch.sum(_octet_keys_dense(far_mask, offs8[0])
-                             != INT32_MAX, dim=1)
-                   + torch.sum(upk != INT32_MAX, dim=1))
-    else:
-        # Gather: only the leaf (far0) list is budgeted; the upper list
-        # compacts at full width and cannot clip.
-        far_req = torch.sum(far_mask, dim=1)
+    widths = [c.shape[0] for c in tree.com]
+    offs8, _ = _octet_offsets(widths)
+    windows = _windows(n_leaves, sections)
+
+    if refine == "dense":
+        near_max = far_max = 0
+        for start, w in windows:
+            far_masks, rejects_l1 = traverse(tree, theta, start_leaf=start,
+                                             n_slice=w)
+            near_mask, far_mask = _dense_leaf_masks(tree, rejects_l1, theta,
+                                                    start, w)
+            near_req = torch.sum(near_mask, dim=1)
+            if octet:
+                tgt_m = tree.mass[0][start:start + w]
+                upk = _octet_upper_keys(far_masks, offs8, tree.n_levels,
+                                        lo_level=1)
+                upk = torch.where((tgt_m > 0)[:, None], upk, INT32_MAX)
+                far_req = (torch.sum(_octet_keys_dense(far_mask, offs8[0])
+                                     != INT32_MAX, dim=1)
+                           + torch.sum(upk != INT32_MAX, dim=1))
+            else:
+                # Gather: only the leaf (far0) list is budgeted; the upper
+                # list compacts at full width and cannot clip.
+                far_req = torch.sum(far_mask, dim=1)
+            near_max = max(near_max, int(torch.max(near_req)))
+            far_max = max(far_max, int(torch.max(far_req)))
+        return out | {"near_max": near_max, "far_max": far_max}
+
+    # ---- staged: three exact stages (A: traverse -> cand2 requirement;
+    # B: level-2 refinement at exactly-sized lists -> cand1 requirement +
+    # level-1 far counts; C: level-1 refinement -> near + leaf far counts).
+    offs = _level_offsets(widths)
+    c2r, upc, rej2 = [], [], []
+    for start, w in windows:
+        far_masks, rej = traverse(tree, theta, start_leaf=start, n_slice=w,
+                                  stop_level=2)
+        live = (tree.mass[0][start:start + w] > 0)[:, None]
+        rej2.append(rej & live)
+        upk = (_octet_upper_keys(far_masks, offs8, tree.n_levels) if octet
+               else _upper_keys(far_masks, offs, tree.n_levels))
+        upc.append(torch.sum(torch.where(live, upk, INT32_MAX) != INT32_MAX,
+                             dim=1))
+        c2r.append(torch.sum(rej2[-1], dim=1))
+        del far_masks, rej, upk
+    rej2, upc = _join(rej2), _join(upc)
+    cand2_max = int(torch.max(_join(c2r)))
+    c2b = max(8, min(cand2_max, widths[2]))
+    pack2, b2 = _child_pack(tree, 2)
+    pack1, b1 = _child_pack(tree, 1)
+    rows_all = (rej2, tree.com[0], tree.radius[0])
+
+    def level2(args):
+        """Stage B's candidates and their children (shared by B and C)."""
+        rej2_b, t_com, t_r = args
+        cols2 = _iota(*rej2_b.shape, rej2_b.device)
+        c2_idx, c2_valid, _ = _row_compact(rej2_b, cols2, c2b)
+        return c2_idx, _refine_stage(pack2, b2, c2_idx, c2_valid, t_com, t_r,
+                                     theta)
+
+    def stage_b(args):
+        r = args[0].shape[0]
+        c2_idx, (acc1, rej1, _) = level2(args)
+        c1req = torch.sum(rej1.reshape(r, -1), dim=1)
+        if octet:
+            k1 = _octet_keys_children(acc1, c2_idx, offs8[1], b2)
+            f1 = torch.sum(k1.reshape(r, -1) != INT32_MAX, dim=1)
+        else:
+            f1 = torch.sum(acc1.reshape(r, -1), dim=1)
+        return c1req, f1
+
+    c1req, f1 = _map_row_blocks(stage_b, rows_all, n_leaves,
+                                _auto_row_block(c2b * b2))
+    cand1_max = int(torch.max(c1req))
+    c1b = max(8, min(cand1_max, widths[1]))
+
+    def stage_c(args):
+        rej2_b, t_com, t_r = args
+        r = rej2_b.shape[0]
+        _, (_, rej1, gid1) = level2(args)
+        c1_idx, c1_valid, _ = _keys_compact(
+            torch.where(rej1, gid1, INT32_MAX).reshape(r, -1), c1b)
+        acc0, near0, _ = _refine_stage(pack1, b1, c1_idx, c1_valid, t_com,
+                                       t_r, theta)
+        near_req = torch.sum(near0.reshape(r, -1), dim=1)
+        if octet:
+            k0 = _octet_keys_children(acc0, c1_idx, offs8[0], b1)
+            f0 = torch.sum(k0.reshape(r, -1) != INT32_MAX, dim=1)
+        else:
+            f0 = torch.sum(acc0.reshape(r, -1), dim=1)
+        return near_req, f0
+
+    near_req, f0 = _map_row_blocks(stage_c, rows_all, n_leaves,
+                                   _auto_row_block(max(c1b * b1, c2b * b2)))
     return out | {"near_max": int(torch.max(near_req)),
-                  "far_max": int(torch.max(far_req))}
+                  "far_max": int(torch.max(upc + f1 + f0)),
+                  "cand2_max": cand2_max, "cand1_max": cand1_max}
 
 
 def make_bh_accel(cfg, mass, overflow_cell=None):

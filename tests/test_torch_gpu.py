@@ -1,5 +1,6 @@
 """The CUDA kernels K1 (near field), K2 (octet far field), K3 (all-pairs)
-and K4 (gather far field) on the card.
+and K4 (gather far field) on the card, on dense and staged lists, and the
+sectioned and staged paths through them.
 
 Every test here is marked `gpu` and skips where torch.cuda.is_available()
 is False. The file imports neither JAX nor the JAX package, so it also runs
@@ -8,9 +9,9 @@ so run it there with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-Inputs are the port's own Plummer ICs, trees and dense lists (octet and
-gather), built on the CPU; the plain PyTorch versions of the kernels are
-the reference.
+Inputs are the port's own ICs, trees and lists (dense and staged, octet
+and gather), built on the CPU; the plain PyTorch versions of the kernels
+are the reference.
 Tolerance rtol 2e-4, atol 2e-5 (the bound of tests/test_bh.py for the
 Pallas kernels against their jnp versions): kernel and plain version sum
 the same f32 terms in another order, with another rsqrt.
@@ -257,11 +258,12 @@ def test_rebuild_interval_plan_holds_the_work_items(cuda):
                             dtype=torch.float32)
     assert int(plan.overflow) == 0
     want = bh_kernels.near_work(plan.near_valid)
-    assert plan.near_work is not None
-    assert torch.equal(plan.near_work.items, want.items)
-    assert torch.equal(plan.near_work.splits, want.splits)
-    assert plan.near_work.n_partial == want.n_partial
-    assert torch.equal(plan.far_order, bh_kernels.far_order(plan.far_valid))
+    assert plan.near_work is not None and len(plan.near_work) == 1
+    (work,), (order,) = plan.near_work, plan.far_order
+    assert torch.equal(work.items, want.items)
+    assert torch.equal(work.splits, want.splits)
+    assert work.n_partial == want.n_partial
+    assert torch.equal(order, bh_kernels.far_order(plan.far_valid))
 
 
 @pytest.mark.parametrize("kernel", ["far_octet", "far_gather"])
@@ -502,3 +504,163 @@ def test_simulation_runs_the_new_paths(cuda, change):
     rms = rms_force_error_sample(s.pos, s.mass, s.acc, g=cfg.g,
                                  softening=cfg.softening, k=2048)
     assert rms < (1e-4 if "force" in change else 2e-3)
+
+
+@pytest.fixture(scope="module")
+def staged_lists(cuda):
+    """Staged lists at N = 65536, leaf 32 (2048 leaves, five levels), theta
+    0.6, quadrupole tables, on the card: the near list, the octet far list
+    (keys from _octet_keys_children) and the gather far list over
+    _nodes_all."""
+    cfg = SimConfig(n=65536, ic="plummer", seed=6)
+    state = init_simulation(cfg, "cpu", compute_forces=False)
+    pos_s, mass_s, _, tree, _, n_pad = bh._prepare(
+        state.pos, state.mass, leaf_size=32, curve="hilbert",
+        multipole_order=2)
+    n_leaves = n_pad // 32
+    widths = [c.shape[0] for c in tree.com]
+    far, rej2 = bh.traverse(tree, 0.6, stop_level=2)
+    kw = dict(theta=0.6, start_leaf=0, n_slice=n_leaves,
+              near_budget=n_leaves, far_budget=4 * n_leaves,
+              cand2_budget=widths[2], cand1_budget=widths[1],
+              dtype=torch.float32)
+    ni, nv, fk, fv, nodes8, of = bh.build_interaction_lists_staged(
+        tree, far, rej2, octet_far=True, **kw)
+    _, _, gi, gv, nodes_all, of_g = bh.build_interaction_lists_staged(
+        tree, far, rej2, octet_far=False, **kw)
+    assert int(of) == 0 and int(of_g) == 0
+    out = dict(pos_s=pos_s, mass_s=mass_s,
+               tgt=pos_s.reshape(n_leaves, 32, 3), ni=ni, nv=nv, fk=fk,
+               fv=fv, nodes8=nodes8, gi=gi, gv=gv, nodes_all=nodes_all)
+    return {k: v.contiguous().to(cuda) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("softening", [0.02, 0.0], ids=["soft", "guard0"])
+@pytest.mark.parametrize("compute_pot", [True, False])
+@pytest.mark.parametrize("kernel", ["near_field", "far_octet", "far_gather"])
+def test_kernels_match_plain_on_staged_lists(staged_lists, kernel, softening,
+                                             compute_pot):
+    """K1 on the staged near lists, K2 on the staged octet keys (partial
+    child masks built per parent), K4 on the one combined staged gather
+    list, each launched once, against its plain version."""
+    L = staged_lists
+    fn, plain, args = {
+        "near_field": (bh_kernels.near_field, bh_kernels.near_field_plain,
+                       (L["pos_s"], L["mass_s"], L["tgt"], L["ni"], L["nv"])),
+        "far_octet": (bh_kernels.far_octet, bh_kernels.far_octet_plain,
+                      (L["tgt"], L["nodes8"], L["fk"], L["fv"])),
+        "far_gather": (bh_kernels.far_gather, bh_kernels.far_gather_plain,
+                       (L["tgt"], L["nodes_all"], L["gi"], L["gv"])),
+    }[kernel]
+    kw = dict(g=1.5, softening=softening, compute_pot=compute_pot)
+    before = bh_kernels.LAUNCHES[kernel]
+    acc, pot = fn(*args, **kw)
+    assert bh_kernels.LAUNCHES[kernel] == before + 1
+    acc_p, pot_p = plain(*args, **kw)
+    _close(acc, acc_p)
+    _close(pot, pot_p)
+    assert bool(torch.any(pot != 0)) == compute_pot
+
+
+@pytest.mark.parametrize("quad", [True, False], ids=["quad", "mono"])
+def test_far_octet_kernel_duplicate_octets(lists, quad):
+    """Rows naming one octet in several keys with disjoint masks (what two
+    parents of branch factor < 8 emit in staged lists): K2 sums every
+    entry, as one key of the union mask, and agrees with far_octet_plain."""
+    L = lists
+    nodes8 = L["nodes8"] if quad else L["nodes8"][:, :4].contiguous()
+    n_oct = nodes8.shape[0] // 8
+    big = 2**31 - 1
+    rows_split, rows_union = [], []
+    for r, masks in enumerate(([0x0F, 0xF0], [0x01, 0x02, 0x0C, 0xF0],
+                               [0x55, 0xAA], [0x80, 0x7F])):
+        o = (3 * r + 1) % n_oct
+        other = (o + 5) % n_oct
+        split = sorted([(o << 8) | m for m in masks] + [(other << 8) | 0x3C])
+        union = sorted([(o << 8) | 0xFF, (other << 8) | 0x3C])
+        rows_split.append(split + [big] * (6 - len(split)))
+        rows_union.append(union + [big] * (6 - len(union)))
+    keys = torch.tensor(rows_split, dtype=torch.int32, device="cuda")
+    keys_u = torch.tensor(rows_union, dtype=torch.int32, device="cuda")
+    tgt = L["tgt"][:4].contiguous()
+    kw = dict(g=1.0, softening=0.02, compute_pot=True)
+    acc, pot = bh_kernels.far_octet(tgt, nodes8, keys, keys != big, **kw)
+    acc_p, pot_p = bh_kernels.far_octet_plain(tgt, nodes8, keys, keys != big,
+                                              **kw)
+    acc_u, pot_u = bh_kernels.far_octet(tgt, nodes8, keys_u, keys_u != big,
+                                        **kw)
+    _close(acc, acc_p)
+    _close(pot, pot_p)
+    _close(acc, acc_u)
+    _close(pot, pot_u)
+
+
+@pytest.mark.parametrize("far_mode", ["octet", "gather"])
+def test_sections_bitwise_on_the_card(cuda, far_mode):
+    """bh_accel in 4 target windows against one, staged, on the card: the
+    same forces, potentials and overflow bit for bit; and a rebuild-interval
+    plan built in 4 windows evaluates to the one-window plan's bits."""
+    cfg = SimConfig(n=65536, ic="plummer", seed=7)
+    state = init_simulation(cfg, cuda, compute_forces=False)
+    # Budgets above this state's requirements (near 2043 of 2048 leaves,
+    # far 246 octets or 1763 nodes, candidates 32 and 256).
+    kw = dict(leaf_size=32, theta=0.6, g=1.0, softening=0.02,
+              near_budget=2048, far0_budget=512 if far_mode == "octet"
+              else 2048, multipole=2, refine="staged", far_mode=far_mode,
+              cand_budgets=(64, 512))
+    a1, p1, of1 = bh.bh_accel(state.pos, state.mass, sections=1, **kw)
+    a4, p4, of4 = bh.bh_accel(state.pos, state.mass, sections=4, **kw)
+    torch.cuda.synchronize()
+    assert int(of1) == int(of4) == 0
+    assert torch.equal(a1, a4) and torch.equal(p1, p4)
+    if far_mode == "gather":
+        return
+    pos_s, mass_s, _, tree, _, _ = bh._prepare(
+        state.pos, state.mass, leaf_size=32, curve="hilbert",
+        multipole_order=2)
+    pkw = dict(theta=0.6, near_budget=2048, far_budget=512, refine="staged",
+               cand_budgets=(64, 512), dtype=torch.float32)
+    ekw = dict(leaf_size=32, g=1.0, softening=0.02, multipole=2,
+               max_levels=12, compute_pot=True, n_live=cfg.n)
+    plans = [bh.bh_plan_lists(tree, sections=s, **pkw) for s in (1, 4)]
+    assert int(plans[0].overflow) == int(plans[1].overflow) == 0
+    assert len(plans[1].near_work) == len(plans[1].far_order) == 4
+    e1 = bh.bh_eval_lists(pos_s, mass_s, plans[0], sections=1, **ekw)
+    e4 = bh.bh_eval_lists(pos_s, mass_s, plans[1], sections=4, **ekw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(e1, e4))
+
+
+@pytest.mark.parametrize("case", ["staged", "staged_gather",
+                                  "galaxy_collision"])
+def test_simulation_runs_staged_paths(cuda, case):
+    """Staged refinement through Simulation on the card: the octet path
+    launches K1 and K2, the gather path K1 and K4, and the galaxy
+    collision (auto leaf, staged, potential on) K1 and K2; nothing
+    clips, the state stays finite and the sampled rms force error stays
+    below 2e-3."""
+    base = dict(n=65536, ic="plummer", force="barnes_hut", theta=0.72,
+                bh_leaf_size=32, dt=1e-3, track_potential=False,
+                bh_refine="staged")
+    change = {"staged": {},
+              "staged_gather": {"bh_far_mode": "gather"},
+              "galaxy_collision": {"ic": "galaxy_collision",
+                                   "track_potential": True}}[case]
+    cfg = SimConfig(**{**base, **change})
+    bh_kernels.reset_launch_counts()
+    sim = Simulation(cfg, device="cuda")
+    assert sim.cfg.bh_cand2_budget > 0 and sim.cfg.bh_cand_budget > 0
+    sim.step(1)
+    sim.step(4)
+    torch.cuda.synchronize()
+    launched = {k for k, v in bh_kernels.LAUNCHES.items() if v > 0}
+    assert launched == ({"near_field", "far_gather"} if case ==
+                        "staged_gather" else {"near_field", "far_octet"})
+    assert int(sim.overflow) == 0
+    s = sim.state
+    assert int(s.step) == 5
+    for t in (s.pos, s.vel, s.acc):
+        assert bool(torch.isfinite(t).all())
+    rms = rms_force_error_sample(s.pos, s.mass, s.acc, g=cfg.g,
+                                 softening=cfg.softening, k=2048)
+    assert rms < 2e-3

@@ -205,26 +205,6 @@ def test_entry_points_default_to_the_card(entry):
         call()
 
 
-@pytest.mark.parametrize("change", [
-    {"bh_refine": "staged"}, {"bh_far_mode": "gather", "bh_refine": "staged"},
-    {"force": "direct_pallas", "ic": "disk"}, {"ic": "hernquist"},
-], ids=lambda d: next(iter(d)))
-def test_unported_paths_raise(change):
-    """Paths outside the slice raise NotImplementedError naming the
-    roadmap item; none is replaced by another path."""
-    cfg = SimConfig(**{**KW, **change})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim = Simulation(cfg, device="cpu")
-        sim.step(2)
-
-
-@pytest.mark.parametrize("refine,far_mode,sections", [
-    ("staged", "octet", 1), ("staged", "gather", 1), ("dense", "octet", 2)])
-def test_unported_list_configurations_raise(refine, far_mode, sections):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbh._require_ported(refine, far_mode, sections)
-
-
 @pytest.mark.parametrize("name", ["euler_semi_implicit", "euler", "leapfrog",
                                   "dkd", "yoshida4", "rk4"])
 def test_integrators_match(name):
