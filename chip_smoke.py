@@ -37,8 +37,11 @@ Phases, each of which exits non-zero on failure:
      then SimConfig() as it stands (N = 4096, force="auto"), step(10).
   6. Gather path: the N = 1M config with bh_far_mode="gather", step(1) and
      step(8), and its forces against the octet path's on the same state.
-  7. Crossover (printed, no gate): ms/step of force="direct_pallas"
-     against per-step Barnes-Hut at N = 16384 to 262144.
+  7. Crossover: ms/step of force="direct_pallas" against per-step
+     Barnes-Hut at N = 16384 to 262144 (163840, 196608 and 229376 in the
+     gap where they cross), each the median of 3 means of 5 step(1);
+     fails where force="auto" picks, by the card's crossover, a path more
+     than 1.5x slower than the other.
   8. Staged kernel parity on the t = 0 lists of examples/barneshut_8m.json
      (staged refinement, 32768 leaves of 256): K1 on the staged near
      lists, K2 on the staged octet keys, K4 on the one staged gather list,
@@ -51,12 +54,26 @@ Phases, each of which exits non-zero on failure:
      and step(16), with its calibrated budgets; then with
      bh_far_mode="gather", step(1), its forces against the octet path's.
  10. Galaxy path: examples/galaxy_2m.json (galaxy_collision ICs, auto
-     leaf, staged, potential on), step(1) and step(8).
- 11. Sections: at N = 8M, bh_accel and one rebuild-8 block in 4 windows
+     leaf, staged, potential on), step(1) and step(8); then ms/step of
+     step(1) and step(16).
+ 11. Command line (cli.main in this process), on examples/galaxy_2m.json
+     as shipped with --steps and the output directories (under build/)
+     overridden: `run` for 64 steps with snapshots and metrics every 16 and
+     checkpoints every 32, `run --resume` to step 96, bit for bit equal to
+     an uninterrupted 96-step run at the same cadences, the final state's
+     rms force error; `render --show-tree` on the trajectory (box pixels
+     present); `tree` at the run's calibrated budgets (overflow 0, peak
+     memory within 1.5x of the galaxy path's); `bench` per step and with
+     --run-steps 16, within 1.3x of the galaxy path's Simulation times;
+     `oracle` at the two Barnes-Hut drift gates of tests/test_oracle.py
+     (drift < 1e-6, rebuild every 1 and every 8); `python -m
+     parallelnbody_tpu_torch info` in a subprocess. K1 and K2 must be
+     launched by every command that evaluates forces.
+ 12. Sections: at N = 8M, bh_accel and one rebuild-8 block in 4 windows
      against one, bit for bit; then examples/barneshut_32m.json through
      Simulation and step(1) at its resolved sections, and in 8 windows
      where the auto resolves 1.
- 12. Each IC family through Simulation at N = 65536, step(1);
+ 13. Each IC family through Simulation at N = 65536, step(1);
      reference_compat_config() (the direct sum, softening 0), step(1); and
      a Barnes-Hut run with softening 0 (K1's guard_zero).
 
@@ -90,9 +107,13 @@ and power limit, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -130,7 +151,12 @@ STEP_REPS = 5
 REUSE_STEPS = 16
 GATHER_STEPS = 8
 DEFAULT_STEPS = 10
-CROSSOVER_N = (16384, 32768, 65536, 131072, 262144)
+CROSSOVER_N = (16384, 32768, 65536, 131072, 163840, 196608, 229376, 262144)
+CROSSOVER_SLACK = 1.5       # auto's pick may be this much slower, no more
+CROSSOVER_GROUPS = 3        # groups of STEP_REPS step(1) a sweep point; the
+                            # median counts: per-step Barnes-Hut is
+                            # host-bound, and the shared host's stalls come
+                            # and go (11-24 ms a step within one run)
 STAGED_SAMPLE_ROWS = 256    # target leaves of the 8M lists held with the plain versions
 STAGED_STEP_REPS = 3
 GALAXY_STEPS = 8
@@ -138,6 +164,21 @@ SECTIONS_8M = 4
 XL_SECTIONS = 8             # explicit windows at 32M where the auto resolves 1
 XL_RMS_SAMPLES = 2048       # the direct sum over 32M sources for each target
 IC_N = 65536
+CLI_STEPS = 64              # cli run, then --resume to CLI_RESUME_TO
+CLI_RESUME_TO = 96
+CLI_CADENCE = 16            # snapshots and metrics; checkpoints every 32, so
+                            # segments of 16 = two rebuild blocks of 8 in both
+                            # runs held against each other
+TREE_PEAK_SLACK = 1.5       # tree's peak memory against the galaxy path's
+BENCH_SLACK = 1.3           # cli bench against Simulation, same program
+ORACLE_DRIFT = 1e-6         # tests/test_oracle.py:90,118
+# The Barnes-Hut drift gates of tests/test_oracle.py:90,118 (1000 steps,
+# N = 2048, theta 0.5, leaf 32, quadrupole); rebuild every 1 and every 8.
+ORACLE_GATE = ["oracle", "--n", "2048", "--ic", "plummer", "--softening",
+               "0.05", "--dt", "0.001", "--integrator", "leapfrog",
+               "--force", "barnes_hut", "--theta", "0.5", "--bh-leaf-size",
+               "32", "--bh-near-budget", "64", "--bh-far-budget", "256",
+               "--bh-multipole", "2", "--dtype", "float32", "--steps", "1000"]
 DEVICE = "cuda"
 
 FP32_FLOPS = 67e12          # H100 SXM, FP32 outside the tensor cores, 700 W
@@ -923,7 +964,11 @@ def phase_gather_path(cfg_json):
 
 def phase_crossover():
     """ms/step of force="direct_pallas" against per-step Barnes-Hut
-    (theta 0.72, quadrupole), Plummer, track_potential=False. No gate."""
+    (theta 0.72, quadrupole), Plummer, track_potential=False, with the
+    method force="auto" picks on the card (SimConfig.AUTO_BH_CROSSOVER_CUDA).
+    Each path's time is the median of CROSSOVER_GROUPS means of STEP_REPS
+    step(1). Fails where auto picks a path more than CROSSOVER_SLACK times
+    slower than the other."""
     for n in CROSSOVER_N:
         row = {"n": n}
         for force in ("direct_pallas", "barnes_hut"):
@@ -932,10 +977,20 @@ def phase_crossover():
                             track_potential=False, bh_rebuild_every=1)
             sim = Simulation(cfg, device=DEVICE)
             sim.step(1)                                      # warm-up
-            _, row[force] = cuda_ms(lambda: sim.step(1), STEP_REPS)
+            row[force] = statistics.median(
+                cuda_ms(lambda: sim.step(1), STEP_REPS)[1]
+                for _ in range(CROSSOVER_GROUPS))
             del sim
         row["faster"] = min(("direct_pallas", "barnes_hut"), key=row.get)
+        auto = SimConfig(n=n).resolve_force(DEVICE)
+        other = "barnes_hut" if auto == "direct_pallas" else "direct_pallas"
+        row["auto"] = auto
+        row["auto_over_other"] = row[auto] / row[other]
         log("crossover " + json.dumps(row))
+        if row["auto_over_other"] > CROSSOVER_SLACK:
+            raise AssertionError(
+                f"crossover: at N={n} force='auto' picks {auto}, "
+                f"{row['auto_over_other']:.2f}x slower than {other}")
 
 
 def staged_lists_for(cfg, gather_far_budget, state):
@@ -1148,16 +1203,228 @@ def phase_galaxy_path(galaxy_json):
                                (1, GALAXY_STEPS), RMS_BOUND)
     c = sim.cfg
     _, ms_step = cuda_ms(lambda: sim.step(1), STAGED_STEP_REPS)
+    # The peak of a rebuild-8 run of the state (the CLI's `run` segments),
+    # apart from the rms check's direct-sum temporaries.
+    torch.cuda.reset_peak_memory_stats()
+    sim.step(REUSE_STEPS)                                    # warm-up
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _, ms_block = cuda_ms(lambda: sim.step(REUSE_STEPS))
+    ms_reuse = ms_block / REUSE_STEPS
     log(f"galaxy path: ic {c.ic}, leaf {c.resolve_bh_leaf_size()} (auto), "
         f"refine {c.resolve_bh_refine()}, track_potential "
         f"{c.track_potential}; budgets near {c.bh_near_budget} far "
         f"{c.bh_far_budget} cand2 {c.bh_cand2_budget} cand1 "
         f"{c.bh_cand_budget}; ms/step per step {ms_step:.2f} (mean of "
-        f"{STAGED_STEP_REPS} step(1))")
+        f"{STAGED_STEP_REPS} step(1)), rebuild every {c.bh_rebuild_every} "
+        f"{ms_reuse:.2f} (step({REUSE_STEPS})); peak device memory of "
+        f"step({REUSE_STEPS}) {peak:.2f} GiB")
     report_diagnostics("galaxy path", sim)
     del sim
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"ms_step": ms_step, "ms_reuse": ms_reuse,
+                      "peak_gib": peak}
+
+
+def cli_json(argv):
+    """cli.main(argv) in this process; its standard output is captured and
+    its JSON result returned (a one-line summary, or an indented object).
+    Fails on a non-zero exit code."""
+    from parallelnbody_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue().strip()
+    try:
+        out = json.loads(text)
+    except json.JSONDecodeError:
+        out = json.loads(text.splitlines()[-1])
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]}: exit code {rc}: {text[-500:]}")
+    return out, wall
+
+
+def cli_launches(label, kernels):
+    """The launch counts since the last reset; fails unless each of
+    `kernels` was launched."""
+    got = launch_counts()
+    for name in kernels:
+        if got[name] <= 0:
+            raise AssertionError(f"{label}: {name} was not launched")
+    return got
+
+
+def box_pixels(ppm_path):
+    """Pixels of the tree-box colour (255, 64, 64) in a binary PPM."""
+    with open(ppm_path, "rb") as f:
+        data = f.read()
+    header, body = data.split(b"\n", 1)
+    _, w, h, _ = header.split()
+    img = torch.frombuffer(bytearray(body), dtype=torch.uint8).reshape(
+        int(h), int(w), 3)
+    return int((img == torch.tensor([255, 64, 64], dtype=torch.uint8))
+               .all(-1).sum())
+
+
+def phase_cli(galaxy, shown):
+    """The command line on examples/galaxy_2m.json as shipped, with --steps
+    and the output directories overridden: `run` for CLI_STEPS steps with
+    snapshots, metrics and checkpoints, `run --resume` to CLI_RESUME_TO,
+    held bit for bit against an uninterrupted run of CLI_RESUME_TO steps
+    at the same cadences; `render --show-tree` on its trajectory; `tree`
+    at the run's calibrated budgets; `bench` per step and with --run-steps
+    16, against the galaxy path's Simulation times of this process; the
+    two Barnes-Hut drift gates of tests/test_oracle.py through `oracle`;
+    `python -m parallelnbody_tpu_torch info` in a subprocess. Launch counts
+    are reset before each command and read after it."""
+    from parallelnbody_tpu_torch.utils.io import (latest_checkpoint,
+                                                  load_checkpoint)
+
+    base = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(base, ignore_errors=True)
+
+    def d(name):
+        return os.path.join(base, name)
+
+    cadence = ["--config", GALAXY_CONFIG, "--device", DEVICE, "--quiet",
+               "--log-every", str(CLI_CADENCE), "--checkpoint-every",
+               str(2 * CLI_CADENCE)]
+    traj = ["--snapshot-every", str(CLI_CADENCE), "--snapshot-dir",
+            d("traj"), "--metrics", d("metrics.jsonl"), "--checkpoint-dir",
+            d("ck")]
+    pair = ("near_field", "far_octet")
+    out = {}
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run_a, wall_a = cli_json(["run", *cadence, *traj, "--steps",
+                              str(CLI_STEPS)])
+    out["launches"] = cli_launches("cli run", pair)
+    out["run_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    reset_launch_counts()
+    run_b, wall_b = cli_json(["run", *cadence, *traj, "--resume", "--steps",
+                              str(CLI_RESUME_TO - CLI_STEPS)])
+    cli_launches("cli run --resume", pair)
+    reset_launch_counts()
+    run_c, wall_c = cli_json(["run", *cadence, "--steps", str(CLI_RESUME_TO),
+                              "--snapshot-every", "0", "--checkpoint-dir",
+                              d("ck_ref")])
+    cli_launches("cli run (uninterrupted)", pair)
+    for label, rec, wall in (("run", run_a, wall_a),
+                             ("run --resume", run_b, wall_b),
+                             ("run (uninterrupted)", run_c, wall_c)):
+        log(f"cli {label}: {json.dumps(rec)}; wall {wall:.2f} s with "
+            f"set-up ({1e3 * rec['wall_s'] / rec['steps']:.2f} ms/step in "
+            "the step loop, snapshots and checkpoints included)")
+        if rec["bh_overflow"] != 0 or rec["force"] != "barnes_hut" or \
+                not math.isfinite(rec["energy_drift"]):
+            raise AssertionError(f"cli {label}: {rec}")
+    out["run_ms_step"] = 1e3 * run_a["wall_s"] / run_a["steps"]
+    with open(d("metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    seg_ms = [1e3 / r["steps_per_sec"] for r in records
+              if "steps_per_sec" in r]
+    log(f"cli run: {len(records)} metrics records; ms/step per segment of "
+        f"{CLI_CADENCE} (the previous segment's writes included): "
+        + ", ".join(f"{m:.2f}" for m in seg_ms))
+    if len(seg_ms) != CLI_RESUME_TO // CLI_CADENCE:
+        raise AssertionError(f"cli run: {len(seg_ms)} metrics records with "
+                             "a rate")
+
+    state_b, cfg_b = load_checkpoint(latest_checkpoint(d("ck")), DEVICE)
+    state_c, _ = load_checkpoint(latest_checkpoint(d("ck_ref")), DEVICE)
+    fields = ("pos", "vel", "acc", "pot", "time", "step")
+    same = {f: bool(torch.equal(getattr(state_b, f), getattr(state_c, f)))
+            for f in fields}
+    log(f"cli resume: step {int(state_b.step)} after a checkpoint at step "
+        f"{CLI_STEPS} against an uninterrupted run to step "
+        f"{int(state_c.step)}: bit-equal {same}")
+    if int(state_b.step) != CLI_RESUME_TO or not all(same.values()):
+        raise AssertionError("cli resume: the resumed run differs from the "
+                             "uninterrupted one")
+    out["rms"] = rms_force_error_sample(
+        state_b.pos, state_b.mass, state_b.acc, g=cfg_b.g,
+        softening=cfg_b.softening, k=RMS_SAMPLES)
+    log(f"cli run: rms force error vs direct sum at step {CLI_RESUME_TO} "
+        f"(k={RMS_SAMPLES}): {out['rms']:.4e}")
+    check_state("cli run", state_b, cfg_b.n)
+    if not out["rms"] < RMS_BOUND:
+        raise AssertionError(f"cli run: rms {out['rms']:.4e}")
+    del state_b, state_c
+    torch.cuda.empty_cache()
+
+    rend, wall = cli_json(["render", d("traj"), "--show-tree", "--fmt", "ppm",
+                           "--device", DEVICE])
+    frames = sorted(os.listdir(rend["out_dir"]))
+    boxes = box_pixels(os.path.join(rend["out_dir"], frames[-1]))
+    log(f"cli render --show-tree: {rend['frames_rendered']} frames in "
+        f"{wall:.2f} s; {boxes} box pixels in {frames[-1]}")
+    if rend["frames_rendered"] != CLI_RESUME_TO // CLI_CADENCE or not boxes:
+        raise AssertionError(f"cli render: {rend}, {boxes} box pixels")
+
+    budgets = ["--bh-near-budget", str(cfg_b.bh_near_budget),
+               "--bh-far-budget", str(cfg_b.bh_far_budget),
+               "--bh-cand2-budget", str(cfg_b.bh_cand2_budget),
+               "--bh-cand-budget", str(cfg_b.bh_cand_budget)]
+    torch.cuda.reset_peak_memory_stats()
+    tree, wall = cli_json(["tree", "--config", GALAXY_CONFIG, "--device",
+                           DEVICE, *budgets])
+    out["tree_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"cli tree at the run's budgets {budgets[1::2]}: refine "
+        f"{tree['refine']}, {tree['n_leaves']} leaves, near leaves a target "
+        f"{tree['near_leaves_per_target']}, overflow {tree['overflow']}, "
+        f"requirements {tree['requirements']}; {wall:.2f} s, peak "
+        f"{out['tree_peak_gib']:.2f} GiB (galaxy path "
+        f"{galaxy['peak_gib']:.2f})")
+    if tree["overflow"] != 0 or \
+            out["tree_peak_gib"] > TREE_PEAK_SLACK * galaxy["peak_gib"]:
+        raise AssertionError(f"cli tree: overflow {tree['overflow']}, peak "
+                             f"{out['tree_peak_gib']:.2f} GiB")
+
+    for label, extra, sim_ms in (
+            ("per step", ["--iters", "3"], galaxy["ms_step"]),
+            (f"--run-steps {REUSE_STEPS}", ["--iters", "2", "--run-steps",
+                                            str(REUSE_STEPS)],
+             galaxy["ms_reuse"])):
+        reset_launch_counts()
+        bench, wall = cli_json(["bench", "--config", GALAXY_CONFIG,
+                                "--device", DEVICE, *extra])
+        cli_launches(f"cli bench {label}", pair)
+        log(f"cli bench {label}: {json.dumps(bench)}; Simulation in this "
+            f"process {sim_ms:.2f} ms/step")
+        out[f"bench_ms_{'reuse' if '--run-steps' in extra else 'step'}"] = \
+            bench["ms_per_step"]
+        if bench.get("overflow", 0) != 0 or \
+                bench["ms_per_step"] > BENCH_SLACK * sim_ms:
+            raise AssertionError(f"cli bench {label}: {bench}")
+
+    for k in (1, 8):
+        reset_launch_counts()
+        rep, wall = cli_json([*ORACLE_GATE, "--device", DEVICE,
+                              "--bh-rebuild-every", str(k)])
+        cli_launches(f"cli oracle rebuild {k}", pair)
+        log(f"cli oracle, rebuild every {k}: {json.dumps(rep)}; {wall:.2f} s")
+        out[f"oracle_drift_{k}"] = rep["relative_drift"]
+        if not rep["relative_drift"] < ORACLE_DRIFT or rep["bh_overflow"]:
+            raise AssertionError(f"cli oracle rebuild {k}: {rep}")
+
+    proc = subprocess.run([sys.executable, "-m", "parallelnbody_tpu_torch",
+                           "info"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli info: exit code {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    info = json.loads(proc.stdout)
+    log(f"cli info (subprocess): device {info['device_name']}, version "
+        f"{info['version']}, torch {info['torch']}, cuda {info['cuda']}, "
+        f"resolved force {info['resolved_force']}")
+    if info["device_name"] != shown:
+        raise AssertionError(f"cli info: device {info['device_name']}")
+    return out
 
 
 def phase_sections(cfg8, xl_json):
@@ -1215,13 +1482,17 @@ def phase_sections(cfg8, xl_json):
 
 
 def phase_ics():
-    """Each IC family through Simulation on the card at N = IC_N, step(1);
-    the reference's compat profile; a Barnes-Hut run with softening 0."""
+    """Each IC family through Barnes-Hut on the card at N = IC_N, step(1)
+    (t = 0 budget calibration, K1 and K2 on its tree, overflow 0); the
+    reference's compat profile (the plain direct sum); a Barnes-Hut run
+    with softening 0. IC_N lies below the card's crossover, so the IC
+    cases name Barnes-Hut: force="auto" would send them to K3."""
     # The reference's slab at its own scale (reference_compat_config's
     # size): at ic_size 1 its speeds of 250-500 carry the particles five
     # slab widths in one step, past any budget calibrated at t = 0.
-    cases = [(name, SimConfig(n=IC_N, ic=name, ic_size=200.0
-                              if name == "reference_slab" else 1.0))
+    cases = [(name, SimConfig(n=IC_N, ic=name, force="barnes_hut",
+                              ic_size=200.0 if name == "reference_slab"
+                              else 1.0))
              for name in IC_KINDS]
     cases.append(("reference_compat_config()", reference_compat_config()))
     cases.append(("plummer, barnes_hut, softening 0",
@@ -1239,9 +1510,10 @@ def phase_ics():
             f"{overflow}; finite")
         if overflow != 0:
             raise AssertionError(f"IC {label}: overflow {overflow}")
-        if cfg.softening == 0.0 and cfg.force == "barnes_hut" and \
-                "near_field" not in launched:
-            raise AssertionError("softening 0: near_field was not launched")
+        missing = [k for k in ("near_field", "far_octet")
+                   if cfg.force == "barnes_hut" and k not in launched]
+        if missing:
+            raise AssertionError(f"IC {label}: {missing} not launched")
         del sim
 
 
@@ -1272,11 +1544,13 @@ def main():
 
     phase_staged_parity(staged_json, kernels)
     staged, staged_gather, cfg8 = phase_staged_path(staged_json)
-    galaxy = phase_galaxy_path(galaxy_json)
+    galaxy, galaxy_times = phase_galaxy_path(galaxy_json)
+    cli = phase_cli(galaxy_times, torch.cuda.get_device_name(0))
     xl = phase_sections(cfg8, xl_json)
     for name in ("near_field", "far_octet"):
         kernels[name]["launches_staged8m"] = staged[name]
         kernels[name]["launches_galaxy2m"] = galaxy[name]
+        kernels[name]["launches_cli_run_galaxy2m"] = cli["launches"][name]
         kernels[name]["launches_32m"] = xl[name]
     kernels["near_field"]["launches_staged8m_gather"] = \
         staged_gather["near_field"]

@@ -11,13 +11,16 @@ refinement, either far field (octet or gather) and target sections, the
 all-pairs path (force="direct_pallas"), both through
 `Simulation(cfg, device="cuda")`, all eleven IC families and
 `config.reference_compat_config`, the plain direct sum, the six integrators
-and the diagnostics. Not yet: `utils/` (snapshots, checkpoints, metrics),
-the CLI and the multi-device paths. This package never imports JAX.
+and the diagnostics; `utils/` (snapshots, checkpoints, trajectories,
+metrics, profiling, debug checks, rendering), the C++ oracle (`native/`)
+and the command line (`python -m parallelnbody_tpu_torch`, cli.py). Not
+yet: the multi-device paths (`parallel/`). This package never imports JAX.
 """
 
-from parallelnbody_tpu_torch.config import SimConfig
+from parallelnbody_tpu_torch.config import SimConfig, reference_compat_config
 from parallelnbody_tpu_torch.state import SimState
-from parallelnbody_tpu_torch.api import (Simulation, make_run, make_step,
+from parallelnbody_tpu_torch.api import (Simulation, calibrate_budgets,
+                                         init_simulation, make_run, make_step,
                                          prepare_simulation)
 
 __version__ = "0.1.0"
@@ -28,6 +31,9 @@ __all__ = [
     "Simulation",
     "make_step",
     "make_run",
+    "init_simulation",
     "prepare_simulation",
+    "calibrate_budgets",
+    "reference_compat_config",
     "__version__",
 ]

@@ -183,13 +183,29 @@ def make_step(cfg: SimConfig, report_overflow: bool = False) -> Callable:
     return step
 
 
-# Plan/eval cost ratio of the JAX package's rebuild-block cost model, kept
-# so both packages pick the same block sizes and tail masks.
-_REUSE_PLAN_RATIO = 0.3
+# Plan/eval cost ratio of the rebuild-block cost model (_reuse_block_size),
+# by device type. CPU: the JAX package's value, so that both packages pick
+# the same block sizes and tail masks there. CUDA: one block's plan (sort,
+# pyramid, traversal, lists, K1's items and K2's order) against one
+# frozen-list evaluation on the card (tools/auto_rules.py plan_eval, NVIDIA
+# H100 80GB HBM3, 700.00 W, two runs): 7.89-9.25 / 15.35-15.53 ms =
+# 0.514-0.596 at N = 1M dense (examples/barneshut_1m_reuse.json),
+# 45.63-45.79 / 97.68-98.12 ms = 0.467 at N = 8M staged
+# (examples/barneshut_8m.json). The two ratios pick different blocks at
+# some run lengths: at 33 steps 0.3 picks 3 and 0.5 picks 7, and on the
+# card blocks of 7 run 16.9-17.4 ms/step against 17.7-18.4 at 1M and
+# 110.1-111.1 against 113.0-114.2 at 8M (tools/auto_rules.py block, two
+# runs).
+_REUSE_PLAN_RATIO = {"cpu": 0.3, "cuda": 0.5}
+
+
+def _plan_ratio(device) -> float:
+    return _REUSE_PLAN_RATIO["cuda" if torch.device(device).type == "cuda"
+                             else "cpu"]
 
 
 def _reuse_block_size(k_max: int, n_steps: int,
-                      plan_ratio: float = _REUSE_PLAN_RATIO) -> int:
+                      plan_ratio: float = _REUSE_PLAN_RATIO["cpu"]) -> int:
     """Pick the rebuild-block size k <= k_max minimizing total work for a
     run of n_steps: the tail (n_steps % k) is folded into a full k-step
     block as dt=0 masked evals, so the evaluation count is
@@ -204,14 +220,15 @@ def _reuse_block_size(k_max: int, n_steps: int,
     return best
 
 
-def _reuse_eligible(cfg: SimConfig, n_steps: int) -> bool:
+def _reuse_eligible(cfg: SimConfig, n_steps: int, device="cpu") -> bool:
     """bh_rebuild_every > 1 applies to the Barnes-Hut octet path; gather
-    rebuilds every step, as in the JAX package. The JAX
+    rebuilds every step, as in the JAX package. force="auto" is resolved
+    for `device`, the run's, as make_accel_fn resolves it. The JAX
     package also caps it at a row count that works around a fault of its
     TPU runtime; the port has no such cap."""
     if cfg.bh_rebuild_every <= 1 or n_steps <= 1:
         return False
-    if cfg.resolve_force() != "barnes_hut":
+    if cfg.resolve_force(device) != "barnes_hut":
         return False
     from parallelnbody_tpu_torch.ops import bh
 
@@ -223,14 +240,15 @@ def _reuse_eligible(cfg: SimConfig, n_steps: int) -> bool:
     return bh.resolve_far_mode(cfg.bh_far_mode, refine) == "octet"
 
 
-def _make_run_reuse(cfg: SimConfig, n_steps: int,
-                    report_overflow: bool) -> Callable:
+def _make_run_reuse(cfg: SimConfig, n_steps: int, report_overflow: bool,
+                    device="cpu") -> Callable:
     """Run with a tree-rebuild interval (cfg.bh_rebuild_every = k): the
     state is carried in Hilbert-sorted order; each block of k steps pays
     ONE sort + ONE traversal/list build, then k evaluations that refresh
     only the multipole pyramid against the frozen lists (ops/bh.py
     bh_plan_lists/bh_eval_lists). The original particle order is restored
-    at the end through a carried original-index column."""
+    at the end through a carried original-index column. The block size
+    follows `device`'s plan/eval ratio (_REUSE_PLAN_RATIO)."""
     from parallelnbody_tpu_torch.ops import bh
     from parallelnbody_tpu_torch.ops.hilbert import hilbert_encode
     from parallelnbody_tpu_torch.ops.morton import morton_encode
@@ -244,7 +262,7 @@ def _make_run_reuse(cfg: SimConfig, n_steps: int,
         n_levels, cfg.resolve_bh_near_budget(), cfg.resolve_bh_far_budget())
     sections = bh.resolve_sections(cfg.bh_sections, n_leaves, refine)
     encode = hilbert_encode if cfg.bh_curve == "hilbert" else morton_encode
-    k = _reuse_block_size(cfg.bh_rebuild_every, n_steps)
+    k = _reuse_block_size(cfg.bh_rebuild_every, n_steps, _plan_ratio(device))
     n_blocks, tail = divmod(n_steps, k)
     compute_pot = cfg.track_potential
 
@@ -335,19 +353,33 @@ def make_run(cfg: SimConfig, n_steps: int,
 
     report_overflow=True: run(state) -> (state, overflow), overflow summed
     over all steps. cfg.bh_rebuild_every > 1 routes eligible Barnes-Hut
-    configurations to the tree-rebuild-interval run (_make_run_reuse)."""
-    if _reuse_eligible(cfg, n_steps):
-        return _make_run_reuse(cfg, n_steps, report_overflow)
-    step = make_step(cfg, report_overflow=True)
+    configurations to the tree-rebuild-interval run (_make_run_reuse).
+    Which program runs depends on the run's device (force="auto" and the
+    plan/eval ratio), so it is chosen at the first call from the state's
+    device, as make_step resolves its force method from the state's."""
+    built: dict[str, Callable] = {}
 
-    def run(state: SimState):
-        overflow = _zero_count(state.pos.device)
-        for _ in range(n_steps):
-            state, of = step(state)
-            overflow = overflow + of
-        return (state, overflow) if report_overflow else state
+    def build(device) -> Callable:
+        if _reuse_eligible(cfg, n_steps, device):
+            return _make_run_reuse(cfg, n_steps, report_overflow, device)
+        step = make_step(cfg, report_overflow=True)
 
-    return run
+        def run(state: SimState):
+            overflow = _zero_count(state.pos.device)
+            for _ in range(n_steps):
+                state, of = step(state)
+                overflow = overflow + of
+            return (state, overflow) if report_overflow else state
+
+        return run
+
+    def run_on_state_device(state: SimState):
+        device = state.pos.device
+        if device.type not in built:
+            built[device.type] = build(device)
+        return built[device.type](state)
+
+    return run_on_state_device
 
 
 # ----------------------------------------------------------------- host shell

@@ -34,6 +34,13 @@ IC_KINDS = (
 )
 
 
+def _device_type(device) -> str:
+    """'cuda', 'cpu', ... of a torch.device or its name; None is the CPU."""
+    if device is None:
+        return "cpu"
+    return getattr(device, "type", str(device).split(":")[0])
+
+
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """Static configuration of one simulation (frozen, hashable)."""
@@ -160,10 +167,35 @@ class SimConfig:
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)
 
-    # Barnes-Hut / direct-sum crossover N. This is the JAX package's value,
-    # measured on a TPU v5e (parallelnbody_tpu/config.py); it waits for a
-    # measurement on the GPU and is no statement about the port's speed.
+    # Barnes-Hut / all-pairs crossover N, by device. On the CPU the JAX
+    # package's value, so that CPU runs resolve as it does. On a CUDA
+    # device the card's own: ms/step per step of K3 (force="direct_pallas")
+    # against Barnes-Hut, Plummer, theta 0.72 without the potential
+    # (chip_smoke.py phase_crossover, the median of 3 means of 5 step(1);
+    # NVIDIA H100 80GB HBM3, 700.00 W; the rows of every run in PERF.md):
+    #   N = 131072: K3  8.4-9.1,  Barnes-Hut 13.4-24.2 (six runs)
+    #   N = 163840: K3 14.0-14.8, Barnes-Hut 14.2-24.7 (seven runs)
+    #   N = 196608: K3 19.1-19.7, Barnes-Hut 17.9-24.1 (five runs)
+    # Per-step Barnes-Hut is host-bound at these N and moves from one
+    # process to the next whatever N, while K3 (device-bound) moves 2-5%.
+    # So K3 up to 163840 and Barnes-Hut from 196608, where either pick
+    # stays within 1.5x of the other path over the whole host spread (with
+    # Barnes-Hut from 163840, two runs on a slow host made it 1.57x and
+    # 1.69x slower than K3 there).
     AUTO_BH_CROSSOVER = 32768
+    AUTO_BH_CROSSOVER_CUDA = 196608
+
+    # force="auto" picks the all-pairs kernel K3 on a CUDA device from this
+    # N up (the JAX package's floor). Below it both K3 and the plain direct
+    # sum are launch-bound on the card, 0.2-0.5 ms a step with no steady
+    # winner (tools/auto_rules.py floor, PERF.md).
+    AUTO_ALLPAIRS_MIN_N = 512
+
+    def bh_crossover(self, device=None) -> int:
+        """AUTO_BH_CROSSOVER for `device` (a torch.device or its name; None
+        means the CPU)."""
+        return (self.AUTO_BH_CROSSOVER_CUDA if _device_type(device) == "cuda"
+                else self.AUTO_BH_CROSSOVER)
 
     def resolve_bh_leaf_size(self) -> int:
         """bh_leaf_size with 0 = auto resolved: 128 up to N = 2^19, 256
@@ -200,17 +232,17 @@ class SimConfig:
 
     def resolve_force(self, device=None) -> str:
         """force='auto' resolved for the device the run uses (a
-        torch.device or its name; None means the CPU): Barnes-Hut from
-        AUTO_BH_CROSSOVER up; below it the all-pairs kernel on a CUDA
-        device from N = 512 (kernel K3, ops/direct_kernels.py), as the JAX
-        package picks its all-pairs kernel on a TPU, and the plain direct
-        sum elsewhere."""
+        torch.device or its name; None means the CPU): Barnes-Hut from the
+        device's crossover (bh_crossover) up; below it the all-pairs kernel
+        on a CUDA device from AUTO_ALLPAIRS_MIN_N (kernel K3,
+        ops/direct_kernels.py), as the JAX package picks its all-pairs
+        kernel on a TPU, and the plain direct sum elsewhere."""
         if self.force != "auto":
             return self.force
-        if self.n >= self.AUTO_BH_CROSSOVER:
+        if self.n >= self.bh_crossover(device):
             return "barnes_hut"
-        dev_type = getattr(device, "type", str(device).split(":")[0])
-        if dev_type == "cuda" and self.n >= 512:
+        if _device_type(device) == "cuda" and \
+                self.n >= self.AUTO_ALLPAIRS_MIN_N:
             return "direct_pallas"
         return "direct"
 

@@ -976,6 +976,103 @@ def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
     return _join(accs), _join(pots)
 
 
+def leaf_aabbs(pos, mass, *, leaf_size=256, curve="hilbert"):
+    """Axis-aligned bounding boxes of the occupied tree leaves, for the
+    octree overlay of utils/render.py (leaves are curve-sorted groups, so
+    the box is the leaf's particle AABB). Returns (lo (L, 3), hi (L, 3),
+    occupied (L,) bool) on the device of pos."""
+    pos_s, mass_s, _, _, _, n_pad = _prepare(pos, mass, leaf_size=leaf_size,
+                                             curve=curve)
+    n_leaves = n_pad // leaf_size
+    p = pos_s.reshape(n_leaves, leaf_size, 3)
+    occ = (mass_s.reshape(n_leaves, leaf_size) > 0)[..., None]
+    lo = torch.amin(torch.where(occ, p, torch.inf), dim=1)
+    hi = torch.amax(torch.where(occ, p, -torch.inf), dim=1)
+    return lo, hi, torch.any(occ[..., 0], dim=1)
+
+
+def _percentiles(x) -> dict:
+    """p50 / p90 / p99 / max / mean of a tensor, on the host in f64 (the
+    JAX package's np.percentile)."""
+    import numpy as np
+
+    x = x.detach().cpu().numpy().astype(np.float64)
+    return {k: float(np.percentile(x, p)) for k, p in
+            (("p50", 50), ("p90", 90), ("p99", 99), ("max", 100))} | {
+                "mean": float(x.mean())}
+
+
+def tree_stats(pos, mass, cfg) -> dict:
+    """Structure dump for the CLI's `tree` command: depth, level widths,
+    leaf-radius and interaction-list-length percentiles, overflow, for the
+    refinement and far mode the config resolves to (dense octet, dense
+    gather or staged), so `tree` audits what `run` executes. Staged lists
+    are built in row blocks (build_interaction_lists_staged's auto), as the
+    runs build them."""
+    leaf = cfg.resolve_bh_leaf_size()
+    pos_s, _, _, tree, n, n_pad = _prepare(
+        pos, mass, leaf_size=leaf, curve=cfg.bh_curve,
+        multipole_order=cfg.bh_multipole, max_levels=cfg.bh_max_levels)
+    n_leaves = n_pad // leaf
+    near_budget = cfg.resolve_bh_near_budget()
+    far_budget = cfg.resolve_bh_far_budget()
+    refine, cands = resolve_refine(
+        cfg.resolve_bh_refine(), (cfg.bh_cand2_budget, cfg.bh_cand_budget),
+        tree.n_levels, near_budget, far_budget)
+    far_mode = resolve_far_mode(cfg.bh_far_mode, refine)
+    out = {
+        "n": int(n), "n_leaves": n_leaves, "leaf_size": leaf,
+        "levels": tree.n_levels,
+        "level_widths": [int(c.shape[0]) for c in tree.com],
+        "theta": cfg.theta, "curve": cfg.bh_curve, "refine": refine,
+        "far_mode": far_mode,
+        "leaf_radius": _percentiles(tree.radius[0]),
+        "budgets": {"near": near_budget, "far": far_budget},
+    }
+    kw = dict(theta=cfg.theta, start_leaf=0, n_slice=n_leaves,
+              near_budget=near_budget)
+    if refine == "dense" and far_mode == "octet":
+        far_masks, rejects_l1 = traverse(tree, cfg.theta)
+        (_, nv, _, fv, _, overflow) = build_interaction_lists_octet(
+            tree, far_masks, rejects_l1, far_budget=far_budget,
+            dtype=pos_s.dtype, **kw)
+        out |= {
+            "near_leaves_per_target": _percentiles(torch.sum(nv, dim=1)),
+            "far_octets_per_target": _percentiles(torch.sum(fv, dim=1)),
+            "overflow": int(overflow),
+        }
+    elif refine == "dense":
+        far_masks, rejects_l1 = traverse(tree, cfg.theta)
+        _, near_valid, _, far0_valid, overflow = leaf_interactions(
+            tree, rejects_l1, far0_budget=far_budget, **kw)
+        upper = sum(int(torch.sum(far_masks[k]))
+                    for k in range(1, tree.n_levels))
+        out |= {
+            "near_leaves_per_target": _percentiles(
+                torch.sum(near_valid, dim=1)),
+            "far0_nodes_per_target": _percentiles(
+                torch.sum(far0_valid, dim=1)),
+            "upper_accepted_total": upper,
+            "overflow": int(overflow),
+        }
+    else:  # staged
+        far_masks, rej2 = traverse(tree, cfg.theta, stop_level=2)
+        (_, nv, _, fv, _, overflow) = build_interaction_lists_staged(
+            tree, far_masks, rej2, far_budget=far_budget,
+            cand2_budget=cands[0], cand1_budget=cands[1], dtype=pos_s.dtype,
+            octet_far=far_mode == "octet", **kw)
+        far_key = ("far_octets_per_target" if far_mode == "octet"
+                   else "far_nodes_per_target")
+        out |= {
+            "near_leaves_per_target": _percentiles(torch.sum(nv, dim=1)),
+            far_key: _percentiles(torch.sum(fv, dim=1)),
+            "l2_rejects_per_target": _percentiles(torch.sum(rej2, dim=1)),
+            "cand_budgets": {"cand2": cands[0], "cand1": cands[1]},
+            "overflow": int(overflow),
+        }
+    return out
+
+
 def measure_budget_requirements(pos, mass, cfg) -> dict:
     """EXACT per-target interaction-list requirements of cfg's resolved
     Barnes-Hut pipeline on THIS mass distribution (the measurement behind

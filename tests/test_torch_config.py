@@ -24,9 +24,14 @@ def test_fields_and_defaults_equal():
     jf = [(f.name, f.default) for f in dataclasses.fields(JaxConfig)]
     tf = [(f.name, f.default) for f in dataclasses.fields(TorchConfig)]
     assert tf == jf
+    # The CPU crossover and the static budgets are the JAX package's; the
+    # card's crossover is its own sweep's (config.py, PERF.md).
     for const in ("AUTO_BH_CROSSOVER", "FALLBACK_NEAR_BUDGET",
                   "FALLBACK_FAR_BUDGET"):
         assert getattr(TorchConfig, const) == getattr(JaxConfig, const)
+    assert TorchConfig.AUTO_BH_CROSSOVER_CUDA == 196608
+    assert TorchConfig().bh_crossover("cuda:0") == 196608
+    assert TorchConfig().bh_crossover(None) == JaxConfig.AUTO_BH_CROSSOVER
 
 
 @pytest.mark.parametrize("bad", [
@@ -67,9 +72,13 @@ def test_example_loads_in_both(path):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, parallelnbody_tpu_torch, parallelnbody_tpu_torch.api,"
-            " parallelnbody_tpu_torch.ops.bh, parallelnbody_tpu_torch.ops"
-            ".direct_kernels, parallelnbody_tpu_torch.kernels.build; "
+    """Every module of the port (all but __main__, which runs the CLI)
+    imports without JAX or the JAX package."""
+    code = ("import importlib, pkgutil, sys, parallelnbody_tpu_torch as p; "
+            "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "'parallelnbody_tpu_torch.') if not m.name.endswith('__main__')]; "
+            "[importlib.import_module(m) for m in mods]; "
+            "assert 'parallelnbody_tpu_torch.cli' in mods, mods; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'parallelnbody_tpu' or "
             "m.startswith('parallelnbody_tpu.')]; print(bad); "
@@ -77,3 +86,54 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_all_covers_the_jax_package():
+    import parallelnbody_tpu
+    import parallelnbody_tpu_torch
+
+    assert set(parallelnbody_tpu.__all__) <= set(parallelnbody_tpu_torch.__all__)
+    for name in parallelnbody_tpu_torch.__all__:
+        assert hasattr(parallelnbody_tpu_torch, name), name
+    from parallelnbody_tpu_torch import (calibrate_budgets,  # noqa: F401
+                                         init_simulation,
+                                         reference_compat_config)
+
+
+def test_make_run_and_make_step_resolve_alike_on_the_card():
+    """At N = 65536 force="auto" is K3 on a CUDA device (below the card's
+    crossover) and Barnes-Hut on the CPU (the JAX package's crossover): the
+    reuse-program check of make_run and the force function of make_step
+    agree on each device. No card needed: the device is only a name here,
+    and make_accel_fn builds its closure without touching the tensor."""
+    import types
+
+    from parallelnbody_tpu_torch import api
+
+    cfg = TorchConfig(n=65536)
+    for device, method in (("cuda", "direct_pallas"), ("cpu", "barnes_hut")):
+        assert cfg.resolve_force(device) == method
+        assert api._reuse_eligible(cfg, 16, device) == (method == "barnes_hut")
+        mass = types.SimpleNamespace(device=torch.device(device),
+                                     shape=(cfg.n,))
+        fn = api.make_accel_fn(cfg, mass)
+        maker = ("make_allpairs_accel" if method == "direct_pallas"
+                 else "make_bh_accel")
+        assert fn.__qualname__.startswith(maker), fn.__qualname__
+
+
+def test_plan_ratio_by_device():
+    """The rebuild-block cost model takes the JAX package's plan/eval ratio
+    on the CPU and the card's on a CUDA device."""
+    from parallelnbody_tpu import api as japi
+    from parallelnbody_tpu_torch import api
+
+    assert api._plan_ratio("cpu") == japi._REUSE_PLAN_RATIO
+    assert api._plan_ratio("cuda:0") == api._REUSE_PLAN_RATIO["cuda"]
+    for n_steps in range(2, 40):
+        assert api._reuse_block_size(8, n_steps) == \
+            japi._reuse_block_size(8, n_steps)
+    # The run length at which the card's block size was timed against the
+    # CPU ratio's (tools/auto_rules.py block): the two ratios part there.
+    assert api._reuse_block_size(8, 33, api._plan_ratio("cpu")) == 3
+    assert api._reuse_block_size(8, 33, api._plan_ratio("cuda")) == 7

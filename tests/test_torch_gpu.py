@@ -664,3 +664,51 @@ def test_simulation_runs_staged_paths(cuda, case):
     rms = rms_force_error_sample(s.pos, s.mass, s.acc, g=cfg.g,
                                  softening=cfg.softening, k=2048)
     assert rms < 2e-3
+
+
+def test_cli_run_resume_on_the_card(cuda, tmp_path, capsys):
+    """The command line on the card: a Barnes-Hut run at rebuild 8 launches
+    K1 and K2, and a run checkpointed at step 16 and resumed to 32 equals
+    an uninterrupted 32-step run bit for bit (no kernel uses float
+    atomics)."""
+    from parallelnbody_tpu_torch.cli import main
+    from parallelnbody_tpu_torch.utils.io import (latest_checkpoint,
+                                                  load_checkpoint)
+
+    common = ["run", "--device", "cuda", "--n", "16384", "--force",
+              "barnes_hut", "--dt", "0.001", "--quiet", "--log-every", "8",
+              "--checkpoint-every", "16"]
+    bh_kernels.reset_launch_counts()
+    assert main(common + ["--steps", "16", "--checkpoint-dir",
+                          str(tmp_path / "a")]) == 0
+    assert bh_kernels.LAUNCHES["near_field"] > 0
+    assert bh_kernels.LAUNCHES["far_octet"] > 0
+    assert main(common + ["--steps", "16", "--resume", "--checkpoint-dir",
+                          str(tmp_path / "a")]) == 0
+    assert main(common + ["--steps", "32", "--checkpoint-dir",
+                          str(tmp_path / "b")]) == 0
+    capsys.readouterr()
+    a, _ = load_checkpoint(latest_checkpoint(tmp_path / "a"), cuda)
+    b, _ = load_checkpoint(latest_checkpoint(tmp_path / "b"), cuda)
+    assert int(a.step) == int(b.step) == 32
+    for name in ("pos", "vel", "acc", "pot", "time"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.parametrize("n,method", [(65536, "direct_pallas"),
+                                      (196608, "barnes_hut")])
+def test_auto_force_on_the_card(cuda, n, method):
+    """force="auto" on the card: K3 below its crossover, Barnes-Hut from
+    it, and make_run drives the same kernel as make_step."""
+    from parallelnbody_tpu_torch.api import make_run
+
+    cfg = SimConfig(n=n)
+    assert cfg.resolve_force(cuda) == method
+    sim = Simulation(cfg, device=cuda)
+    direct_kernels.reset_launch_counts()
+    bh_kernels.reset_launch_counts()
+    make_run(sim.cfg, 2)(sim.state)
+    torch.cuda.synchronize()
+    launched = {**direct_kernels.LAUNCHES, **bh_kernels.LAUNCHES}
+    want = "allpairs" if method == "direct_pallas" else "near_field"
+    assert launched[want] > 0, launched
