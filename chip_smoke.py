@@ -76,9 +76,39 @@ Phases, each of which exits non-zero on failure:
  13. Each IC family through Simulation at N = 65536, step(1);
      reference_compat_config() (the direct sum, softening 0), step(1); and
      a Barnes-Hut run with softening 0 (K1's guard_zero).
+ 14. K1's window and table forms (parallel/ ring and LET near fields) on
+     the lists of rank 0 of examples/barneshut_distributed_let.json (N =
+     4M, 8 ranks sharing the card, parallel/tasks.owned_geometry): the
+     window form on each of the 8 ring windows, the table form on the
+     assembled LET table and on that table cut to half its rows, both
+     potential settings, against the plain versions; each timed with its
+     bound and launched twice for the same bits; the 8 windows summed
+     against the table form. (Phase 3 adds: on the 1M lists the window form
+     with leaf_lo = 0 over every leaf equals the unwindowed form bit for
+     bit, and its time.)
+ 15. Both multi-device examples through cli.main, the ranks spawned by the
+     CLI and sharing the card through gloo (tensors staged through host
+     memory): examples/allpairs_4m_mesh.json as shipped on 4 ranks,
+     --steps 1, K3 launched 4 times a rank an evaluation, 4096 sampled
+     targets' forces against the f64 direct sum on the final state (< 1e-4,
+     the all-pairs bound; single-device K3 on the same targets is printed
+     beside it); examples/barneshut_distributed_let.json as shipped on 8
+     ranks, --steps 2, then with bh_comm ring, ring with the gather far
+     field (K4) for one step, bh_rebuild_every 8 over 8 steps, and
+     bh_distributed false on 4 ranks (the replicated tree). Each: overflow
+     0, rms < 2e-3 against the direct sum and within 1.5x + 1e-3 of the
+     single-device bh_accel's on the same state, K1 launched on every rank
+     in its form for each K2 (or K4) launch (window 8 times, table once,
+     unwindowed once), wall ms/step, bytes staged and the backend. Only
+     --steps, the checkpoint directory and cadence (and the variant's own
+     flags) differ from the shipped configs.
+ 16. A one-rank group on the card (the nccl branch of the backend rule):
+     one NCCL all_reduce and dist_bh_accel at N = 8192.
 
 Before each path every launch count is set to 0 and after it the counts
-are read: each kernel of the path must have been launched, the list
+are read (for a multi-device run, each rank's own counts, from
+parallel/mesh.py LAST_RANK_STATS): each kernel of the path must have been
+launched, the list
 overflow must be 0, every output finite, and the sampled rms force error
 against the direct sum below the path's bound. ms/step comes from CUDA
 events after a warm-up; the device's busy time in one more step (or
@@ -127,7 +157,8 @@ from parallelnbody_tpu_torch.config import IC_KINDS, reference_compat_config
 from parallelnbody_tpu_torch.kernels import build
 from parallelnbody_tpu_torch.ops import bh, bh_kernels, direct_kernels
 from parallelnbody_tpu_torch.tools import sass
-from parallelnbody_tpu_torch.utils.accuracy import rms_force_error_sample
+from parallelnbody_tpu_torch.utils.accuracy import (direct_accel_at,
+                                                    rms_force_error_sample)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "examples", "barneshut_1m_reuse.json")
@@ -135,6 +166,9 @@ ALLPAIRS_CONFIG = os.path.join(ROOT, "examples", "allpairs_262k.json")
 STAGED_CONFIG = os.path.join(ROOT, "examples", "barneshut_8m.json")
 GALAXY_CONFIG = os.path.join(ROOT, "examples", "galaxy_2m.json")
 XL_CONFIG = os.path.join(ROOT, "examples", "barneshut_32m.json")
+LET_CONFIG = os.path.join(ROOT, "examples", "barneshut_distributed_let.json")
+MESH_CONFIG = os.path.join(ROOT, "examples", "allpairs_4m_mesh.json")
+GATHER_FAR_BUDGET = 12288  # node rows a leaf for the ring gather run
 RTOL, ATOL = 2e-4, 2e-5     # the Pallas-vs-jnp kernel bound of tests/test_bh.py
 RMS_BOUND = 2e-3            # the accuracy class of the N=1M operating point
 RMS_BOUND_ALLPAIRS = 1e-4   # all-pairs is exact: f32 rounding only
@@ -195,6 +229,12 @@ FLOPS_QUADRUPOLE_OLD = 57
 KERNELS = {
     "near_field": ("parallelnbody_tpu_torch/csrc/near_field.cu",
                    "parallelnbody_tpu/ops/pallas_bh.py:179"),
+    # K1's window (leaf_lo=) and table (src_t4=) entry forms, the same
+    # kernel with a leaf offset and items of each row's window run.
+    "near_field_window": ("parallelnbody_tpu_torch/csrc/near_field.cu",
+                          "parallelnbody_tpu/ops/pallas_bh.py:179"),
+    "near_field_table": ("parallelnbody_tpu_torch/csrc/near_field.cu",
+                         "parallelnbody_tpu/ops/pallas_bh.py:179"),
     "far_octet": ("parallelnbody_tpu_torch/csrc/far_octet.cu",
                   "parallelnbody_tpu/ops/pallas_bh.py:382"),
     "allpairs": ("parallelnbody_tpu_torch/csrc/allpairs.cu",
@@ -506,6 +546,28 @@ def phase_kernel_parity(cfg_json):
         log(f"{name} at N={cfg.n}, {SAMPLE_ROWS} sampled target leaves "
             f"(compute_pot=True): max abs err {err:.3e}")
     rec = out["near_field"]
+    # The window form with leaf_lo = 0 over one shard that holds every
+    # leaf: the same items, bit for bit the unwindowed form, the same time.
+    n_ids = (0, L["tgt"].shape[0])
+    wwork = bh_kernels.near_work(L["nv"], L["ni"], n_ids)
+    if not all(torch.equal(a, b) for a, b in zip(wwork[:2], L["work"][:2])):
+        raise AssertionError("near_field: the window items over every leaf "
+                             "differ from the unwindowed items")
+    unwin = bh_kernels.near_field(*near_args(L), compute_pot=False,
+                                  work=L["work"], **kw)
+    win = bh_kernels.near_field(*near_args(L), compute_pot=False, work=wwork,
+                                leaf_lo=0, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(unwin, win)):
+        raise AssertionError("near_field: the window form with leaf_lo = 0 "
+                             "differs from the unwindowed form")
+    _, rec["ms_window_lo0"] = cuda_ms(lambda: bh_kernels.near_field(
+        *near_args(L), compute_pot=False, work=wwork, leaf_lo=0, **kw),
+        KERNEL_REPS)
+    log(f"near_field at N={cfg.n}: the window form with leaf_lo = 0 over "
+        f"every leaf equals the unwindowed form bit for bit; "
+        f"{rec['ms_window_lo0']:.3f} ms against {rec['ms']:.3f} ms")
+    del unwin, win
     rec["clocks"] = clocks_under_load(lambda: bh_kernels.near_field(
         *near_args(L), compute_pot=False, work=L["work"], **kw))
     rec["pair_terms"] = int(L["nv"].sum()) * L["tgt"].shape[1] ** 2
@@ -1517,6 +1579,346 @@ def phase_ics():
         del sim
 
 
+# ----------------------------------------------------------- multi-device
+def _nccl_task(group, cfg_json):
+    """One rank of a one-rank group: the backend rule's nccl branch, one
+    NCCL all_reduce on the card, and dist_bh_accel at a small N."""
+    import torch.distributed as dist
+
+    from parallelnbody_tpu_torch.parallel import tasks
+
+    ones = torch.ones(4, device=group.device)
+    dist.all_reduce(ones)
+    out = tasks.sharded(group, cfg_json, None, "dist_accel")
+    acc = out["state"]["acc"]
+    return {"backend": group.backend, "all_reduce": float(ones.sum()),
+            "overflow": out["overflow"],
+            "finite": bool(torch.isfinite(torch.from_numpy(acc)).all())}
+
+
+def k1_form_work(tgt, n_terms, src_bytes, list_bytes, launches):
+    """bound() of K1 over n_terms pair terms, reading the sources, targets
+    and lists once and writing each launch's output (acc + pot)."""
+    n_slice, leaf, _ = tgt.shape
+    return bound(n_terms, FLOPS_MONOPOLE, src_bytes + nbytes(tgt) + list_bytes
+                 + launches * n_slice * leaf * 16)
+
+
+def phase_k1_forms(let_json):
+    """K1's window and table forms on the card against their plain versions,
+    on the lists of rank 0 of examples/barneshut_distributed_let.json (N =
+    4M, 8 ranks sharing the card, built by parallel/tasks.owned_geometry):
+    the window form on each of the 8 ring windows, the table form on the
+    assembled LET table and on a table cut to half its rows (lists running
+    past it). Each timed (one ring evaluation = 8 window launches), with
+    its bound and share; each launched twice for the same bits."""
+    from parallelnbody_tpu_torch.parallel import mesh, tasks
+
+    dev = torch.device(DEVICE)
+    cfg = SimConfig.from_json(let_json)
+    n_ranks = cfg.n_devices
+    t0 = time.perf_counter()
+    outs = mesh.launch(tasks.owned_geometry, n_ranks, cfg.to_json(), None,
+                       True, device=DEVICE, timeout=900)
+    r0 = outs[0]
+
+    def on(x):
+        return torch.from_numpy(x).to(dev)
+
+    tgt, ni, nv = on(r0["tgt"]), on(r0["near_idx"]), on(r0["near_valid"])
+    new_idx, table = on(r0["let_new_idx"]), on(r0["let_table"])
+    shards = [on(o["sources"]) for o in outs]
+    n_loc, leaf = r0["n_leaf_loc"], tgt.shape[1]
+    del outs
+    kw = dict(g=cfg.g, softening=cfg.softening)
+    log(f"K1 forms: rank 0 of {n_ranks} at N={cfg.n} ({r0['refine']}, "
+        f"{n_loc} owned leaves of {leaf}): near entries a leaf "
+        f"{balance(nv.sum(1))}; LET table {table.shape[0] // leaf} rows; "
+        f"overflow lists {r0['of_lists']} exchange {r0['of_exchange']} LET "
+        f"{r0['let_overflow']} ({time.perf_counter() - t0:.1f} s)")
+    if r0["of_lists"] or r0["of_exchange"] or r0["let_overflow"]:
+        raise AssertionError("K1 forms: the LET example's lists overflowed")
+
+    edges = [w * n_loc for w in range(n_ranks + 1)]
+    works = bh_kernels.near_windows(ni, nv, edges,
+                                    bh_kernels.NEAR_WINDOW_CHUNK)
+
+    def window(w, fn=bh_kernels.near_field, compute_pot=False, **extra):
+        sh = shards[w]
+        return fn(sh[:, :3].contiguous(), sh[:, 3].contiguous(), tgt, ni, nv,
+                  compute_pot=compute_pot, leaf_lo=w * n_loc, **kw, **extra)
+
+    def windows(fn=bh_kernels.near_field, **extra):
+        parts = [window(w, fn, **(dict(work=works[w]) if fn is
+                                  bh_kernels.near_field else {}), **extra)
+                 for w in range(n_ranks)]
+        return (sum(p[0] for p in parts), sum(p[1] for p in parts))
+
+    rec_w = {"max_abs_err": 0.0}
+    for w in range(n_ranks):
+        for compute_pot in (False, True):
+            err = max_err(f"near_field window {w} pot={compute_pot}",
+                          window(w, compute_pot=compute_pot, work=works[w]),
+                          window(w, bh_kernels.near_field_plain,
+                                 compute_pot=compute_pot))
+            rec_w["max_abs_err"] = max(rec_w["max_abs_err"], err)
+    rec_w["deterministic"] = repeat_equal(
+        "near_field window", lambda: [t for w in range(n_ranks)
+                                      for t in window(w, work=works[w])])
+    windows(bh_kernels.near_field_plain)                     # warm-up
+    _, rec_w["plain_ms"] = cuda_ms(lambda: windows(
+        bh_kernels.near_field_plain))
+    windows()                                                # warm-up
+    ring_sum, rec_w["ms"] = cuda_ms(windows, KERNEL_REPS)
+    # The same windows on items of NEAR_CHUNK entries, the unwindowed
+    # form's: the window items' own length against it, in turns.
+    long_items = bh_kernels.near_windows(ni, nv, edges, bh_kernels.NEAR_CHUNK)
+    alt = []
+    for items in (long_items, works, works, long_items):
+        _, ms = cuda_ms(lambda: [window(w, work=items[w])
+                                 for w in range(n_ranks)], KERNEL_REPS)
+        alt.append(ms)
+    rec_w["ms_chunk32"] = 0.5 * (alt[0] + alt[3])
+    log(f"near_field window form, items of {bh_kernels.NEAR_WINDOW_CHUNK} "
+        f"entries against {bh_kernels.NEAR_CHUNK}, in turns "
+        f"({bh_kernels.NEAR_CHUNK}, {bh_kernels.NEAR_WINDOW_CHUNK}, "
+        f"{bh_kernels.NEAR_WINDOW_CHUNK}, {bh_kernels.NEAR_CHUNK}): "
+        + ", ".join(f"{m:.3f}" for m in alt) + " ms an evaluation")
+    with_share(rec_w, k1_form_work(tgt, int(nv.sum()) * leaf * leaf,
+                                   sum(nbytes(s) for s in shards),
+                                   nbytes(ni, nv), n_ranks))
+    log(f"near_field window form, {n_ranks} windows of rank 0's lists "
+        f"(compute_pot=False): {rec_w['ms']:.3f} ms an evaluation, plain "
+        f"{rec_w['plain_ms']:.1f} ms, bound {rec_w['bound_ms']:.3f} ms "
+        f"({rec_w['bound_resource']}), share {rec_w['share']:.3f}; max abs "
+        f"err {rec_w['max_abs_err']:.3e} (both potential settings); repeat "
+        "launches bit-equal")
+
+    n_rows = table.shape[0] // leaf
+    twork = bh_kernels.near_work(nv, new_idx, (0, n_rows))
+    rec_t = {"max_abs_err": 0.0}
+
+    def tform(src, fn=bh_kernels.near_field, compute_pot=False, **extra):
+        return fn(None, None, tgt, new_idx, nv, compute_pot=compute_pot,
+                  src_table=src, **kw, **extra)
+
+    # The needed leaves take the first rows of the table (the import budget
+    # 0 sizes it for every leaf): cut it at half of them.
+    n_needed = int(new_idx[nv].max()) + 1
+    n_cut = n_needed // 2
+    cut = table[:n_cut * leaf]
+    if not bool((nv & (new_idx >= n_cut)).any()):
+        raise AssertionError("near_field table: no list runs past the cut")
+    for label, src, extra in (("full", table, dict(work=twork)),
+                              ("cut to half", cut, {})):
+        for compute_pot in (False, True):
+            err = max_err(f"near_field table {label} pot={compute_pot}",
+                          tform(src, compute_pot=compute_pot, **extra),
+                          tform(src, bh_kernels.near_field_plain,
+                                compute_pot=compute_pot))
+            rec_t["max_abs_err"] = max(rec_t["max_abs_err"], err)
+    rec_t["deterministic"] = repeat_equal(
+        "near_field table", lambda: tform(table, work=twork))
+    tform(table, bh_kernels.near_field_plain)                # warm-up
+    _, rec_t["plain_ms"] = cuda_ms(lambda: tform(
+        table, bh_kernels.near_field_plain))
+    tform(table, work=twork)                                 # warm-up
+    let_out, rec_t["ms"] = cuda_ms(lambda: tform(table, work=twork),
+                                   KERNEL_REPS)
+    live = nv & (new_idx < n_rows)
+    with_share(rec_t, k1_form_work(tgt, int(live.sum()) * leaf * leaf,
+                                   nbytes(table), nbytes(new_idx, nv), 1))
+    err = max_err("ring windows against the LET table form", ring_sum,
+                  let_out)
+    log(f"near_field table form on rank 0's LET table ({n_rows} rows, "
+        f"{n_needed} needed, cut at {n_cut}; "
+        f"compute_pot=False): {rec_t['ms']:.3f} ms, plain "
+        f"{rec_t['plain_ms']:.1f} ms, bound {rec_t['bound_ms']:.3f} ms "
+        f"({rec_t['bound_resource']}), share {rec_t['share']:.3f}; max abs "
+        f"err {rec_t['max_abs_err']:.3e} (full and cut table, both potential "
+        f"settings); the 8 windows summed against it {err:.3e}; repeat "
+        "launches bit-equal")
+    return {"near_field_window": rec_w, "near_field_table": rec_t}
+
+
+def rank_launches(label, stats, need, ratio):
+    """Per-rank launch checks of a multi-rank CLI run: every kernel of
+    `need` launched on every rank, and for each (form, per, k) of `ratio`
+    form == k * per on every rank (per = one launch an evaluation)."""
+    for r, st in enumerate(stats):
+        got = st["launches"]
+        for name in need:
+            if got[name] <= 0:
+                raise AssertionError(f"{label}: rank {r}: {name} not "
+                                     f"launched ({got})")
+        for form, per, k in ratio:
+            if got[form] != k * got[per]:
+                raise AssertionError(f"{label}: rank {r}: {form} "
+                                     f"{got[form]} != {k} x {per} "
+                                     f"{got[per]}")
+
+
+def dist_cli_run(label, config, extra, steps, base):
+    """`run` of a multi-device config through cli.main (ranks spawned by
+    the CLI), checkpointing the final state under base; returns (summary,
+    per-rank stats, final state, cfg, wall s)."""
+    from parallelnbody_tpu_torch.parallel import mesh
+    from parallelnbody_tpu_torch.utils.io import (latest_checkpoint,
+                                                  load_checkpoint)
+
+    ck = os.path.join(base, label.replace(" ", "_"))
+    reset_launch_counts()
+    out, wall = cli_json(["run", "--config", config, "--device", DEVICE,
+                          "--quiet", "--steps", str(steps),
+                          "--checkpoint-every", str(steps),
+                          "--checkpoint-dir", ck, *extra])
+    stats = mesh.LAST_RANK_STATS
+    state, cfg = load_checkpoint(latest_checkpoint(ck), DEVICE)
+    staged = sum(st["staged_bytes"] for st in stats)
+    log(f"{label}: {json.dumps(out)}; {len(stats)} ranks, backend "
+        f"{sorted({st['backend'] for st in stats})}; wall {wall:.1f} s "
+        f"with set-up, {1e3 * out['wall_s'] / out['steps']:.1f} ms/step in "
+        f"the step loop; staged through host memory {staged / 1e6:.1f} MB "
+        f"in the command, {staged / 1e6 / out['steps']:.1f} MB a step of "
+        "it; launches rank 0 "
+        + json.dumps({k: v for k, v in stats[0]["launches"].items() if v}))
+    if out["bh_overflow"] != 0 or int(state.step) != steps:
+        raise AssertionError(f"{label}: {out}, step {int(state.step)}")
+    check_state(label, state, cfg.n)
+    return out, stats, state, cfg, wall, staged
+
+
+def phase_distributed(let_json):
+    """Both multi-device examples through cli.main, their ranks sharing the
+    card through gloo: the all-pairs mesh (4 ranks, K3 the ring's tile) and
+    the LET example (8 ranks) as shipped, then with the ring near field,
+    the ring with the gather far field (K4), rebuild 8 over 8 steps and
+    the replicated tree on 4 ranks; a one-rank nccl group last."""
+    from parallelnbody_tpu_torch.parallel import mesh
+
+    base = os.path.join(ROOT, "build", "chip_smoke_dist")
+    shutil.rmtree(base, ignore_errors=True)
+    dev = torch.device(DEVICE)
+    torch.cuda.empty_cache()
+    res = {}
+
+    out, stats, state, cfg, wall, staged = dist_cli_run(
+        "all-pairs mesh", MESH_CONFIG, [], 1, base)
+    evals = 4  # t = 0 forces, the step, two diagnostics' potentials
+    rank_launches("all-pairs mesh", stats, ("allpairs",), ())
+    for r, st in enumerate(stats):
+        if st["launches"]["allpairs"] != cfg.n_devices * evals:
+            raise AssertionError(f"all-pairs mesh: rank {r} launched K3 "
+                                 f"{st['launches']['allpairs']} times")
+    rows = torch.linspace(0, cfg.n - 1, RMS_SAMPLES, device=dev).long()
+    tgt = state.pos[rows].contiguous()
+    # The ring's forces of the sampled targets are held against the f64
+    # direct sum. Single-device K3 on the same targets is a second witness,
+    # printed only: with few targets it splits the sources into ranges,
+    # while each ring pass sums its 1M sources in one f32 pass, so the two
+    # differ by more than reassociation within one sum.
+    sampled = direct_kernels.allpairs_accel_tile(
+        tgt, state.pos, state.mass, g=cfg.g, softening=cfg.softening)[0]
+    ring = state.acc[rows]
+    rel = float(torch.linalg.norm(ring - sampled) / torch.linalg.norm(sampled))
+    exact = direct_accel_at(state.pos.double(), state.mass.double(),
+                            tgt.double(), g=cfg.g, softening=cfg.softening,
+                            chunk=8192)
+    err_ring, err_sampled = (
+        float(torch.linalg.norm(a.double() - exact) / torch.linalg.norm(exact))
+        for a in (ring, sampled))
+    log(f"all-pairs mesh: K3 {stats[0]['launches']['allpairs']} launches a "
+        f"rank ({cfg.n_devices} passes x {evals} evaluations); forces of "
+        f"{RMS_SAMPLES} sampled targets against the f64 direct sum: ring "
+        f"{err_ring:.3e}, single-device K3 on the same targets "
+        f"{err_sampled:.3e}; ring against single-device K3: relative norm "
+        f"{rel:.3e}")
+    if not err_ring < RMS_BOUND_ALLPAIRS:
+        raise AssertionError(f"all-pairs mesh: ring against f64 "
+                             f"{err_ring:.3e}")
+    res["mesh"] = dict(ms_step=1e3 * out["wall_s"], wall_s=wall,
+                       staged=staged, rel=rel,
+                       launches=sum(st["launches"]["allpairs"]
+                                    for st in stats))
+    del state, sampled
+    torch.cuda.empty_cache()
+
+    runs = [
+        ("LET example", [], 2, ("far_octet", "near_field_table"),
+         [("near_field_table", "far_octet", 1), ("near_field", "far_octet",
+                                                 0)]),
+        ("ring", ["--bh-comm", "ring"], 2,
+         ("far_octet", "near_field_window"),
+         [("near_field_window", "far_octet", 8)]),
+        # The shipped far budget counts octets; the gather far list counts
+        # node rows, up to 8 an octet.
+        ("ring gather", ["--bh-comm", "ring", "--bh-far-mode", "gather",
+                         "--bh-far-budget", str(GATHER_FAR_BUDGET)], 1,
+         ("far_gather", "near_field_window"),
+         [("near_field_window", "far_gather", 8)]),
+        ("LET rebuild 8", ["--bh-rebuild-every", "8", "--log-every", "0"], 8,
+         ("far_octet", "near_field_table"),
+         [("near_field_table", "far_octet", 1)]),
+        ("replicated tree", ["--bh-distributed", "false", "--devices", "4"],
+         2, ("far_octet", "near_field"), [("near_field", "far_octet", 1)]),
+    ]
+    single = None
+    for label, extra, steps, need, ratio in runs:
+        out, stats, state, cfg, wall, staged = dist_cli_run(
+            label, LET_CONFIG, extra, steps, base)
+        rank_launches(label, stats, need, ratio)
+        rms = rms_force_error_sample(state.pos, state.mass, state.acc,
+                                     g=cfg.g, softening=cfg.softening,
+                                     k=RMS_SAMPLES)
+        # The single-device Barnes-Hut on the same state and targets, at
+        # budgets calibrated on it.
+        scfg = calibrate_budgets(cfg.replace(mesh_shape=(),
+                                             bh_distributed=False,
+                                             bh_near_budget=0,
+                                             bh_far_budget=0), state)
+        sacc, _, sof = bh.bh_accel(
+            state.pos, state.mass, leaf_size=scfg.resolve_bh_leaf_size(),
+            theta=scfg.theta, g=scfg.g, softening=scfg.softening,
+            near_budget=scfg.bh_near_budget, far0_budget=scfg.bh_far_budget,
+            curve=scfg.bh_curve, multipole=scfg.bh_multipole,
+            max_levels=scfg.bh_max_levels, compute_pot=False,
+            refine=scfg.resolve_bh_refine(),
+            cand_budgets=(scfg.bh_cand2_budget, scfg.bh_cand_budget))
+        single = rms_force_error_sample(state.pos, state.mass, sacc, g=cfg.g,
+                                        softening=cfg.softening,
+                                        k=RMS_SAMPLES)
+        del sacc
+        log(f"{label}: rms force error vs direct sum (k={RMS_SAMPLES}) "
+            f"{rms:.4e}; single-device bh_accel on the same state "
+            f"{single:.4e} (overflow {int(sof)})")
+        if not (rms < RMS_BOUND and rms <= 1.5 * single + 1e-3
+                and int(sof) == 0):
+            raise AssertionError(f"{label}: rms {rms:.4e}, single "
+                                 f"{single:.4e}, overflow {int(sof)}")
+        res[label] = dict(ms_step=1e3 * out["wall_s"] / out["steps"],
+                          wall_s=wall, staged_step=staged / out["steps"],
+                          rms=rms, rms_single=single,
+                          backend=stats[0]["backend"],
+                          launches={k: sum(st["launches"][k] for st in stats)
+                                    for k in ("near_field",
+                                              "near_field_window",
+                                              "near_field_table",
+                                              "far_octet", "far_gather")})
+        del state
+        torch.cuda.empty_cache()
+
+    small = SimConfig(n=8192, ic="plummer", force="barnes_hut",
+                      bh_leaf_size=64, bh_distributed=True,
+                      bh_near_budget=256, bh_far_budget=512)
+    got = mesh.launch(_nccl_task, 1, small.to_json(), device=DEVICE,
+                      timeout=300)[0]
+    log(f"one-rank group on {DEVICE}: {json.dumps(got)}")
+    if got != {"backend": "nccl", "all_reduce": 4.0, "overflow": 0,
+               "finite": True}:
+        raise AssertionError(f"nccl rank: {got}")
+    return res
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_environment()
@@ -1556,6 +1958,22 @@ def main():
         staged_gather["near_field"]
     kernels["far_gather"]["launches_staged8m"] = staged_gather["far_gather"]
     phase_ics()
+    with open(LET_CONFIG) as f:
+        let_json = f.read()
+    kernels.update(phase_k1_forms(let_json))
+    dist = phase_distributed(let_json)
+    kernels["near_field"]["launches_replicated_tree"] = \
+        dist["replicated tree"]["launches"]["near_field"]
+    kernels["allpairs"]["launches_mesh_4m"] = dist["mesh"]["launches"]
+    kernels["far_gather"]["launches_ring_gather"] = \
+        dist["ring gather"]["launches"]["far_gather"]
+    launches["near_field_window"] = dist["ring"]["launches"][
+        "near_field_window"]
+    launches["near_field_table"] = dist["LET example"]["launches"][
+        "near_field_table"]
+    log("distributed runs (ranks sharing one card): " + json.dumps(
+        {k: {m: v[m] for m in ("ms_step", "wall_s") if m in v}
+         for k, v in dist.items()}))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     # No single PyTorch call computes any of the four functions.

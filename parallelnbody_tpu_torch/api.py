@@ -107,14 +107,24 @@ def _fill_initial_forces(cfg: SimConfig, state: SimState) -> SimState:
 
 
 def calibrate_budgets(cfg: SimConfig, state: SimState,
-                      headroom: float = 1.25) -> SimConfig:
+                      headroom: float = 1.25,
+                      n_ranks: int | None = None) -> SimConfig:
     """Resolve bh_*_budget = 0 (auto) fields by measuring this state's exact
     per-target interaction-list requirements (ops/bh.py
     measure_budget_requirements) and adding `headroom` for evolution: the
     near and far list budgets, and with staged refinement the level-2 and
     level-1 candidate budgets (bh_cand2_budget, bh_cand_budget).
-    Explicitly-set (nonzero) budgets are kept. Returns cfg with concrete
-    budgets (unchanged for non-Barnes-Hut forces)."""
+    Explicitly-set (nonzero) budgets are kept.
+
+    n_ranks: stating the distributed rank count also calibrates the LET
+    import budget (bh_distributed, bh_comm="let", bh_import_budget=0) from
+    ops/bh.py measure_import_requirement, scaled from the proxy's leaves a
+    rank to the run's owned-capacity leaf count (parallel/distributed.py
+    _plan_cfg), as the JAX package does. Left unset, the run keeps the
+    always overflow-free full neighbour width.
+
+    Returns cfg with concrete budgets (unchanged for non-Barnes-Hut
+    forces)."""
     if cfg.resolve_force(state.pos.device) != "barnes_hut":
         return cfg
     from parallelnbody_tpu_torch.ops.bh import measure_budget_requirements
@@ -124,9 +134,11 @@ def calibrate_budgets(cfg: SimConfig, state: SimState,
     staged = cfg.resolve_bh_refine() == "staged"
     want_c2 = staged and cfg.bh_cand2_budget == 0
     want_c1 = staged and cfg.bh_cand_budget == 0
-    if not (want_near or want_far or want_c2 or want_c1):
+    want_imp = (n_ranks is not None and n_ranks > 1 and cfg.bh_distributed
+                and cfg.bh_comm == "let" and cfg.bh_import_budget == 0)
+    want_lists = want_near or want_far or want_c2 or want_c1
+    if not (want_lists or want_imp):
         return cfg
-    req = measure_budget_requirements(state.pos, state.mass, cfg)
 
     def pad(x, mult):
         # Relative headroom AND one full lane of absolute slack, rounded up
@@ -135,18 +147,31 @@ def calibrate_budgets(cfg: SimConfig, state: SimState,
         return max(mult, -(-target // mult) * mult)
 
     kw = {}
-    if want_near:
-        kw["bh_near_budget"] = min(pad(req["near_max"], 128),
-                                   req["n_leaves"])
-    if want_far:
-        kw["bh_far_budget"] = pad(req["far_max"], 128)
-    # Only where the measurement ran the staged pipeline (resolve_refine
-    # falls back to dense on shallow trees).
-    if req["refine"] == "staged":
-        if want_c2:
-            kw["bh_cand2_budget"] = pad(req["cand2_max"], 64)
-        if want_c1:
-            kw["bh_cand_budget"] = pad(req["cand1_max"], 64)
+    if want_lists:
+        req = measure_budget_requirements(state.pos, state.mass, cfg)
+        if want_near:
+            kw["bh_near_budget"] = min(pad(req["near_max"], 128),
+                                       req["n_leaves"])
+        if want_far:
+            kw["bh_far_budget"] = pad(req["far_max"], 128)
+        # Only where the measurement ran the staged pipeline (resolve_refine
+        # falls back to dense on shallow trees).
+        if req["refine"] == "staged":
+            if want_c2:
+                kw["bh_cand2_budget"] = pad(req["cand2_max"], 64)
+            if want_c1:
+                kw["bh_cand_budget"] = pad(req["cand1_max"], 64)
+    if want_imp:
+        from parallelnbody_tpu_torch.ops.bh import measure_import_requirement
+        from parallelnbody_tpu_torch.parallel.distributed import _plan_cfg
+
+        imp = measure_import_requirement(state.pos, state.mass,
+                                         cfg.replace(**kw), n_ranks)
+        n_local = -(-cfg.n // n_ranks)
+        _, _, n_leaf_loc = _plan_cfg(cfg, n_local, n_ranks,
+                                     cfg.resolve_bh_leaf_size())
+        scaled = -(-imp["import_max"] * n_leaf_loc) // imp["n_leaf_loc_proxy"]
+        kw["bh_import_budget"] = min(pad(scaled, 8), n_leaf_loc)
     return cfg.replace(**kw)
 
 

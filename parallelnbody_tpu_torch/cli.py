@@ -11,16 +11,25 @@
 Every SimConfig field is a flag (`--config FILE` loads a JSON config, flags
 override it). The commands run on `--device`, the card ("cuda") unless the
 caller names another ("cpu" runs the plain versions of the kernels); a
-missing card raises, nothing falls back. Only single-device runs are
-ported: `--devices` other than 0, `--distributed` and a config whose
-mesh_shape spans several devices fail with a message, since the
-multi-device paths (the JAX package's parallel/) are not ported yet.
+missing card raises, nothing falls back.
+
+Multi-device runs: `--devices N` or `--devices ICIxDCN` (or a config's
+mesh_shape) runs `run` and `bench` on that many ranks, started here
+(parallel/mesh.py; on one card they share it, through gloo), rank r on
+cuda:(r % cards); `--distributed` makes this process one rank of a group
+that a launcher such as torchrun started (RANK, WORLD_SIZE, MASTER_ADDR,
+MASTER_PORT). Rank 0 writes the snapshots, checkpoints, metrics and the
+summary, with the state gathered to it; `--resume` scatters a checkpoint
+from rank 0. `tree`, `oracle` and `info` run on one device, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -32,12 +41,6 @@ import torch
 
 from parallelnbody_tpu_torch.config import SimConfig, reference_compat_config
 from parallelnbody_tpu_torch.state import SimState, resolve_device
-
-_NOT_PORTED = ("multi-device runs are not ported to parallelnbody_tpu_torch "
-               "yet (the JAX package's parallel/); run on one device "
-               "(--devices 0, no --distributed, an empty mesh_shape) or use "
-               "`python -m parallelnbody_tpu`")
-
 
 def _add_config_flags(p: argparse.ArgumentParser):
     p.add_argument("--config", type=str, default=None,
@@ -56,10 +59,13 @@ def _add_config_flags(p: argparse.ArgumentParser):
         else:
             p.add_argument(name, type=str, default=None)
     p.add_argument("--devices", type=str, default="0",
-                   help="0 = single device (the only setting ported; others "
-                        "fail, the multi-device paths are not ported yet)")
+                   help="shard over this many ranks (0 = single device); "
+                        "ICIxDCN form (e.g. 8x2) orders the ring slice-major "
+                        "so only DCN hops cross slices")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host (not ported yet: fails)")
+                   help="this process is one rank of a group started by a "
+                        "launcher (RANK, WORLD_SIZE, MASTER_ADDR, "
+                        "MASTER_PORT from the environment)")
     p.add_argument("--compat", action="store_true",
                    help="reference-compat profile (G=1e4, slab ICs, "
                         "semi-implicit Euler, theta=1, no softening)")
@@ -72,19 +78,16 @@ def _add_device_flag(p: argparse.ArgumentParser):
                         "without a card; cpu runs the plain versions)")
 
 
-def _require_single_device(cfg: SimConfig):
-    if cfg.n_devices > 1:
-        raise SystemExit(f"parallelnbody_tpu_torch: mesh_shape "
-                         f"{cfg.mesh_shape}: {_NOT_PORTED}")
+def _parse_devices(spec: str) -> tuple:
+    if not spec or spec == "0":
+        return ()
+    if "x" in spec:
+        ici, dcn = spec.split("x")
+        return (int(ici), int(dcn))
+    return (int(spec),)
 
 
 def _build_config(args) -> SimConfig:
-    if getattr(args, "distributed", False):
-        raise SystemExit(f"parallelnbody_tpu_torch: --distributed: "
-                         f"{_NOT_PORTED}")
-    if args.devices not in ("", "0"):
-        raise SystemExit(f"parallelnbody_tpu_torch: --devices "
-                         f"{args.devices}: {_NOT_PORTED}")
     if args.compat:
         cfg = reference_compat_config(n=args.n or 1024,
                                       size=args.ic_size or 200.0)
@@ -93,22 +96,110 @@ def _build_config(args) -> SimConfig:
             cfg = SimConfig.from_json(f.read())
     else:
         cfg = SimConfig()
-    cfg = cfg.replace(**_flag_overrides(args))
-    _require_single_device(cfg)
-    return cfg
+    return cfg.replace(**_flag_overrides(args))
 
 
 def _flag_overrides(args, skip=()) -> dict:
-    """The SimConfig fields given as flags."""
-    return {f.name: getattr(args, f.name)
-            for f in dataclasses.fields(SimConfig)
-            if getattr(args, f.name, None) is not None and f.name not in skip}
+    """The SimConfig fields given as flags (mesh_shape from --devices)."""
+    out = {f.name: getattr(args, f.name)
+           for f in dataclasses.fields(SimConfig)
+           if getattr(args, f.name, None) is not None and f.name not in skip}
+    shape = _parse_devices(getattr(args, "devices", "0"))
+    if shape:
+        out["mesh_shape"] = shape
+    return out
 
 
 def _device_name(device: torch.device) -> str:
     if device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return device.type
+
+
+# ------------------------------------------------------------------ ranks
+def _on_ranks(args, body) -> int:
+    """body(args, cfg, device, group) on one device (group None), as this
+    process's rank of a launched group (--distributed), or on cfg's
+    mesh_shape of ranks started here. A rank's standard output is rank 0's
+    and reaches this process's; returns rank 0's exit code."""
+    from parallelnbody_tpu_torch.parallel import mesh
+
+    device = resolve_device(args.device)
+    cfg = _build_config(args)
+    if getattr(args, "resume", False):
+        from parallelnbody_tpu_torch.utils.io import latest_checkpoint
+
+        # The checkpointed config (flags win) decides the rank count.
+        ckpt = latest_checkpoint(cfg.checkpoint_dir)
+        if ckpt:
+            cfg = SimConfig.from_json(ckpt.with_suffix(".json").read_text())
+            cfg = cfg.replace(**_flag_overrides(args, skip=("n",)))
+    if args.distributed:
+        group = mesh.init_distributed(device)
+        if cfg.n_devices not in (1, group.world_size):
+            raise SystemExit(f"mesh_shape {cfg.mesh_shape} spans "
+                             f"{cfg.n_devices} ranks; the group has "
+                             f"{group.world_size}")
+        cfg = cfg.replace(mesh_shape=cfg.mesh_shape or (group.world_size,))
+        return body(args, cfg, group.device, group)
+    if cfg.n_devices > 1:
+        outs = mesh.launch(_rank_command, cfg.n_devices, body.__name__,
+                           vars(args), cfg.to_json(), device=device,
+                           timeout=None)
+        sys.stdout.write(outs[0][1])
+        return outs[0][0]
+    return body(args, cfg, device, None)
+
+
+def _rank_command(group, body_name, argd, cfg_json):
+    """One launched rank of a command: (exit code, rank 0's stdout)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = globals()[body_name](argparse.Namespace(**argd),
+                                  SimConfig.from_json(cfg_json), group.device,
+                                  group)
+    return rc, buf.getvalue() if group.rank == 0 else ""
+
+
+def _make_sharded_run_k(cfg, group, args):
+    """Segment runner on the ranks: the persistent key-sharded run with
+    --bh-distributed Barnes-Hut, else a per-step loop. A distributed
+    segment that overflows is corrupted (a clipped particle leaves the
+    carry, parallel/distributed.py make_distributed_run): it is discarded
+    and redone step by step, with a warning. Returns (state, overflow)."""
+    from parallelnbody_tpu_torch.parallel import (make_distributed_run,
+                                                  make_sharded_step)
+
+    step_fn = make_sharded_step(cfg, group, report_overflow=True)
+
+    def step_k(s, k):
+        total = 0
+        for _ in range(k):
+            s, of = step_fn(s)
+            total += int(of)
+        return s, total
+
+    if not (cfg.bh_distributed
+            and cfg.resolve_force(group.device) == "barnes_hut"):
+        return step_k
+    runs = {}
+
+    def run_k(s, k):
+        if k not in runs:
+            runs[k] = make_distributed_run(cfg, group, k)
+        out, ovf = runs[k](s)
+        ovf = int(ovf)
+        if ovf:
+            if not args.quiet and group.rank == 0:
+                print(f"WARNING: distributed BH clipped {ovf} exchange "
+                      f"slots / list entries; discarding the corrupted "
+                      f"segment and recomputing it per-step (raise "
+                      f"--bh-near-budget/--bh-far-budget or "
+                      f"--bh-pair-slack/--bh-own-slack)", file=sys.stderr)
+            return step_k(s, k)
+        return out, 0
+
+    return run_k
 
 
 # ------------------------------------------------------------------------ run
@@ -138,6 +229,11 @@ def recalibrate_on_overflow(cfg, state, auto_fields):
 
 
 def cmd_run(args) -> int:
+    return _on_ranks(args, _run_body)
+
+
+def _run_body(args, cfg, device, group) -> int:
+    """`run` on one device (group None) or on this rank of the group."""
     from parallelnbody_tpu_torch.api import (_fill_initial_forces,
                                              calibrate_budgets,
                                              init_simulation, make_accel_fn,
@@ -149,34 +245,59 @@ def cmd_run(args) -> int:
     from parallelnbody_tpu_torch.utils.profiling import (force_sync,
                                                          profile_trace)
 
-    device = resolve_device(args.device)
-    cfg = _build_config(args)
+    sharded = group is not None
+    lead = not sharded or group.rank == 0
+    quiet = args.quiet or not lead
+    if sharded:
+        from parallelnbody_tpu_torch.parallel import mesh
+        from parallelnbody_tpu_torch.parallel.sharded import (
+            _accel_fn, sharded_bh_overflow, sharded_diagnostics,
+            sharded_init_accel)
 
     state = None
     if args.resume:
         ckpt = latest_checkpoint(cfg.checkpoint_dir)
         if ckpt:
-            state, cfg = load_checkpoint(ckpt, device)
-            # Explicit CLI flags still win over the checkpointed config.
-            cfg = cfg.replace(**_flag_overrides(args, skip=("n",)))
-            _require_single_device(cfg)
-            print(f"resumed from {ckpt} at step {int(state.step)}",
-                  file=sys.stderr)
+            # Rank 0 reads the checkpoint and scatters it.
+            full = None
+            if lead:
+                full, ck_cfg = load_checkpoint(ckpt,
+                                               "cpu" if sharded else device)
+                # Explicit CLI flags still win over the checkpointed config;
+                # the ranks keep the mesh they were started on.
+                cfg = ck_cfg.replace(**{**_flag_overrides(args, skip=("n",)),
+                                        "mesh_shape": cfg.mesh_shape})
+            if sharded:
+                cfg = SimConfig.from_json(
+                    group.broadcast_object(cfg.to_json() if lead else None))
+                state = mesh.scatter_state(full, group)
+            else:
+                state = full
+            if lead:
+                print(f"resumed from {ckpt} at step {int(state.step)}",
+                      file=sys.stderr)
 
     # Which budget fields arrived as 0 = auto (before calibration fills
     # them): these are the fields recalibrate_on_overflow may grow mid-run.
     # A resumed checkpoint carries calibrated budgets, so resumed runs heal
-    # only via explicit flags.
+    # only via explicit flags. Sharded runs are not calibrated (the JAX
+    # package's rule): their budgets resolve to the static fallbacks.
     auto_budget_fields = ([f for f in _AUTO_BUDGET_FIELDS
                            if getattr(cfg, f) == 0]
                           if cfg.resolve_force(device) == "barnes_hut"
-                          else [])
-    if state is None:
+                          and not sharded else [])
+    if sharded:
+        if state is None:
+            state = mesh.shard_state(
+                init_simulation(cfg, "cpu", compute_forces=False), group)
+        # sharded_init_accel virializes fresh states itself.
+        state = sharded_init_accel(cfg, group, state)
+    elif state is None:
         # Auto (0) Barnes-Hut budgets are measured on the actual ICs before
         # the first force evaluation (no-op when all are explicit).
         state = init_simulation(cfg, device, compute_forces=False)
         cal = calibrate_budgets(cfg, state)
-        if cal is not cfg and not args.quiet:
+        if cal is not cfg and not quiet:
             print(f"calibrated budgets: near {cal.bh_near_budget} far "
                   f"{cal.bh_far_budget} cand2 {cal.bh_cand2_budget} "
                   f"cand1 {cal.bh_cand_budget}", file=sys.stderr)
@@ -189,24 +310,28 @@ def cmd_run(args) -> int:
 
     def audit_bh_budgets(state):
         """t=0 budget audit through the run's own path (refinement, far
-        mode, sections): clipped list entries are lost forces, so surface
-        the overflow before a long run (the count is an upper bound; zero
-        means nothing was clipped)."""
+        mode, sections; on ranks the sharded evaluation, which also audits
+        the exchange capacities): clipped list entries are lost forces, so
+        surface the overflow before a long run (the count is an upper
+        bound; zero means nothing was clipped)."""
         if cfg.resolve_force(device) != "barnes_hut":
             return
-        from parallelnbody_tpu_torch.ops.bh import bh_accel
+        if sharded:
+            ovf = sharded_bh_overflow(cfg, group, state)
+        else:
+            from parallelnbody_tpu_torch.ops.bh import bh_accel
 
-        _, _, ovf = bh_accel(
-            state.pos, state.mass, leaf_size=cfg.resolve_bh_leaf_size(),
-            theta=cfg.theta, g=cfg.g, softening=cfg.softening,
-            near_budget=cfg.resolve_bh_near_budget(),
-            far0_budget=cfg.resolve_bh_far_budget(), curve=cfg.bh_curve,
-            multipole=cfg.bh_multipole, max_levels=cfg.bh_max_levels,
-            refine=cfg.resolve_bh_refine(),
-            cand_budgets=(cfg.bh_cand2_budget, cfg.bh_cand_budget),
-            far_mode=cfg.bh_far_mode, sections=cfg.bh_sections)
-        ovf = int(ovf)
-        if ovf and not args.quiet:
+            _, _, ovf = bh_accel(
+                state.pos, state.mass, leaf_size=cfg.resolve_bh_leaf_size(),
+                theta=cfg.theta, g=cfg.g, softening=cfg.softening,
+                near_budget=cfg.resolve_bh_near_budget(),
+                far0_budget=cfg.resolve_bh_far_budget(), curve=cfg.bh_curve,
+                multipole=cfg.bh_multipole, max_levels=cfg.bh_max_levels,
+                refine=cfg.resolve_bh_refine(),
+                cand_budgets=(cfg.bh_cand2_budget, cfg.bh_cand_budget),
+                far_mode=cfg.bh_far_mode, sections=cfg.bh_sections)
+            ovf = int(ovf)
+        if ovf and not quiet:
             print(f"WARNING: Barnes-Hut budgets clipped up to {ovf} "
                   f"interaction-list entries; raise --bh-near-budget/"
                   f"--bh-far-budget or theta (forces are degraded for the "
@@ -214,7 +339,10 @@ def cmd_run(args) -> int:
 
     def make_run_k(cfg):
         """run_k(state, k) -> (state, overflow of the k steps, read once)
-        through make_run(cfg, k), one program per k, kept."""
+        through make_run(cfg, k), one program per k, kept; on ranks the
+        sharded segment runner."""
+        if sharded:
+            return _make_sharded_run_k(cfg, group, args)
         runs = {}
         bh = cfg.resolve_force(device) == "barnes_hut"
 
@@ -231,22 +359,30 @@ def cmd_run(args) -> int:
     audit_bh_budgets(state)
     run_k = make_run_k(cfg)
 
-    traj = TrajectoryWriter(cfg.snapshot_dir, cfg) if cfg.snapshot_every else None
-    metrics = MetricsLogger(args.metrics, echo=not args.quiet)
+    traj = (TrajectoryWriter(cfg.snapshot_dir, cfg)
+            if cfg.snapshot_every and lead else None)
+    metrics = MetricsLogger(args.metrics if lead else None, echo=not quiet)
 
     pot_fn = None
     if not cfg.track_potential:
         # Hot steps skip the per-step potential (pot stays zeros); recompute
         # it at diagnostics cadence so logged energy/drift are meaningful
         # (as api.Simulation.diagnostics does).
-        accel_pot = make_accel_fn(cfg.replace(track_potential=True),
-                                  state.mass)
+        pot_cfg = cfg.replace(track_potential=True)
+        accel_pot = (_accel_fn(pot_cfg, group, state.mass) if sharded
+                     else make_accel_fn(pot_cfg, state.mass))
         pot_fn = lambda pos: accel_pot(pos)[1]  # noqa: E731
 
     def diag(s: SimState) -> dict:
         if pot_fn is not None:
             s = s._replace(pot=pot_fn(s.pos))
+        if sharded:
+            return sharded_diagnostics(s, group)
         return {k: float(v) for k, v in energy_ops.diagnostics(s).items()}
+
+    def gathered(s):
+        """The whole state on rank 0 (None on the others)."""
+        return mesh.gather_state(s, group) if sharded else s
 
     d0 = diag(state)
     e0 = d0["energy"]
@@ -264,7 +400,8 @@ def cmd_run(args) -> int:
     # {"pause": bool, "dt": float, "stop": bool, "render_extent": float,
     # "render_plane": "xy"|"xz"|"yz", "show_tree": bool}; the view keys
     # steer the --render-every frames live (extent = half-width of the
-    # view, i.e. inverse zoom).
+    # view, i.e. inverse zoom). On ranks, rank 0 reads it and sends the
+    # stop flag and dt to the others.
     view = {"extent": None, "plane": args.render_plane,
             "show_tree": bool(args.show_tree)}
 
@@ -281,12 +418,12 @@ def cmd_run(args) -> int:
         if new_dt and new_dt > 0 and new_dt != cfg.dt:
             cfg = cfg.replace(dt=new_dt)
             runs_invalid = True
-            if not args.quiet:
+            if not quiet:
                 print(f"control: dt -> {new_dt}", file=sys.stderr)
         new_ext = ctl.get("render_extent")
         if new_ext and new_ext > 0 and new_ext != view["extent"]:
             view["extent"] = float(new_ext)
-            if not args.quiet:
+            if not quiet:
                 print(f"control: render_extent -> {new_ext}", file=sys.stderr)
         new_plane = ctl.get("render_plane")
         if new_plane in ("xy", "xz", "yz") and new_plane != view["plane"]:
@@ -295,11 +432,11 @@ def cmd_run(args) -> int:
                 # No explicit extent with the plane switch: recompute the
                 # auto extent from the new plane's axes on the next frame.
                 view["extent"] = None
-            if not args.quiet:
+            if not quiet:
                 print(f"control: render_plane -> {new_plane}", file=sys.stderr)
         if "show_tree" in ctl and bool(ctl["show_tree"]) != view["show_tree"]:
             view["show_tree"] = bool(ctl["show_tree"])
-            if not args.quiet:
+            if not quiet:
                 print(f"control: show_tree -> {view['show_tree']}",
                       file=sys.stderr)
         while ctl.get("pause"):
@@ -310,6 +447,18 @@ def cmd_run(args) -> int:
             except (json.JSONDecodeError, OSError):
                 break
         return bool(ctl.get("stop"))
+
+    def poll_all():
+        nonlocal cfg, runs_invalid
+        stop = poll_control() if lead else False
+        if not sharded:
+            return stop
+        sent = group.broadcast(torch.tensor(
+            [float(stop), cfg.dt], dtype=torch.float64, device=device))
+        if float(sent[1]) != cfg.dt:
+            cfg = cfg.replace(dt=float(sent[1]))
+            runs_invalid = True
+        return bool(sent[0])
 
     # Live frames every --render-every steps as the run progresses, with a
     # view extent fixed from the first frame (control-file overridable) so
@@ -340,10 +489,34 @@ def cmd_run(args) -> int:
                        plane=view["plane"])
         write_image(out, img)
 
+    def write_outputs(s, step_no, done):
+        """The frame, snapshot and checkpoint due after `done` steps, from
+        the state gathered to rank 0 (every rank decides alike)."""
+        frame = bool(args.render_every) and done % args.render_every == 0
+        snap = bool(cfg.snapshot_every) and done % cfg.snapshot_every == 0
+        ckpt = bool(cfg.checkpoint_every) and \
+            done % cfg.checkpoint_every == 0
+        if frame or snap or ckpt:
+            full = gathered(s)
+            if lead:
+                if frame:
+                    render_frame(full, step_no)
+                if snap:
+                    traj.append(full)
+                if ckpt:
+                    save_checkpoint(cfg.checkpoint_dir, full, cfg)
+
+    def checkpoint_now(s):
+        full = gathered(s)
+        if lead:
+            save_checkpoint(cfg.checkpoint_dir, full, cfg)
+
     if args.render_every:
         # Label by the absolute step so a --resume continues the frame
         # sequence instead of overwriting frame_000000.png.
-        render_frame(state, int(state.step))
+        full = gathered(state)
+        if lead:
+            render_frame(full, int(state.step))
 
     runs_invalid = False
     interrupted = False
@@ -351,12 +524,12 @@ def cmd_run(args) -> int:
     t_start = time.perf_counter()
     done = 0
     last_t = t_start
-    with profile_trace(args.profile_dir):
+    with profile_trace(args.profile_dir if lead else None):
         try:
             while done < cfg.steps:
-                if poll_control():
-                    save_checkpoint(cfg.checkpoint_dir, state, cfg)
-                    if not args.quiet:
+                if poll_all():
+                    checkpoint_now(state)
+                    if not quiet:
                         print("control: stop (checkpoint saved)", file=sys.stderr)
                     break
                 if runs_invalid:
@@ -369,7 +542,7 @@ def cmd_run(args) -> int:
                 if seg_ovf:
                     # Mid-run clipping: the t=0 audit cannot catch a state
                     # that only starts overflowing as the system evolves.
-                    if not ovf_total and not args.quiet:
+                    if not ovf_total and not quiet:
                         print(f"WARNING: Barnes-Hut budgets started clipping "
                               f"mid-run at step ~{done} ({seg_ovf} entries "
                               f"this segment); raise --bh-near-budget/"
@@ -383,7 +556,7 @@ def cmd_run(args) -> int:
                             cfg, state, auto_budget_fields)
                         if grew:
                             runs_invalid = True
-                            if not args.quiet:
+                            if not quiet:
                                 print(f"recalibrated budgets after overflow: "
                                       f"{grew}", file=sys.stderr)
                 step_now = int(force_sync(state.step))
@@ -396,18 +569,13 @@ def cmd_run(args) -> int:
                         record["bh_overflow"] = ovf_total
                     metrics.log(record)
                 last_t = now
-                if args.render_every and done % args.render_every == 0:
-                    render_frame(state, step_now)
-                if traj and done % cfg.snapshot_every == 0:
-                    traj.append(state)
-                if cfg.checkpoint_every and done % cfg.checkpoint_every == 0:
-                    save_checkpoint(cfg.checkpoint_dir, state, cfg)
+                write_outputs(state, step_now, done)
         except KeyboardInterrupt:
             # Clean interrupt: checkpoint the last completed segment so a
             # --resume continues exactly here.
             interrupted = True
-            save_checkpoint(cfg.checkpoint_dir, state, cfg)
-            if not args.quiet:
+            checkpoint_now(state)
+            if not quiet:
                 print(f"interrupted at step {int(state.step)}; checkpoint "
                       f"saved to {cfg.checkpoint_dir}", file=sys.stderr)
 
@@ -424,32 +592,56 @@ def cmd_run(args) -> int:
         "momentum_norm": d1["momentum_norm"],
         "bh_overflow": ovf_total,
     }
-    print(json.dumps(summary))
+    if lead:
+        print(json.dumps(summary))
     metrics.close()
     return 0
 
 
 # ---------------------------------------------------------------------- bench
 def cmd_bench(args) -> int:
+    return _on_ranks(args, _bench_body)
+
+
+def _bench_body(args, cfg, device, group) -> int:
     """Step throughput of the single-device step (make_step), or with
     --run-steps K of a fused make_run(cfg, K), the production path (with
     bh_rebuild_every > 1 the tree-rebuild-interval program). The budgets
     are calibrated first, so the program timed is the one `run` executes.
-    On a CUDA device the loop is timed by CUDA events, elsewhere by the
-    host clock; the overflow stays on the device until the loop ends."""
-    from parallelnbody_tpu_torch.api import (make_run, make_step,
-                                             prepare_simulation)
+    On ranks (group given): the sharded step, or with --run-steps the
+    persistent distributed run (--bh-distributed) or the sharded run, as
+    the JAX package times them (budgets not calibrated); the time is rank
+    0's, with every rank's work finished. On a CUDA device the loop is
+    timed by CUDA events on one device, elsewhere by the host clock; the
+    overflow stays on the device until the loop ends."""
+    from parallelnbody_tpu_torch.api import (init_simulation, make_run,
+                                             make_step, prepare_simulation)
 
-    device = resolve_device(args.device)
-    cfg = _build_config(args)
-    cfg, state = prepare_simulation(cfg, device)
+    run_steps = args.run_steps
+    per_call = run_steps or 1
     method = cfg.resolve_force(device)
     bh = method == "barnes_hut"
-    run_steps = args.run_steps
-    step = (make_run(cfg, run_steps, report_overflow=True) if run_steps
-            else make_step(cfg, report_overflow=True))
-    per_call = run_steps or 1
     overflow = torch.zeros((), dtype=torch.int32, device=device)
+    if group is None:
+        cfg, state = prepare_simulation(cfg, device)
+        step = (make_run(cfg, run_steps, report_overflow=True) if run_steps
+                else make_step(cfg, report_overflow=True))
+    else:
+        from parallelnbody_tpu_torch.parallel import mesh, sharded as sh
+        from parallelnbody_tpu_torch.parallel.distributed import \
+            make_distributed_run
+
+        state = sh.sharded_init_accel(cfg, group, mesh.shard_state(
+            init_simulation(cfg, "cpu", compute_forces=False), group))
+        if run_steps and cfg.bh_distributed and bh:
+            step = make_distributed_run(cfg, group, run_steps)
+        elif run_steps:
+            sharded_run = sh.make_sharded_run(cfg, group, run_steps)
+
+            def step(s):
+                return sharded_run(s), torch.zeros_like(overflow)
+        else:
+            step = sh.make_sharded_step(cfg, group, report_overflow=True)
 
     def call(s):
         nonlocal overflow
@@ -457,9 +649,15 @@ def cmd_bench(args) -> int:
         overflow = overflow + of
         return s
 
+    def finish():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        if group is not None:
+            group.all_reduce(torch.zeros(1, device=device))
+
     state = call(state)                    # warm-up
     iters = args.iters
-    if device.type == "cuda":
+    if device.type == "cuda" and group is None:
         torch.cuda.synchronize(device)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -470,14 +668,17 @@ def cmd_bench(args) -> int:
         torch.cuda.synchronize(device)
         dt = start.elapsed_time(end) / 1e3 / (iters * per_call)
     else:
+        finish()
         t0 = time.perf_counter()
         for _ in range(iters):
             state = call(state)
+        finish()
         dt = (time.perf_counter() - t0) / (iters * per_call)
+    n_dev = 1 if group is None else group.world_size
     out = {
         "n": cfg.n,
         "force": method,
-        "devices": 1,
+        "devices": n_dev,
         "device": _device_name(device),
         "ms_per_step": dt * 1e3,
         "steps_per_sec": 1.0 / dt,
@@ -489,8 +690,9 @@ def cmd_bench(args) -> int:
             out["overflow"] = int(overflow)
     if method in ("direct", "direct_pallas"):
         out["interactions_per_sec"] = cfg.n * cfg.n / dt
-        out["interactions_per_sec_per_chip"] = cfg.n * cfg.n / dt
-    print(json.dumps(out))
+        out["interactions_per_sec_per_chip"] = cfg.n * cfg.n / dt / n_dev
+    if group is None or group.rank == 0:
+        print(json.dumps(out))
     return 0
 
 

@@ -6,9 +6,10 @@ both packages (tests/test_torch_config.py pins the equality). The port keeps
 its own copy because importing `parallelnbody_tpu.config` runs
 `parallelnbody_tpu/__init__.py`, which imports JAX.
 
-Fields that only steer the JAX package (Pallas tiles, meshes, donation, the
-XLA compile cache, the distributed Barnes-Hut knobs) are kept so that the
-configs stay interchangeable; this package does not read them yet.
+Fields that only steer the JAX package (Pallas tiles, donation, the XLA
+compile cache) are kept so that the configs stay interchangeable; this
+package does not read them. mesh_shape is the rank count of the
+multi-device paths (parallel/).
 """
 
 from __future__ import annotations
@@ -73,7 +74,9 @@ class SimConfig:
     bh_far_budget: int = 0         # far octet entries per target leaf;
                                    # 0 = calibrated, as above
     bh_curve: str = "hilbert"      # hilbert | morton sort order
-    bh_distributed: bool = False   # multi-device Barnes-Hut (not ported)
+    bh_distributed: bool = False   # multi-device Barnes-Hut: distributed
+                                   # sort (parallel/distributed.py) instead
+                                   # of the replicated tree
     bh_multipole: int = 2          # 1 = monopole, 2 = + traceless quadrupole
     bh_max_levels: int = 12
     bh_refine: str = "auto"        # dense | staged | auto
@@ -81,13 +84,14 @@ class SimConfig:
     bh_cand2_budget: int = 0       # level 2); 0 = calibrated
     bh_far_mode: str = "auto"      # octet | gather | auto (= octet)
     bh_sections: int = 0           # target-leaf windows; 0 = auto
-    bh_pair_slack: float = 2.0     # distributed Barnes-Hut (not ported)
-    bh_own_slack: float = 0.25
-    bh_comm: str = "ring"
+    bh_pair_slack: float = 2.0     # distributed Barnes-Hut: exchange and
+    bh_own_slack: float = 0.25     # owned capacity slack
+    bh_comm: str = "ring"          # its near field: ring | let
     bh_rebuild_every: int = 8      # rebuild the tree geometry every k steps
                                    # inside fused runs (api._make_run_reuse);
                                    # 1 = rebuild every step
-    bh_import_budget: int = 0      # distributed Barnes-Hut (not ported)
+    bh_import_budget: int = 0      # LET imports per rank pair; 0 = a full
+                                   # neighbour width
 
     donate_state: bool = False     # JAX buffer donation; the port updates
                                    # nothing in place and ignores it
@@ -96,7 +100,7 @@ class SimConfig:
     tile_i: int = 256
     tile_j: int = 2048
 
-    # --- parallelism (JAX package only) ---
+    # --- parallelism: () one device, (P,) or (ICI, DCN) ranks ---
     mesh_shape: tuple = ()
     mesh_axes: tuple = ("ring",)
 

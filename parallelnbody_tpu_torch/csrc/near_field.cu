@@ -39,6 +39,13 @@
 //     R pairs. R is the largest of 8, 4, 2 that still gives a block a full
 //     warp (G >= 32 R), else 1: one warp at leaf 256 (N = 1M) and leaf 128
 //     (the auto leaf up to N = 2^19), so no lane idles.
+//   * Windowed forms. `leaf_off` is subtracted from every source id the
+//     kernel reads: the wrapper's window form passes a shard of the sorted
+//     particles whose leaves start at global id leaf_off (the ring near field
+//     of parallel/distributed.py), and builds the items from each row's
+//     [lo, hi) run of list positions inside the window; the table form
+//     passes a prebuilt source table with leaf_off 0 and items that stop at
+//     its last row. The unwindowed form passes 0 and [0, count).
 //   * C and R were chosen on the card at N = 1M (PERF.md §6): one-warp
 //     blocks (R = 8 at G = 256) ran a few per cent faster than two-warp
 //     ones (R = 4), and every C from 8 to 64 lost the tail and ran within
@@ -63,7 +70,7 @@ __global__ void __launch_bounds__(1024 / R)
                       const int4* __restrict__ items,
                       float* __restrict__ acc, float* __restrict__ pot,
                       float4* __restrict__ partial, int leaf_size,
-                      int budget, float g, float eps2) {
+                      int budget, int leaf_off, float g, float eps2) {
   extern __shared__ float4 ring[];
   const int4 item = items[blockIdx.x];
   const int G = leaf_size;
@@ -80,7 +87,7 @@ __global__ void __launch_bounds__(1024 / R)
   const int* list = idx + (long long)item.x * budget + item.y;
   pnb::sweep_tiles<R, GUARD_ZERO, COMPUTE_POT>(
       ring, G, item.z - item.y,
-      [&](int k) { return table + (long long)list[k] * G; },
+      [&](int k) { return table + (long long)(list[k] - leaf_off) * G; },
       [&](int) { return G; }, eps2, t);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -132,8 +139,8 @@ template <int R, bool GUARD_ZERO, bool COMPUTE_POT>
 cudaError_t launch(const float4* table, const float* tgt, const int* idx,
                    const int4* items, const int* splits, float* acc,
                    float* pot, float4* partial, int n_items, int n_split,
-                   int leaf_size, int budget, float g, float eps2,
-                   cudaStream_t stream) {
+                   int leaf_size, int budget, int leaf_off, float g,
+                   float eps2, cudaStream_t stream) {
   const int threads = (leaf_size + R - 1) / R;
   const size_t smem = (size_t)pnb::kStages * leaf_size * sizeof(float4);
   auto kernel = near_field_kernel<R, GUARD_ZERO, COMPUTE_POT>;
@@ -143,8 +150,8 @@ cudaError_t launch(const float4* table, const float* tgt, const int* idx,
     if (err != cudaSuccess) return err;
   }
   kernel<<<n_items, threads, smem, stream>>>(table, tgt, idx, items, acc, pot,
-                                             partial, leaf_size, budget, g,
-                                             eps2);
+                                             partial, leaf_size, budget,
+                                             leaf_off, g, eps2);
   if (n_split > 0) {
     const long long n = (long long)n_split * leaf_size;
     near_combine_kernel<COMPUTE_POT><<<(int)((n + 255) / 256), 256, 0,
@@ -160,8 +167,9 @@ extern "C" int pnb_near_field(const void* table, const void* tgt,
                               const void* idx, const void* items,
                               const void* splits, void* acc, void* pot,
                               void* partial, int n_items, int n_split,
-                              int leaf_size, int budget, float g, float eps2,
-                              int guard_zero, int compute_pot, void* stream) {
+                              int leaf_size, int budget, int leaf_off,
+                              float g, float eps2, int guard_zero,
+                              int compute_pot, void* stream) {
   if (n_items <= 0) return (int)cudaSuccess;
   auto tb = static_cast<const float4*>(table);
   auto t = static_cast<const float*>(tgt);
@@ -174,7 +182,7 @@ extern "C" int pnb_near_field(const void* table, const void* tgt,
   auto st = static_cast<cudaStream_t>(stream);
   auto go = [&](auto fn) {
     return (int)fn(tb, t, ix, it, sp, a, ph, pa, n_items, n_split, leaf_size,
-                   budget, g, eps2, st);
+                   budget, leaf_off, g, eps2, st);
   };
   auto with_r = [&](auto r) {
     constexpr int R = decltype(r)::value;

@@ -877,6 +877,49 @@ def bh_accel(pos, mass, *, leaf_size=256, theta=0.5, g=1.0, softening=1e-2,
     return acc_out[:n], pot_out[:n], overflow
 
 
+def bh_accel_target_slice(pos_all, mass_all, rank, n_ranks, *, leaf_size,
+                          theta, g, softening, near_budget, far0_budget,
+                          curve, multipole=1, max_levels=12, refine="dense",
+                          cand_budgets=(0, 0), far_mode="auto"):
+    """The replicated-tree building block of the multi-device paths: forces
+    for the rank-th slice of target leaves only, from the gathered global
+    pos_all / mass_all (identical on every rank). Slices hold
+    ceil(n_leaves / n_ranks) leaves; trailing windows are clamped into
+    range and overlap the previous rank's (slice_row_of_sorted picks one
+    copy). Returns (acc_slice, pot_slice, perm, overflow) in sorted order
+    with the sort permutation, as the JAX package's."""
+    pos_s, mass_s, perm, tree, n, n_pad = _prepare(
+        pos_all, mass_all, leaf_size=leaf_size, curve=curve,
+        multipole_order=multipole, max_levels=max_levels)
+    n_leaves = n_pad // leaf_size
+    n_slice = -(-n_leaves // n_ranks)
+    start = min(rank * n_slice, n_leaves - n_slice)
+    refine, cand_budgets = resolve_refine(refine, cand_budgets, tree.n_levels,
+                                          near_budget, far0_budget)
+    far_mode = resolve_far_mode(far_mode, refine)
+    far_masks, rejects = traverse(
+        tree, theta, start_leaf=start, n_slice=n_slice,
+        stop_level=2 if refine == "staged" else 1)
+    acc, pot, overflow = _forces_sorted(
+        pos_s, mass_s, tree, far_masks, rejects, start_leaf=start,
+        n_slice=n_slice, leaf_size=leaf_size, theta=theta, g=g,
+        softening=softening, near_budget=near_budget,
+        far0_budget=far0_budget, refine=refine, cand_budgets=cand_budgets,
+        far_mode=far_mode)
+    return acc, pot, perm, overflow
+
+
+def slice_row_of_sorted(sorted_idx, n_leaves, n_ranks, leaf_size):
+    """Row in the rank-concatenated slice results of bh_accel_target_slice
+    for each sorted index: sorted leaf L is taken from rank
+    min(L // n_slice, n_ranks - 1), whose window covers it."""
+    n_slice = -(-n_leaves // n_ranks)
+    leaf = sorted_idx // leaf_size
+    rank = torch.clamp(leaf // n_slice, max=n_ranks - 1)
+    start = torch.clamp(rank * n_slice, max=n_leaves - n_slice)
+    return rank * (n_slice * leaf_size) + (sorted_idx - start * leaf_size)
+
+
 # ------------------------------------------------------------- list reuse
 class BHListPlan(NamedTuple):
     """Frozen interaction lists for rebuild-interval reuse
@@ -1201,6 +1244,48 @@ def measure_budget_requirements(pos, mass, cfg) -> dict:
     return out | {"near_max": int(torch.max(near_req)),
                   "far_max": int(torch.max(upc + f1 + f0)),
                   "cand2_max": cand2_max, "cand1_max": cand1_max}
+
+
+def measure_import_requirement(pos, mass, cfg, n_ranks: int) -> dict:
+    """The LET import-budget requirement (bh_comm="let") on this mass
+    distribution: over (requester, owner) rank pairs, the largest count of
+    distinct owner leaves that the requester's near lists reference. It
+    sizes the per-pair import capacity cap_req of the LET plan
+    (parallel/distributed.py); api.calibrate_budgets(n_ranks=...) derives
+    bh_import_budget from it. The ranks' key ranges are approximated by
+    equal-count contiguous leaf windows of the single-device curve order
+    (the JAX package's proxy); every import the budget clips is still
+    counted into the run's overflow. Returns {"import_max",
+    "n_leaf_loc_proxy", "n_leaves"}."""
+    import numpy as np
+
+    leaf_size = cfg.resolve_bh_leaf_size()
+    n_leaves, _, n_levels = plan_tree(pos.shape[0], leaf_size,
+                                      cfg.bh_max_levels)
+    refine, cands = resolve_refine(
+        cfg.resolve_bh_refine(), (cfg.bh_cand2_budget, cfg.bh_cand_budget),
+        n_levels, cfg.resolve_bh_near_budget(), cfg.resolve_bh_far_budget())
+    sections = resolve_sections(cfg.bh_sections, n_leaves, refine)
+    _, _, _, tree, _, _ = _prepare(
+        pos, mass, leaf_size=leaf_size, curve=cfg.bh_curve,
+        multipole_order=cfg.bh_multipole, max_levels=cfg.bh_max_levels)
+    plan = bh_plan_lists(
+        tree, theta=cfg.theta, near_budget=cfg.resolve_bh_near_budget(),
+        far_budget=cfg.resolve_bh_far_budget(), refine=refine,
+        cand_budgets=cands, dtype=pos.dtype, sections=sections)
+    ni = plan.near_idx.cpu().numpy()
+    nv = plan.near_valid.cpu().numpy()
+    l_loc = -(-n_leaves // n_ranks)
+    owner = np.minimum(np.arange(n_leaves) // l_loc, n_ranks - 1)
+    imp_max = 0
+    for r in range(n_ranks):
+        rows = slice(r * l_loc, min((r + 1) * l_loc, n_leaves))
+        ids = np.unique(ni[rows][nv[rows]])
+        counts = np.bincount(owner[ids], minlength=n_ranks)
+        counts[r] = 0
+        imp_max = max(imp_max, int(counts.max()))
+    return {"import_max": imp_max, "n_leaf_loc_proxy": l_loc,
+            "n_leaves": n_leaves}
 
 
 def make_bh_accel(cfg, mass, overflow_cell=None):

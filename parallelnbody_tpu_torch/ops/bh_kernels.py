@@ -11,6 +11,14 @@ Counterpart of `parallelnbody_tpu/ops/pallas_bh.py`:
     through `_gathered_call`, `_far_eval` and `far_field_pallas`), source
     csrc/far_gather.cu.
 
+K1 has three entry forms, as `near_field_pallas` has: the unwindowed form
+over all sorted particles; the window form (`leaf_lo=`), whose sources are a
+shard of the sorted particles holding the leaves [leaf_lo, leaf_lo +
+n_shard_leaves), list entries outside the window skipped (the ring near
+field of parallel/distributed.py); and the table form (`src_table=`), a
+prebuilt packed (n_rows * G, 4) [x, y, z, m] source table, entries past its
+last row skipped (the LET near field). Each form has its own launch count.
+
 All three return the list sums scaled as the JAX package's `_unpack` does:
 acc = g * [sum w dx, sum w dy, sum w dz] and pot = -g * sum m u, with
 u = rsqrt(r^2 + eps^2) and w = m u^3 (plus the traceless quadrupole terms in
@@ -34,12 +42,20 @@ import torch
 
 from parallelnbody_tpu_torch.kernels.launch import check, launch, on_cpu, ptr
 
-LAUNCHES = {"near_field": 0, "far_octet": 0, "far_gather": 0}
+LAUNCHES = {"near_field": 0, "near_field_window": 0, "near_field_table": 0,
+            "far_octet": 0, "far_gather": 0}
 
 # K1 work-item length: a near-list row is cut into items of at most this
 # many source leaves, one block each (csrc/near_field.cu; chosen on the card,
 # PERF.md §6).
 NEAR_CHUNK = 32
+# The window form's items are shorter: a ring window holds a few entries of
+# most rows, and its launch lasts at least one item, so 32-entry items left
+# the smaller windows' launches one wave of a few long blocks (8 windows of
+# the 4M LET example's rank 0 on an NVIDIA H100 80GB HBM3 at 700 W: 12.9 ms,
+# 0.22 of the bound, against 5.3 ms, 0.53, for the same entries in one
+# table-form launch; chip_smoke.py, PERF.md §6).
+NEAR_WINDOW_CHUNK = 8
 
 
 class NearWork(NamedTuple):
@@ -63,11 +79,17 @@ _PLAIN_BLOCK_ELEMS = 1 << 25
 
 # ------------------------------------------------------------ plain versions
 def near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
-                     compute_pot=True):
+                     compute_pot=True, leaf_lo=None, src_table=None):
     """Exact softened near field (plain torch): targets (L, G, 3) against
     per-target lists of source leaves idx/valid (L, B) over the sorted
     particles pos_s (n_pad, 3), mass_s (n_pad,). Returns
     (acc (L*G, 3), pot (L*G,)).
+
+    leaf_lo: pos_s/mass_s hold the shard of leaves [leaf_lo, leaf_lo +
+    n_pad / G); entries outside it are skipped (the window arithmetic of
+    the JAX package's ring near field). src_table: the sources are this
+    packed (n_rows * G, 4) [x, y, z, m] table (pos_s and mass_s are None);
+    entries naming a row past it are skipped (its LET clip).
 
     The pair terms are those of `_near_field_jnp`. Only the live (target
     leaf, source leaf) entries are evaluated, in chunks of entries taken
@@ -75,6 +97,8 @@ def near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
     the JAX scan over list columns; a chunk's sums go to their target rows
     with index_add_."""
     n_slice, leaf_size, _ = tgt_leaves.shape
+    if src_table is not None:
+        pos_s, mass_s = src_table[:, :3], src_table[:, 3]
     n_leaves = pos_s.shape[0] // leaf_size
     eps2 = float(softening) ** 2
     guard_zero = softening == 0.0
@@ -82,8 +106,11 @@ def near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
     m = mass_s.reshape(n_leaves, leaf_size)
     acc = tgt_leaves.new_zeros((n_slice, leaf_size, 3))
     pot = tgt_leaves.new_zeros((n_slice, leaf_size))
+    off = int(leaf_lo or 0)
+    if leaf_lo is not None or src_table is not None:
+        valid = valid & (idx >= off) & (idx < off + n_leaves)
     rows, cols = torch.nonzero(valid, as_tuple=True)
-    srcs = idx[rows, cols].long()
+    srcs = idx[rows, cols].long() - off
     chunk = max(1, _PLAIN_BLOCK_ELEMS // (leaf_size * leaf_size))
     for c0 in range(0, rows.shape[0], chunk):
         r = rows[c0:c0 + chunk]
@@ -247,7 +274,17 @@ def far_order(valid):
     return heaviest_first(torch.sum(valid, dim=1, dtype=torch.int32))
 
 
-def near_items(counts, chunk):
+def _item_sizes(counts, chunk):
+    """(n_items, n_partial, n_split) of near_items(counts, chunk), as one
+    (3,) tensor on the lists' device."""
+    n_chunks = torch.clamp((counts.to(torch.int64) + chunk - 1) // chunk,
+                           min=1)
+    split = n_chunks > 1
+    return torch.stack([n_chunks.sum(), torch.where(split, n_chunks, 0).sum(),
+                        split.sum()])
+
+
+def near_items(counts, chunk, lo=None, sizes=None):
     """K1's work items from the live length counts (L,) of front-packed
     near lists: every row is cut into ceil(count / chunk) items of at most
     `chunk` entries (an empty row into one empty item, which writes its
@@ -259,15 +296,21 @@ def near_items(counts, chunk):
     in chunk order, which `splits` names for the combining pass; n_partial
     slots in all.
 
+    lo (L,): the list position where each row's run starts (the window and
+    table forms: a row evaluates positions [lo, lo + count)); None = 0.
+    begin and end are list positions.
+
     Index bookkeeping in a few torch ops on the lists' device; reading the
-    three sizes back waits on the host once."""
+    three sizes back waits on the host once (sizes: `_item_sizes`, read
+    back by the caller)."""
     counts = counts.to(torch.int64)
     dev = counts.device
     n_chunks = torch.clamp((counts + chunk - 1) // chunk, min=1)
     split = n_chunks > 1
     split_n = torch.where(split, n_chunks, 0)
-    n_items, n_partial, n_split = torch.stack(
-        [n_chunks.sum(), split_n.sum(), split.sum()]).tolist()
+    if sizes is None:
+        sizes = _item_sizes(counts, chunk).tolist()
+    n_items, n_partial, n_split = sizes
     first_item = torch.cumsum(n_chunks, 0) - n_chunks
     first_slot = torch.cumsum(split_n, 0) - split_n
     rows = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev),
@@ -277,6 +320,9 @@ def near_items(counts, chunk):
     end = torch.minimum(begin + chunk, counts[rows])
     dst = torch.where(split[rows], first_slot[rows] + k, -1)
     order = torch.sort(end - begin, descending=True, stable=True).indices
+    if lo is not None:
+        start = lo.to(torch.int64)[rows]
+        begin, end = begin + start, end + start
     items = torch.stack([rows, begin, end, dst], dim=1)[order]
     # The split rows in ascending order, without a sync of their own.
     split_rows = torch.sort((~split).to(torch.int8), stable=True).indices[
@@ -287,55 +333,100 @@ def near_items(counts, chunk):
                     splits.to(torch.int32).contiguous(), n_partial)
 
 
-def near_work(valid):
+def near_work(valid, idx=None, id_range=None):
     """K1's work items (`near_items`, NEAR_CHUNK entries at most) for the
     front-packed near lists whose mask is valid (L, B), where a row's valid
-    count is its live length. Built once per list build, next to the list
-    builder, so that lists evaluated several times (the rebuild-interval
-    runs) wait on the host once, not once a step. None for CPU lists:
-    `near_field_plain` needs no items."""
+    count is its live length. id_range = (id_lo, id_hi) keeps each row's
+    run of entries with ids idx (L, B) in [id_lo, id_hi): the window form
+    (a shard's leaves) and the table form ([0, n_rows)). Built once per
+    list build, next to the list builder, so that lists evaluated several
+    times (the rebuild-interval runs) wait on the host once, not once a
+    step. None for CPU lists: `near_field_plain` needs no items."""
     if valid.device.type == "cpu":
         return None
-    return near_items(torch.sum(valid, dim=1), NEAR_CHUNK)
+    if id_range is None:
+        return near_items(torch.sum(valid, dim=1), NEAR_CHUNK)
+    return near_windows(idx, valid, id_range)[0]
+
+
+def near_windows(idx, valid, edges, chunk=NEAR_CHUNK):
+    """K1's work items for each window [edges[w], edges[w + 1]) of leaf
+    ids over the front-packed ascending lists idx/valid (L, B): ascending
+    lists make each window a run [lo, hi) of list positions, counted here
+    for every window at once. One host wait for all windows. Returns a list
+    of len(edges) - 1 NearWork, on the lists' device."""
+    bounds = torch.stack([torch.sum(valid & (idx < e), dim=1)
+                          for e in edges], dim=1)
+    counts = bounds[:, 1:] - bounds[:, :-1]
+    sizes = torch.stack([_item_sizes(counts[:, w], chunk)
+                         for w in range(counts.shape[1])]).tolist()
+    return [near_items(counts[:, w], chunk, lo=bounds[:, w], sizes=sizes[w])
+            for w in range(counts.shape[1])]
 
 
 def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
-               compute_pot=True, work=None):
+               compute_pot=True, work=None, leaf_lo=None, src_table=None):
     """K1: exact near field of targets (L, G, 3) against their front-packed
     ascending lists of source leaves idx (L, B) int32 / valid (L, B) bool
     over the sorted particles pos_s (n_pad, 3), mass_s (n_pad,). Returns
     (acc (L*G, 3), pot (L*G,)). CPU tensors run `near_field_plain`; CUDA
-    tensors launch the kernel (f32 only) on the work items `work`
-    (`near_work(valid)`, built here when None) and a packed (n_pad, 4)
-    [x, y, z, m] source table."""
-    if on_cpu(pos_s, mass_s, tgt_leaves, idx, valid):
+    tensors launch the kernel (f32 only) on the work items `work` (built
+    here by `near_work` when None) and a packed (n_pad, 4) [x, y, z, m]
+    source table.
+
+    Window form, leaf_lo (an int): pos_s/mass_s are the shard of sorted
+    particles holding leaves [leaf_lo, leaf_lo + n_pad / G); idx keeps
+    global leaf ids and only the entries inside the window are evaluated.
+    Table form, src_table: the sources are this packed (n_rows * G, 4)
+    table (pos_s and mass_s are None); entries with idx >= n_rows are
+    skipped. Each form counts its launches under its own name."""
+    if src_table is not None:
+        if pos_s is not None or mass_s is not None or leaf_lo is not None:
+            raise ValueError("src_table replaces pos_s, mass_s and leaf_lo")
+        srcs, form = (src_table,), "near_field_table"
+    else:
+        srcs = (pos_s, mass_s)
+        form = "near_field" if leaf_lo is None else "near_field_window"
+    if on_cpu(*srcs, tgt_leaves, idx, valid):
         return near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, g=g,
-                                softening=softening, compute_pot=compute_pot)
+                                softening=softening, compute_pot=compute_pot,
+                                leaf_lo=leaf_lo, src_table=src_table)
     n_slice, leaf_size, _ = tgt_leaves.shape
-    n_pad = pos_s.shape[0]
+    n_pad = srcs[0].shape[0]
     budget = idx.shape[1]
     if n_pad % leaf_size or not 0 < leaf_size <= 1024:
         raise ValueError(f"leaf size {leaf_size} must divide {n_pad} and be "
                          "at most 1024")
-    check("pos_s", pos_s, torch.float32, (n_pad, 3))
-    check("mass_s", mass_s, torch.float32, (n_pad,))
+    if src_table is not None:
+        check("src_table", src_table, torch.float32, (n_pad, 4))
+        table = src_table
+    else:
+        check("pos_s", pos_s, torch.float32, (n_pad, 3))
+        check("mass_s", mass_s, torch.float32, (n_pad,))
+        table = torch.cat([pos_s, mass_s[:, None]], dim=1)
     check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
     check("idx", idx, torch.int32, (n_slice, budget))
     check("valid", valid, torch.bool, (n_slice, budget))
-    dev = pos_s.device
-    items, splits, n_partial = near_work(valid) if work is None else work
+    dev = table.device
+    off = int(leaf_lo or 0)
+    if work is None and form == "near_field_window":
+        work = near_windows(idx, valid, [off, off + n_pad // leaf_size],
+                            NEAR_WINDOW_CHUNK)[0]
+    elif work is None:
+        work = near_work(valid, idx, None if form == "near_field" else
+                         (0, n_pad // leaf_size))
+    items, splits, n_partial = work
     check("work.items", items, torch.int32, (items.shape[0], 4))
     check("work.splits", splits, torch.int32, (splits.shape[0], 3))
-    table = torch.cat([pos_s, mass_s[:, None]], dim=1)
     partial = torch.empty((n_partial, leaf_size, 4), dtype=torch.float32,
                           device=dev)
     acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
                       device=dev)
     pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32, device=dev)
-    launch(LAUNCHES, "near_field", "pnb_near_field",
+    launch(LAUNCHES, form, "pnb_near_field",
            ptr(table), ptr(tgt_leaves), ptr(idx), ptr(items), ptr(splits),
            ptr(acc), ptr(pot), ptr(partial), items.shape[0],
-           splits.shape[0], leaf_size, budget, float(g),
+           splits.shape[0], leaf_size, budget, off, float(g),
            float(softening) ** 2, int(softening == 0.0),
            int(bool(compute_pot)))
     return acc, pot

@@ -8,7 +8,7 @@ Counterpart of `parallelnbody_tpu/ops/pallas_direct.py`:
   * `allpairs_accel_tile` is `pallas_accel_tile` (:122);
   * `make_allpairs_accel` is `make_pallas_accel` (:149);
   * `make_allpairs_tile_fn` is `make_pallas_tile_fn` (:167), the tile
-    function of the multi-device ring (not ported yet).
+    function of the multi-device ring (parallel/ring.py).
 
 The kernel returns raw sums (Ni, 4) = [sum w dx, sum w dy, sum w dz,
 sum m u] of targets against sources, with u = rsqrt(r^2 + eps^2) and

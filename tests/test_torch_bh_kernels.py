@@ -124,5 +124,14 @@ def test_cpu_wrappers_launch_nothing(lists):
                          _t(L["fv"]), g=1.0, softening=0.02)
     bh_kernels.far_gather(_t(L["tgt"]), _t(L["nodes8"]), _t(L["ni"]),
                           _t(L["nv"]), g=1.0, softening=0.02)
-    assert bh_kernels.LAUNCHES == {"near_field": 0, "far_octet": 0,
+    n_leaves = L["tgt"].shape[0]
+    bh_kernels.near_field(_t(L["pos_s"]), _t(L["mass_s"]), _t(L["tgt"]),
+                          _t(L["ni"]), _t(L["nv"]), g=1.0, softening=0.02,
+                          leaf_lo=0)
+    table = torch.cat([_t(L["pos_s"]), _t(L["mass_s"])[:, None]], dim=1)
+    bh_kernels.near_field(None, None, _t(L["tgt"]), _t(L["ni"]),
+                          _t(L["nv"]), g=1.0, softening=0.02,
+                          src_table=table[:n_leaves // 2 * L["tgt"].shape[1]])
+    assert bh_kernels.LAUNCHES == {"near_field": 0, "near_field_window": 0,
+                                   "near_field_table": 0, "far_octet": 0,
                                    "far_gather": 0}

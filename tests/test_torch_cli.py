@@ -3,8 +3,8 @@ cli.main with --device cpu): the single-device tests of tests/test_cli.py,
 the same commands against the JAX package's CLI at the same flags (`run`
 resumed by both from one JAX checkpoint to equal states and energies,
 tree statistics, trajectory manifests of the same shape), and the
-multi-device requests, which fail with a message since parallel/ is not
-ported."""
+multi-device requests (--devices, --distributed, a mesh config) on CPU
+ranks against the JAX CLI at the same flags."""
 
 import json
 import struct
@@ -325,19 +325,116 @@ def test_run_live_show_tree(capsys, tmp_path):
     assert (img == np.array([255, 64, 64], np.uint8)).all(-1).any()
 
 
-@pytest.mark.parametrize("argv", [
-    ["run", "--n", "256", "--steps", "2", "--devices", "8"],
-    ["bench", "--n", "256", "--devices", "4x2"],
-    ["run", "--n", "256", "--steps", "2", "--distributed"],
-    ["info", "--config", "examples/allpairs_4m_mesh.json"],
-], ids=["devices", "devices-dcn", "distributed", "mesh-config"])
-def test_multi_device_requests_fail(argv, capsys):
-    """A multi-device request is refused with a message naming what is
-    missing, never run on one device."""
-    with pytest.raises(SystemExit) as e:
-        main(argv)
-    assert "not ported" in str(e.value)
-    assert capsys.readouterr().out == ""
+MULTI_FLAGS = ["--n", "256", "--dt", "0.001", "--softening", "0.02",
+               "--force", "direct", "--quiet", "--log-every", "0"]
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _distributed_run(argv, world_size, tmp_path):
+    """The port's CLI as world_size processes started the way torchrun
+    starts them (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT), --device cpu;
+    returns rank 0's standard output."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    port = str(_free_port())
+    procs = []
+    for rank in range(world_size):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world_size),
+                   MASTER_ADDR="localhost", MASTER_PORT=port,
+                   OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "parallelnbody_tpu_torch", *argv,
+             "--distributed", *CPU], cwd=root, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    outs = [p.communicate(timeout=120) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    return outs[0][0]
+
+
+@pytest.mark.parametrize("case", ["devices", "devices-dcn", "distributed",
+                                  "mesh-config", "overflowed-segment"])
+def test_multi_device_requests_run(case, capsys, tmp_path):
+    """The multi-device requests run on CPU ranks and match the JAX CLI at
+    the same flags (the JAX package on its 8 virtual CPU devices): `run
+    --devices 8` and `run --distributed` (two torchrun-style processes,
+    against the JAX CLI's `--devices 2`) resumed by both from one JAX
+    checkpoint to the same summary keys and final states; `bench --devices
+    4x2` timing the 8-rank sharded step; `info` on the 4-device all-pairs
+    example; a distributed Barnes-Hut segment that overflows (near budget
+    2), which both discard and redo step by step, to the same overflow
+    count and state."""
+    import shutil
+
+    if case == "devices-dcn":
+        argv = ["bench", "--n", "256", "--force", "direct", "--devices",
+                "4x2", "--iters", "1"]
+        assert jmain(argv) == 0
+        j = _last_json(capsys)
+        assert main(argv) == 0
+        t = _last_json(capsys)
+        assert set(j) <= set(t)
+        assert t["devices"] == j["devices"] == 8
+        assert (t["n"], t["force"]) == (j["n"], j["force"])
+        assert t["ms_per_step"] > 0
+        return
+    if case == "mesh-config":
+        argv = ["info", "--config", "examples/allpairs_4m_mesh.json"]
+        assert jmain(argv) == 0
+        j = json.loads(capsys.readouterr().out)
+        assert main(argv) == 0
+        t = json.loads(capsys.readouterr().out)
+        assert t["config"] == j["config"]
+        assert t["config"]["mesh_shape"] == [4]
+        assert t["resolved_force"] == j["resolved_force"]
+        return
+
+    assert jmain(["run", *MULTI_FLAGS, "--steps", "2", "--checkpoint-every",
+                  "2", "--checkpoint-dir", str(tmp_path / "c0")]) == 0
+    for pkg in ("j", "t"):
+        shutil.copytree(tmp_path / "c0", tmp_path / f"c{pkg}")
+    capsys.readouterr()
+    n_dev = "8" if case == "devices" else "2"
+    resume = ["run", *MULTI_FLAGS, "--steps", "2", "--checkpoint-every", "2",
+              "--resume"]
+    if case == "overflowed-segment":
+        resume += ["--force", "barnes_hut", "--bh-distributed", "true",
+                   "--bh-leaf-size", "16", "--bh-near-budget", "2"]
+    assert jmain([*resume, "--devices", n_dev, "--checkpoint-dir",
+                  str(tmp_path / "cj")]) == 0
+    j = _last_json(capsys)
+    if case != "distributed":
+        assert main([*resume, "--devices", n_dev, "--checkpoint-dir",
+                     str(tmp_path / "ct")]) == 0
+        t = _last_json(capsys)
+    else:
+        out = _distributed_run([*resume, "--checkpoint-dir",
+                                str(tmp_path / "ct")], 2, tmp_path)
+        t = json.loads(out.strip().splitlines()[-1])
+    assert set(t) == set(j)
+    for key in ("steps", "n", "force", "interrupted", "bh_overflow"):
+        assert t[key] == j[key], key
+    assert (t["bh_overflow"] > 0) == (case == "overflowed-segment")
+    sj, _ = load_checkpoint(latest_checkpoint(tmp_path / "cj"), device="cpu")
+    st, _ = load_checkpoint(latest_checkpoint(tmp_path / "ct"), device="cpu")
+    assert int(sj.step) == int(st.step) == 4
+    for name in ("pos", "vel"):
+        np.testing.assert_allclose(getattr(st, name).numpy(),
+                                   getattr(sj, name).numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    for key in ("energy_drift", "momentum_norm"):
+        np.testing.assert_allclose(t[key], j[key], atol=1e-6, err_msg=key)
 
 
 def test_run_without_card_raises():

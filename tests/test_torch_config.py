@@ -79,6 +79,8 @@ def test_import_leaves_jax_out():
             "'parallelnbody_tpu_torch.') if not m.name.endswith('__main__')]; "
             "[importlib.import_module(m) for m in mods]; "
             "assert 'parallelnbody_tpu_torch.cli' in mods, mods; "
+            "assert 'parallelnbody_tpu_torch.parallel.distributed' in "
+            "sys.modules, mods; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'parallelnbody_tpu' or "
             "m.startswith('parallelnbody_tpu.')]; print(bad); "
@@ -98,6 +100,12 @@ def test_all_covers_the_jax_package():
     from parallelnbody_tpu_torch import (calibrate_budgets,  # noqa: F401
                                          init_simulation,
                                          reference_compat_config)
+    import parallelnbody_tpu.parallel as jpar
+    import parallelnbody_tpu_torch.parallel as tpar
+
+    assert set(jpar.__all__) <= set(tpar.__all__)
+    for name in tpar.__all__:
+        assert hasattr(tpar, name), name
 
 
 def test_make_run_and_make_step_resolve_alike_on_the_card():

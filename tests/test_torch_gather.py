@@ -275,7 +275,8 @@ def test_gather_step_matches_jax(runs, key):
                                atol=1e-6 * float(np.max(np.abs(ja))),
                                err_msg="acc")
     assert runs["of1"] == 0
-    assert runs["launches"] == {"near_field": 0, "far_octet": 0,
+    assert runs["launches"] == {"near_field": 0, "near_field_window": 0,
+                                "near_field_table": 0, "far_octet": 0,
                                 "far_gather": 0}
 
 

@@ -712,3 +712,98 @@ def test_auto_force_on_the_card(cuda, n, method):
     launched = {**direct_kernels.LAUNCHES, **bh_kernels.LAUNCHES}
     want = "allpairs" if method == "direct_pallas" else "near_field"
     assert launched[want] > 0, launched
+
+
+# ------------------------------------------ K1's window and table forms
+@pytest.mark.parametrize("n_sh", [1, 4])
+@pytest.mark.parametrize("compute_pot", [True, False])
+def test_near_field_window_form_matches_plain(lists, n_sh, compute_pot):
+    """K1's window form (leaf_lo=) on each shard of the sorted particles
+    against its plain version (on its own items, NEAR_WINDOW_CHUNK entries
+    at most); with one shard over every leaf and the unwindowed form's
+    items, bit for bit the unwindowed form."""
+    L = lists
+    n_leaves = L["tgt"].shape[0]
+    nl = n_leaves // n_sh
+    kw = dict(g=1.5, softening=0.02, compute_pot=compute_pot)
+    total = None
+    for s in range(n_sh):
+        rows = slice(s * nl * LEAF, (s + 1) * nl * LEAF)
+        args = (L["pos_s"][rows].contiguous(), L["mass_s"][rows].contiguous(),
+                L["tgt"], L["ni"], L["nv"])
+        before = bh_kernels.LAUNCHES["near_field_window"]
+        acc, pot = bh_kernels.near_field(*args, leaf_lo=s * nl, **kw)
+        assert bh_kernels.LAUNCHES["near_field_window"] == before + 1
+        acc_p, pot_p = bh_kernels.near_field_plain(*args, leaf_lo=s * nl,
+                                                   **kw)
+        _close(acc, acc_p)
+        _close(pot, pot_p)
+        total = acc if total is None else total + acc
+    full, _ = bh_kernels.near_field(L["pos_s"], L["mass_s"], L["tgt"],
+                                    L["ni"], L["nv"], **kw)
+    _close(total, full)
+    if n_sh == 1:
+        same_items = bh_kernels.near_work(L["nv"], L["ni"], (0, n_leaves))
+        win, _ = bh_kernels.near_field(L["pos_s"], L["mass_s"], L["tgt"],
+                                       L["ni"], L["nv"], leaf_lo=0,
+                                       work=same_items, **kw)
+        assert torch.equal(win, full)
+
+
+@pytest.mark.parametrize("cut", [1.0, 0.5])
+@pytest.mark.parametrize("compute_pot", [True, False])
+def test_near_field_table_form_matches_plain(lists, cut, compute_pot):
+    """K1's table form (src_table=) on the packed table of the sorted
+    particles, whole and cut to its first rows (entries past the table
+    skipped), against its plain version."""
+    L = lists
+    n_leaves = L["tgt"].shape[0]
+    rows = int(n_leaves * cut) * LEAF
+    table = torch.cat([L["pos_s"], L["mass_s"][:, None]], 1)[:rows]
+    kw = dict(g=1.5, softening=0.02, compute_pot=compute_pot)
+    args = (None, None, L["tgt"], L["ni"], L["nv"])
+    before = bh_kernels.LAUNCHES["near_field_table"]
+    acc, pot = bh_kernels.near_field(*args, src_table=table.contiguous(),
+                                     **kw)
+    assert bh_kernels.LAUNCHES["near_field_table"] == before + 1
+    acc_p, pot_p = bh_kernels.near_field_plain(*args, src_table=table, **kw)
+    _close(acc, acc_p)
+    _close(pot, pot_p)
+    if cut == 1.0:
+        full = bh_kernels.near_field(L["pos_s"], L["mass_s"], L["tgt"],
+                                     L["ni"], L["nv"], **kw)
+        assert all(torch.equal(a, b) for a, b in zip((acc, pot), full))
+
+
+@pytest.mark.parametrize("comm", ["ring", "let"])
+def test_two_gloo_ranks_on_one_card(cuda, comm):
+    """dist_bh_accel on two ranks that share the card (gloo, tensors staged
+    through host memory): the K1 form of the near field and K2 launched on
+    every rank, overflow 0, forces in the single-device Barnes-Hut's class
+    against the direct sum."""
+    from parallelnbody_tpu_torch.ops import bh
+    from parallelnbody_tpu_torch.parallel import launch, mesh, tasks
+    from parallelnbody_tpu_torch.state import state_to_numpy
+
+    cfg = SimConfig(n=16384, ic="plummer", seed=3, force="barnes_hut",
+                    bh_leaf_size=64, bh_near_budget=256, bh_far_budget=512,
+                    bh_distributed=True, bh_comm=comm, mesh_shape=(2,))
+    state = init_simulation(cfg, "cpu", compute_forces=False)
+    outs = launch(tasks.sharded, 2, cfg.to_json(), state_to_numpy(state),
+                  "dist_accel", device="cuda", timeout=300)
+    form = "near_field_window" if comm == "ring" else "near_field_table"
+    for st in mesh.LAST_RANK_STATS:
+        assert st["backend"] == "gloo" and st["staged_bytes"] > 0
+        assert st["launches"][form] == (2 if comm == "ring" else 1)
+        assert st["launches"]["far_octet"] == 1
+    assert outs[0]["overflow"] == 0
+    acc = torch.from_numpy(np.concatenate([o["state"]["acc"] for o in outs]))
+    single, _, of = bh.bh_accel(
+        state.pos.to(cuda), state.mass.to(cuda), leaf_size=64, theta=0.5,
+        softening=0.01, near_budget=256, far0_budget=512, multipole=2)
+    assert int(of) == 0
+    kw = dict(g=1.0, softening=cfg.softening, k=1024)
+    rms = rms_force_error_sample(state.pos, state.mass, acc, **kw)
+    rms_single = rms_force_error_sample(state.pos, state.mass, single.cpu(),
+                                        **kw)
+    assert rms < 1.5 * rms_single + 1e-3, (rms, rms_single)

@@ -169,7 +169,8 @@ def test_simulation_on_cpu_with_port_ics():
     assert int(s.step) == 10 and int(sim.overflow) == 0
     for t in (s.pos, s.vel, s.acc):
         assert bool(torch.isfinite(t).all())
-    assert bh_kernels.LAUNCHES == {"near_field": 0, "far_octet": 0,
+    assert bh_kernels.LAUNCHES == {"near_field": 0, "near_field_window": 0,
+                                   "near_field_table": 0, "far_octet": 0,
                                    "far_gather": 0}
     assert t_rms(s.pos, s.mass, s.acc, g=1.0, softening=0.01) < 2e-3
     d = sim.diagnostics()
