@@ -79,13 +79,17 @@ Phases, each of which exits non-zero on failure:
  14. K1's window and table forms (parallel/ ring and LET near fields) on
      the lists of rank 0 of examples/barneshut_distributed_let.json (N =
      4M, 8 ranks sharing the card, parallel/tasks.owned_geometry): the
-     window form on each of the 8 ring windows, the table form on the
-     assembled LET table and on that table cut to half its rows, both
-     potential settings, against the plain versions; each timed with its
-     bound and launched twice for the same bits; the 8 windows summed
-     against the table form. (Phase 3 adds: on the 1M lists the window form
-     with leaf_lo = 0 over every leaf equals the unwindowed form bit for
-     bit, and its time.)
+     launch shape (targets a thread x entries an item) and item count each
+     of the 8 ring windows picks from its work; the window form on each
+     window, and the ring evaluation that writes the first window and adds
+     the others in place, the table form on the assembled LET table and on
+     that table cut to half its rows, both potential settings, against the
+     plain versions; the ring timed in turns against 8-entry items that
+     write and are added by torch, and the table form in the same run,
+     each with its bound and launched twice for the same bits; the ring
+     against the table form (< 1e-5). (Phase 3 adds: on the 1M lists the
+     window form with leaf_lo = 0 over every leaf equals the unwindowed
+     form bit for bit, and its time.)
  15. Both multi-device examples through cli.main, the ranks spawned by the
      CLI and sharing the card through gloo (tensors staged through host
      memory): examples/allpairs_4m_mesh.json as shipped on 4 ranks,
@@ -243,10 +247,10 @@ KERNELS = {
                    "parallelnbody_tpu/ops/pallas_bh.py:41"),
 }
 # Each kernel's instantiation on the main path (compute_pot=False, softened;
-# leaf 256: K1 with 8 targets a thread, K2 and K4 with 4 and quadrupoles,
-# K4 front-packed), as its mangled name spells it.
+# leaf 256: K1 with 8 targets a thread writing its output, K2 and K4 with 4
+# and quadrupoles, K4 front-packed), as its mangled name spells it.
 MAIN_INSTANCE = {
-    "near_field": "near_field_kernelILi8ELb0ELb0E",
+    "near_field": "near_field_kernelILi8ELb0ELb0ELb0E",
     "far_octet": "far_octet_kernelILi4ELb1ELb0ELb0E",
     "allpairs": "allpairs_kernelILb0ELb0E",
     "far_gather": "far_gather_kernelILi4ELb1ELb0ELb0ELb0E",
@@ -1598,7 +1602,7 @@ def _nccl_task(group, cfg_json):
 
 def k1_form_work(tgt, n_terms, src_bytes, list_bytes, launches):
     """bound() of K1 over n_terms pair terms, reading the sources, targets
-    and lists once and writing each launch's output (acc + pot)."""
+    and lists once and writing `launches` outputs (acc + pot)."""
     n_slice, leaf, _ = tgt.shape
     return bound(n_terms, FLOPS_MONOPOLE, src_bytes + nbytes(tgt) + list_bytes
                  + launches * n_slice * leaf * 16)
@@ -1608,91 +1612,106 @@ def phase_k1_forms(let_json):
     """K1's window and table forms on the card against their plain versions,
     on the lists of rank 0 of examples/barneshut_distributed_let.json (N =
     4M, 8 ranks sharing the card, built by parallel/tasks.owned_geometry):
-    the window form on each of the 8 ring windows, the table form on the
+    the window form on each of the 8 ring windows at the launch shape its
+    work picks (each window alone, and the ring evaluation that writes its
+    first window and adds the others in place), the table form on the
     assembled LET table and on a table cut to half its rows (lists running
-    past it). Each timed (one ring evaluation = 8 window launches), with
-    its bound and share; each launched twice for the same bits."""
-    from parallelnbody_tpu_torch.parallel import mesh, tasks
+    past it). The ring evaluation (8 window launches) is timed in turns
+    against the windows on 8-entry items that each write their output and
+    are added by torch, and the table form in the same run, each with its
+    bound and share; each launched twice for the same bits."""
+    from parallelnbody_tpu_torch.tools import k1_windows
 
-    dev = torch.device(DEVICE)
     cfg = SimConfig.from_json(let_json)
     n_ranks = cfg.n_devices
     t0 = time.perf_counter()
-    outs = mesh.launch(tasks.owned_geometry, n_ranks, cfg.to_json(), None,
-                       True, device=DEVICE, timeout=900)
-    r0 = outs[0]
-
-    def on(x):
-        return torch.from_numpy(x).to(dev)
-
-    tgt, ni, nv = on(r0["tgt"]), on(r0["near_idx"]), on(r0["near_valid"])
-    new_idx, table = on(r0["let_new_idx"]), on(r0["let_table"])
-    shards = [on(o["sources"]) for o in outs]
-    n_loc, leaf = r0["n_leaf_loc"], tgt.shape[1]
-    del outs
-    kw = dict(g=cfg.g, softening=cfg.softening)
-    log(f"K1 forms: rank 0 of {n_ranks} at N={cfg.n} ({r0['refine']}, "
+    inp = k1_windows.rank0_inputs(cfg, DEVICE)
+    tgt, ni, nv = inp["tgt"], inp["ni"], inp["nv"]
+    new_idx, table, shards = inp["new_idx"], inp["table"], inp["shards"]
+    n_loc, leaf = inp["n_loc"], tgt.shape[1]
+    plain = bh_kernels.near_field_plain
+    log(f"K1 forms: rank 0 of {n_ranks} at N={cfg.n} ({inp['refine']}, "
         f"{n_loc} owned leaves of {leaf}): near entries a leaf "
         f"{balance(nv.sum(1))}; LET table {table.shape[0] // leaf} rows; "
-        f"overflow lists {r0['of_lists']} exchange {r0['of_exchange']} LET "
-        f"{r0['let_overflow']} ({time.perf_counter() - t0:.1f} s)")
-    if r0["of_lists"] or r0["of_exchange"] or r0["let_overflow"]:
+        f"overflow {inp['overflow']} ({time.perf_counter() - t0:.1f} s)")
+    if any(inp["overflow"].values()):
         raise AssertionError("K1 forms: the LET example's lists overflowed")
 
-    edges = [w * n_loc for w in range(n_ranks + 1)]
-    works = bh_kernels.near_windows(ni, nv, edges,
-                                    bh_kernels.NEAR_WINDOW_CHUNK)
+    works = k1_windows.ring_works(inp, n_ranks)
+    shapes = []
+    for p, w in enumerate(k1_windows.ring_order(0, n_ranks)):
+        wk = works[w]
+        lo = torch.sum(nv & (ni < w * n_loc), 1)
+        cnt = torch.sum(nv & (ni < (w + 1) * n_loc), 1) - lo
+        shapes.append({"window": w, "pass": p, "entries": int(cnt.sum()),
+                       "longest": int(cnt.max()), "r": wk.r,
+                       "chunk": wk.chunk, "items": int(wk.items.shape[0]),
+                       "writes": wk.every_row})
+    log("near_field window form, rank 0's ring windows in pass order "
+        "(targets a thread r x entries an item, as window_shape picks): "
+        + json.dumps(shapes))
+    n_out = tgt.shape[0] * leaf
 
-    def window(w, fn=bh_kernels.near_field, compute_pot=False, **extra):
-        sh = shards[w]
-        return fn(sh[:, :3].contiguous(), sh[:, 3].contiguous(), tgt, ni, nv,
-                  compute_pot=compute_pot, leaf_lo=w * n_loc, **kw, **extra)
+    def zeros():
+        return (torch.zeros((n_out, 3), device=DEVICE),
+                torch.zeros((n_out,), device=DEVICE))
 
-    def windows(fn=bh_kernels.near_field, **extra):
-        parts = [window(w, fn, **(dict(work=works[w]) if fn is
-                                  bh_kernels.near_field else {}), **extra)
-                 for w in range(n_ranks)]
-        return (sum(p[0] for p in parts), sum(p[1] for p in parts))
-
-    rec_w = {"max_abs_err": 0.0}
+    rec_w = {"max_abs_err": 0.0, "shapes": shapes}
     for w in range(n_ranks):
         for compute_pot in (False, True):
+            out = None if works[w].every_row else zeros()
             err = max_err(f"near_field window {w} pot={compute_pot}",
-                          window(w, compute_pot=compute_pot, work=works[w]),
-                          window(w, bh_kernels.near_field_plain,
-                                 compute_pot=compute_pot))
+                          k1_windows.window_call(inp, w, cfg, compute_pot,
+                                                 work=works[w], out=out),
+                          k1_windows.window_call(inp, w, cfg, compute_pot,
+                                                 plain, out=zeros()))
             rec_w["max_abs_err"] = max(rec_w["max_abs_err"], err)
+    for compute_pot in (False, True):
+        err = max_err(f"near_field ring pot={compute_pot}",
+                      k1_windows.ring_eval(inp, works, cfg, compute_pot),
+                      k1_windows.ring_eval(inp, None, cfg, compute_pot,
+                                           plain))
+        rec_w["max_abs_err"] = max(rec_w["max_abs_err"], err)
     rec_w["deterministic"] = repeat_equal(
-        "near_field window", lambda: [t for w in range(n_ranks)
-                                      for t in window(w, work=works[w])])
-    windows(bh_kernels.near_field_plain)                     # warm-up
-    _, rec_w["plain_ms"] = cuda_ms(lambda: windows(
-        bh_kernels.near_field_plain))
-    windows()                                                # warm-up
-    ring_sum, rec_w["ms"] = cuda_ms(windows, KERNEL_REPS)
-    # The same windows on items of NEAR_CHUNK entries, the unwindowed
-    # form's: the window items' own length against it, in turns.
-    long_items = bh_kernels.near_windows(ni, nv, edges, bh_kernels.NEAR_CHUNK)
-    alt = []
-    for items in (long_items, works, works, long_items):
-        _, ms = cuda_ms(lambda: [window(w, work=items[w])
-                                 for w in range(n_ranks)], KERNEL_REPS)
-        alt.append(ms)
-    rec_w["ms_chunk32"] = 0.5 * (alt[0] + alt[3])
-    log(f"near_field window form, items of {bh_kernels.NEAR_WINDOW_CHUNK} "
-        f"entries against {bh_kernels.NEAR_CHUNK}, in turns "
-        f"({bh_kernels.NEAR_CHUNK}, {bh_kernels.NEAR_WINDOW_CHUNK}, "
-        f"{bh_kernels.NEAR_WINDOW_CHUNK}, {bh_kernels.NEAR_CHUNK}): "
-        + ", ".join(f"{m:.3f}" for m in alt) + " ms an evaluation")
+        "near_field window ring", lambda: k1_windows.ring_eval(inp, works,
+                                                               cfg))
+    k1_windows.ring_eval(inp, None, cfg, fn=plain)           # warm-up
+    _, rec_w["plain_ms"] = cuda_ms(lambda: k1_windows.ring_eval(
+        inp, None, cfg, fn=plain))
+    # The same windows on 8-entry items at the leaf size's R, each launch
+    # writing its own output and torch adding them (the window form before
+    # it was shaped by the window's work and accumulated in place).
+    written = bh_kernels.near_windows(
+        ni, nv, k1_windows.edges(inp, n_ranks),
+        chunk=k1_windows.WRITTEN_CHUNK)
+    runs = {"shaped": lambda: k1_windows.ring_eval(inp, works, cfg),
+            "written": lambda: k1_windows.written_and_added(inp, written,
+                                                            cfg)}
+    for fn in runs.values():                                 # warm-up
+        fn()
+    alt = {"shaped": [], "written": []}
+    ring_sum = None
+    for k in ("written", "shaped", "shaped", "written"):
+        out, ms = cuda_ms(runs[k], KERNEL_REPS)
+        alt[k].append(ms)
+        if k == "shaped":
+            ring_sum = out
+    rec_w["ms"] = statistics.mean(alt["shaped"])
+    rec_w["ms_runs"] = alt["shaped"]
+    rec_w["ms_written_8"] = alt["written"]
     with_share(rec_w, k1_form_work(tgt, int(nv.sum()) * leaf * leaf,
                                    sum(nbytes(s) for s in shards),
-                                   nbytes(ni, nv), n_ranks))
+                                   nbytes(ni, nv), 1))
     log(f"near_field window form, {n_ranks} windows of rank 0's lists "
-        f"(compute_pot=False): {rec_w['ms']:.3f} ms an evaluation, plain "
+        f"(compute_pot=False), one ring evaluation, in turns (written, "
+        f"shaped, shaped, written): shaped and accumulated "
+        + ", ".join(f"{m:.3f}" for m in alt["shaped"]) + " ms; 8-entry "
+        "items written and added " + ", ".join(
+            f"{m:.3f}" for m in alt["written"]) + f" ms; plain "
         f"{rec_w['plain_ms']:.1f} ms, bound {rec_w['bound_ms']:.3f} ms "
         f"({rec_w['bound_resource']}), share {rec_w['share']:.3f}; max abs "
-        f"err {rec_w['max_abs_err']:.3e} (both potential settings); repeat "
-        "launches bit-equal")
+        f"err {rec_w['max_abs_err']:.3e} (each window and the ring, both "
+        "potential settings); repeat launches bit-equal")
 
     n_rows = table.shape[0] // leaf
     twork = bh_kernels.near_work(nv, new_idx, (0, n_rows))
@@ -1700,7 +1719,7 @@ def phase_k1_forms(let_json):
 
     def tform(src, fn=bh_kernels.near_field, compute_pot=False, **extra):
         return fn(None, None, tgt, new_idx, nv, compute_pot=compute_pot,
-                  src_table=src, **kw, **extra)
+                  src_table=src, g=cfg.g, softening=cfg.softening, **extra)
 
     # The needed leaves take the first rows of the table (the import budget
     # 0 sizes it for every leaf): cut it at half of them.
@@ -1714,14 +1733,12 @@ def phase_k1_forms(let_json):
         for compute_pot in (False, True):
             err = max_err(f"near_field table {label} pot={compute_pot}",
                           tform(src, compute_pot=compute_pot, **extra),
-                          tform(src, bh_kernels.near_field_plain,
-                                compute_pot=compute_pot))
+                          tform(src, plain, compute_pot=compute_pot))
             rec_t["max_abs_err"] = max(rec_t["max_abs_err"], err)
     rec_t["deterministic"] = repeat_equal(
         "near_field table", lambda: tform(table, work=twork))
-    tform(table, bh_kernels.near_field_plain)                # warm-up
-    _, rec_t["plain_ms"] = cuda_ms(lambda: tform(
-        table, bh_kernels.near_field_plain))
+    tform(table, plain)                                      # warm-up
+    _, rec_t["plain_ms"] = cuda_ms(lambda: tform(table, plain))
     tform(table, work=twork)                                 # warm-up
     let_out, rec_t["ms"] = cuda_ms(lambda: tform(table, work=twork),
                                    KERNEL_REPS)
@@ -1730,14 +1747,17 @@ def phase_k1_forms(let_json):
                                    nbytes(table), nbytes(new_idx, nv), 1))
     err = max_err("ring windows against the LET table form", ring_sum,
                   let_out)
+    if not err < 1e-5:
+        raise AssertionError(f"near_field: the ring windows differ from the "
+                             f"table form by {err:.3e} (limit 1e-5)")
     log(f"near_field table form on rank 0's LET table ({n_rows} rows, "
         f"{n_needed} needed, cut at {n_cut}; "
         f"compute_pot=False): {rec_t['ms']:.3f} ms, plain "
         f"{rec_t['plain_ms']:.1f} ms, bound {rec_t['bound_ms']:.3f} ms "
         f"({rec_t['bound_resource']}), share {rec_t['share']:.3f}; max abs "
         f"err {rec_t['max_abs_err']:.3e} (full and cut table, both potential "
-        f"settings); the 8 windows summed against it {err:.3e}; repeat "
-        "launches bit-equal")
+        f"settings); the {n_ranks} windows accumulated against it "
+        f"{err:.3e}; repeat launches bit-equal")
     return {"near_field_window": rec_w, "near_field_table": rec_t}
 
 

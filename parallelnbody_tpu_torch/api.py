@@ -37,7 +37,9 @@ def make_accel_fn(cfg: SimConfig, mass: torch.Tensor,
 
     overflow_cell: optional one-element list accumulating the Barnes-Hut
     list-budget overflow counter of every evaluation. The direct method has
-    no budgets and leaves it unchanged."""
+    no budgets and leaves it unchanged. The auto leaf size resolves on
+    mass's device (SimConfig.with_resolved_leaf)."""
+    cfg = cfg.with_resolved_leaf(mass.device)
     method = cfg.resolve_force(mass.device)
     if method == "direct":
         from parallelnbody_tpu_torch.ops.direct import direct_accel
@@ -124,7 +126,10 @@ def calibrate_budgets(cfg: SimConfig, state: SimState,
     always overflow-free full neighbour width.
 
     Returns cfg with concrete budgets (unchanged for non-Barnes-Hut
-    forces)."""
+    forces), and on a CUDA device the auto leaf size resolved for it
+    (SimConfig.with_resolved_leaf), the leaf the budgets were measured
+    at."""
+    cfg = cfg.with_resolved_leaf(state.pos.device)
     if cfg.resolve_force(state.pos.device) != "barnes_hut":
         return cfg
     from parallelnbody_tpu_torch.ops.bh import measure_budget_requirements
@@ -175,14 +180,36 @@ def calibrate_budgets(cfg: SimConfig, state: SimState,
     return cfg.replace(**kw)
 
 
+# The list budgets that 0 leaves to calibrate_budgets.
+AUTO_BUDGET_FIELDS = ("bh_near_budget", "bh_far_budget", "bh_cand2_budget",
+                      "bh_cand_budget")
+
+
 def prepare_simulation(cfg: SimConfig, device="cuda"
                        ) -> tuple[SimConfig, SimState]:
     """ICs + budget auto-calibration + t=0 forces, in that order. Returns
     (calibrated cfg, initialized state); make_step/make_run are built from
-    the returned cfg."""
+    the returned cfg, which holds the leaf size resolved for `device`
+    (calibrate_budgets resolves it).
+
+    On a CUDA device the auto budgets also cover the state one step on: a
+    trial step from the t = 0 state is measured as the t = 0 state is, and
+    each auto budget takes the larger of the two. The near lists of the
+    first step can outgrow the initial conditions' (SimConfig(n=2^20) at
+    the card's leaf 128: t = 0 calibrated 512, one step on 896 needed;
+    tools/auto_rules.py calib, PERF.md). On the CPU the JAX package's t = 0
+    calibration alone."""
+    device = resolve_device(device)
     state = init_simulation(cfg, device, compute_forces=False)
-    cfg = calibrate_budgets(cfg, state)
-    return cfg, _fill_initial_forces(cfg, state)
+    cal = calibrate_budgets(cfg, state)
+    state = _fill_initial_forces(cal, state)
+    auto = [f for f in AUTO_BUDGET_FIELDS if getattr(cfg, f) == 0]
+    if (device.type == "cuda" and auto
+            and cfg.resolve_force(device) == "barnes_hut"):
+        ahead = calibrate_budgets(cfg, make_step(cal)(state))
+        cal = cal.replace(**{f: max(getattr(cal, f), getattr(ahead, f))
+                             for f in auto})
+    return cal, state
 
 
 # ----------------------------------------------------------------------- step
@@ -380,14 +407,16 @@ def make_run(cfg: SimConfig, n_steps: int,
     over all steps. cfg.bh_rebuild_every > 1 routes eligible Barnes-Hut
     configurations to the tree-rebuild-interval run (_make_run_reuse).
     Which program runs depends on the run's device (force="auto" and the
-    plan/eval ratio), so it is chosen at the first call from the state's
-    device, as make_step resolves its force method from the state's."""
+    plan/eval ratio, the auto leaf size), so it is chosen at the first
+    call from the state's device, as make_step resolves its force method
+    and leaf size from the state's."""
     built: dict[str, Callable] = {}
 
     def build(device) -> Callable:
-        if _reuse_eligible(cfg, n_steps, device):
-            return _make_run_reuse(cfg, n_steps, report_overflow, device)
-        step = make_step(cfg, report_overflow=True)
+        cfg_d = cfg.with_resolved_leaf(device)
+        if _reuse_eligible(cfg_d, n_steps, device):
+            return _make_run_reuse(cfg_d, n_steps, report_overflow, device)
+        step = make_step(cfg_d, report_overflow=True)
 
         def run(state: SimState):
             overflow = _zero_count(state.pos.device)

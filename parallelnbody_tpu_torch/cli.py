@@ -39,6 +39,7 @@ import time
 import numpy as np
 import torch
 
+from parallelnbody_tpu_torch.api import AUTO_BUDGET_FIELDS
 from parallelnbody_tpu_torch.config import SimConfig, reference_compat_config
 from parallelnbody_tpu_torch.state import SimState, resolve_device
 
@@ -134,6 +135,9 @@ def _on_ranks(args, body) -> int:
         if ckpt:
             cfg = SimConfig.from_json(ckpt.with_suffix(".json").read_text())
             cfg = cfg.replace(**_flag_overrides(args, skip=("n",)))
+    # The auto leaf size resolved once, for the device the run uses, before
+    # any rank starts: every rank, plan, evaluation and checkpoint reads it.
+    cfg = cfg.with_resolved_leaf(device)
     if args.distributed:
         group = mesh.init_distributed(device)
         if cfg.n_devices not in (1, group.world_size):
@@ -203,10 +207,6 @@ def _make_sharded_run_k(cfg, group, args):
 
 
 # ------------------------------------------------------------------------ run
-_AUTO_BUDGET_FIELDS = ("bh_near_budget", "bh_far_budget",
-                       "bh_cand2_budget", "bh_cand_budget")
-
-
 def recalibrate_on_overflow(cfg, state, auto_fields):
     """Self-healing budgets: when a segment reports overflow on a config
     whose budgets were auto-calibrated at t=0, re-measure the evolved
@@ -234,10 +234,9 @@ def cmd_run(args) -> int:
 
 def _run_body(args, cfg, device, group) -> int:
     """`run` on one device (group None) or on this rank of the group."""
-    from parallelnbody_tpu_torch.api import (_fill_initial_forces,
-                                             calibrate_budgets,
+    from parallelnbody_tpu_torch.api import (calibrate_budgets,
                                              init_simulation, make_accel_fn,
-                                             make_run)
+                                             make_run, prepare_simulation)
     from parallelnbody_tpu_torch.ops import energy as energy_ops
     from parallelnbody_tpu_torch.utils.io import (
         TrajectoryWriter, latest_checkpoint, load_checkpoint, save_checkpoint)
@@ -282,7 +281,7 @@ def _run_body(args, cfg, device, group) -> int:
     # A resumed checkpoint carries calibrated budgets, so resumed runs heal
     # only via explicit flags. Sharded runs are not calibrated (the JAX
     # package's rule): their budgets resolve to the static fallbacks.
-    auto_budget_fields = ([f for f in _AUTO_BUDGET_FIELDS
+    auto_budget_fields = ([f for f in AUTO_BUDGET_FIELDS
                            if getattr(cfg, f) == 0]
                           if cfg.resolve_force(device) == "barnes_hut"
                           and not sharded else [])
@@ -293,16 +292,15 @@ def _run_body(args, cfg, device, group) -> int:
         # sharded_init_accel virializes fresh states itself.
         state = sharded_init_accel(cfg, group, state)
     elif state is None:
-        # Auto (0) Barnes-Hut budgets are measured on the actual ICs before
-        # the first force evaluation (no-op when all are explicit).
-        state = init_simulation(cfg, device, compute_forces=False)
-        cal = calibrate_budgets(cfg, state)
-        if cal is not cfg and not quiet:
+        # Auto (0) Barnes-Hut budgets are measured on the actual ICs (on a
+        # card also one step on) before the run, as Simulation measures
+        # them (no-op when all are explicit).
+        cal, state = prepare_simulation(cfg, device)
+        if cal != cfg and not quiet:
             print(f"calibrated budgets: near {cal.bh_near_budget} far "
                   f"{cal.bh_far_budget} cand2 {cal.bh_cand2_budget} "
                   f"cand1 {cal.bh_cand_budget}", file=sys.stderr)
         cfg = cal
-        state = _fill_initial_forces(cfg, state)
     else:
         # Resumed state with auto budgets in the (overridden) config:
         # calibrate against the resumed positions.
@@ -760,7 +758,7 @@ def cmd_tree(args) -> int:
                                                 tree_stats)
 
     device = resolve_device(args.device)
-    cfg = _build_config(args)
+    cfg = _build_config(args).with_resolved_leaf(device)
     state = init_simulation(cfg, device, compute_forces=False)
     out = tree_stats(state.pos, state.mass, cfg)
     if cfg.resolve_force(device) == "barnes_hut":
@@ -790,6 +788,9 @@ def cmd_info(args) -> int:
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "resolved_force": cfg.resolve_force(device),
+        # The config as given; its auto leaf size as a run on this device
+        # resolves it.
+        "resolved_bh_leaf_size": cfg.resolve_bh_leaf_size(device),
         "config": json.loads(cfg.to_json()),
     }, indent=2))
     return 0

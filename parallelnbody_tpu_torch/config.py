@@ -201,13 +201,54 @@ class SimConfig:
         return (self.AUTO_BH_CROSSOVER_CUDA if _device_type(device) == "cuda"
                 else self.AUTO_BH_CROSSOVER)
 
-    def resolve_bh_leaf_size(self) -> int:
-        """bh_leaf_size with 0 = auto resolved: 128 up to N = 2^19, 256
-        above (the JAX package's rule, kept so that both packages build the
-        same trees from one config)."""
+    # The largest N at which bh_leaf_size = 0 resolves to 128 (256 above),
+    # by device. On the CPU the JAX package's 2^19, so that CPU runs build
+    # the trees it builds. On a CUDA device the card's own: ms/step per step
+    # / at rebuild 8 (step(16)) of leaf 128 against 256 on the shipped
+    # Plummer config (examples/barneshut_1m_reuse.json) at each N, every
+    # run from one t = 0 state at budgets that clip nothing, two runs of
+    # each in the order 128, 256, 256, 128 (tools/auto_rules.py leaf;
+    # NVIDIA H100 80GB HBM3, 700.00 W; PERF.md has an earlier call's rows):
+    #   N     leaf 128 per step / rebuild 8    leaf 256 per step / rebuild 8
+    #   2^20   25.76, 23.86 / 9.65, 9.70        30.60, 25.62 / 16.13, 15.93
+    #   2^21   43.91, 44.30 / 17.99, 18.05      44.93, 45.47 / 27.16, 27.31
+    #   2^22   73.23, 70.69 / 35.19, 35.88      75.43, 77.61 / 52.08, 52.30
+    #   2^23  141.35, 141.39 / 71.73, 71.80    142.99, 143.00 / 104.29, 104.51
+    # rms force error 1.01-1.11e-3 at 128 (0.88-1.10e-3 at 256), overflow 0;
+    # 2^23 at 128 is 65536 leaves, unsectioned. Per step the two sit within
+    # a few per cent (host and geometry); at rebuild 8 leaf 128 halves
+    # K1's pair work and runs 31-40% faster. So 128 up to the largest N
+    # measured, 256 above it.
+    AUTO_LEAF128_MAX_N = 1 << 19
+    AUTO_LEAF128_MAX_N_CUDA = 1 << 23
+
+    def resolve_bh_leaf_size(self, device=None) -> int:
+        """bh_leaf_size with 0 = auto resolved for `device` (a torch.device
+        or its name; None means the CPU): 128 up to the device's
+        AUTO_LEAF128_MAX_N, 256 above. Entry points that own a device
+        replace the auto with this value once (with_resolved_leaf), so
+        that every later call reads a concrete leaf size."""
         if self.bh_leaf_size:
             return self.bh_leaf_size
-        return 128 if self.n <= (1 << 19) else 256
+        top = (self.AUTO_LEAF128_MAX_N_CUDA
+               if _device_type(device) == "cuda" else self.AUTO_LEAF128_MAX_N)
+        return 128 if self.n <= top else 256
+
+    def with_resolved_leaf(self, device) -> "SimConfig":
+        """This config for a run on `device`: on a CUDA device,
+        bh_leaf_size = 0 (auto) replaced by the card's value
+        (resolve_bh_leaf_size(device)), so that every later
+        resolve_bh_leaf_size() / resolve_bh_refine(), the plan's and the
+        evaluation's alike, reads the leaf the run was built for, and a
+        checkpoint stores it. Elsewhere the config as it is: 0 resolves to
+        the CPU's rule (the JAX package's) wherever it is read. The entry
+        points that own a device call it once (api.calibrate_budgets, so
+        prepare_simulation and Simulation; make_accel_fn, make_run; the CLI
+        before it spawns ranks; parallel/'s entry points on the group's
+        device)."""
+        if self.bh_leaf_size or _device_type(device) != "cuda":
+            return self
+        return self.replace(bh_leaf_size=self.resolve_bh_leaf_size(device))
 
     # Static fallbacks for bh_near_budget / bh_far_budget = 0 where no state
     # is at hand to calibrate against (api.calibrate_budgets is the real
@@ -224,14 +265,16 @@ class SimConfig:
     def resolve_bh_far_budget(self) -> int:
         return self.bh_far_budget or self.FALLBACK_FAR_BUDGET
 
-    def resolve_bh_refine(self) -> str:
+    def resolve_bh_refine(self, device=None) -> str:
         """bh_refine='auto' resolved: the dense leaf plane below 8192 leaves
-        (counted as plan_tree pads them), staged refinement from 8192 up."""
+        (counted as plan_tree pads them, at the leaf size resolved for
+        `device`), staged refinement from 8192 up."""
         if self.bh_refine != "auto":
             return self.bh_refine
         from parallelnbody_tpu_torch.ops.bh import plan_tree
 
-        n_leaves, _, _ = plan_tree(self.n, self.resolve_bh_leaf_size())
+        n_leaves, _, _ = plan_tree(self.n,
+                                   self.resolve_bh_leaf_size(device))
         return "staged" if n_leaves >= 8192 else "dense"
 
     def resolve_force(self, device=None) -> str:

@@ -32,7 +32,7 @@ _F = ctypes.c_float
 # C entry points: (name, argtypes, restype).
 _SIGNATURES = (
     ("pnb_near_field",
-     [_VP] * 8 + [_I, _I, _I, _I, _I, _F, _F, _I, _I, _VP], _I),
+     [_VP] * 8 + [_I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _VP], _I),
     ("pnb_far_octet",
      [_VP] * 7 + [_I, _I, _I, _I, _F, _F, _I, _I, _VP], _I),
     ("pnb_allpairs",

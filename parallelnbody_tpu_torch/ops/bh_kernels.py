@@ -36,7 +36,7 @@ wrapper.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
 
 import torch
 
@@ -49,21 +49,50 @@ LAUNCHES = {"near_field": 0, "near_field_window": 0, "near_field_table": 0,
 # many source leaves, one block each (csrc/near_field.cu; chosen on the card,
 # PERF.md §6).
 NEAR_CHUNK = 32
-# The window form's items are shorter: a ring window holds a few entries of
-# most rows, and its launch lasts at least one item, so 32-entry items left
-# the smaller windows' launches one wave of a few long blocks (8 windows of
-# the 4M LET example's rank 0 on an NVIDIA H100 80GB HBM3 at 700 W: 12.9 ms,
-# 0.22 of the bound, against 5.3 ms, 0.53, for the same entries in one
-# table-form launch; chip_smoke.py, PERF.md §6).
-NEAR_WINDOW_CHUNK = 8
+# The window form sizes each window's items and blocks by the window's own
+# work (`window_shape`): (targets a thread R, entries an item C) in the
+# order tried. A heavy window keeps the unwindowed form's one-warp blocks;
+# a lighter one, whose launch would otherwise last as long as one warp's
+# serial sweep of its longest item, takes shorter items and then more
+# warps an item over the same G targets.
+WINDOW_SHAPES = ((8, 32), (8, 16), (8, 8), (4, 8), (2, 8), (1, 8), (1, 4),
+                 (1, 2), (1, 1))
+# A shape is taken when the window's pair terms, spread over every warp
+# scheduler of the card, are at least this many times the longest item's
+# serial sweep (pair terms a lane). Chosen on the card from one launch of
+# each shape on each ring window of rank 0 of the 4M LET example
+# (tools/k1_windows.py, NVIDIA H100 80GB HBM3, 700.00 W, PERF.md): the own
+# window (130093 entries) ran 8x8 4.18 ms, 8x16 4.20, 8x32 4.37, 4x8 4.26;
+# the three neighbours' (9272-10681 entries) 1x4 0.37-0.42 ms against 4x8
+# 0.44-0.56 and 8x8 0.51; the four smallest (112-1669 entries) 0.11-0.20 ms
+# at any R = 1 shape. 24 picks 8x8 for the first and 1x4 for the
+# neighbours; every value from 16 to 30 picks within 2% of the best.
+WINDOW_TAIL = 24
+_SCHEDULERS_PER_SM = 4
 
 
-class NearWork(NamedTuple):
-    """K1's work items for one set of near lists (`near_items`)."""
+@dataclasses.dataclass(frozen=True)
+class NearWork:
+    """K1's work items for one set of near lists (`near_items`); unpacks
+    and indexes as the triple (items, splits, n_partial)."""
 
     items: torch.Tensor   # (n_items, 4) int32 [row, begin, end, dst]
     splits: torch.Tensor  # (n_split, 3) int32 [row, first, n]
     n_partial: int
+    # Targets a thread (8, 4, 2, 1; 0 = the most that leave a block a full
+    # warp at the leaf size) and entries an item.
+    r: int = 0
+    chunk: int = NEAR_CHUNK
+    # Every row has an item (an empty row one empty item, which writes its
+    # zeros): the items of a launch that writes its output. False: rows
+    # with no entry have none, for a launch that adds into its output.
+    every_row: bool = True
+
+    def __iter__(self):
+        return iter((self.items, self.splits, self.n_partial))
+
+    def __getitem__(self, i):
+        return (self.items, self.splits, self.n_partial)[i]
 
 
 def reset_launch_counts():
@@ -79,7 +108,8 @@ _PLAIN_BLOCK_ELEMS = 1 << 25
 
 # ------------------------------------------------------------ plain versions
 def near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
-                     compute_pot=True, leaf_lo=None, src_table=None):
+                     compute_pot=True, leaf_lo=None, src_table=None,
+                     out=None):
     """Exact softened near field (plain torch): targets (L, G, 3) against
     per-target lists of source leaves idx/valid (L, B) over the sorted
     particles pos_s (n_pad, 3), mass_s (n_pad,). Returns
@@ -89,7 +119,10 @@ def near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
     n_pad / G); entries outside it are skipped (the window arithmetic of
     the JAX package's ring near field). src_table: the sources are this
     packed (n_rows * G, 4) [x, y, z, m] table (pos_s and mass_s are None);
-    entries naming a row past it are skipped (its LET clip).
+    entries naming a row past it are skipped (its LET clip). out = (acc,
+    pot): add the result into them in place and return them, rows with no
+    entry untouched, pot untouched without the potential (the kernel's
+    out=).
 
     The pair terms are those of `_near_field_jnp`. Only the live (target
     leaf, source leaf) entries are evaluated, in chunks of entries taken
@@ -126,7 +159,16 @@ def near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
         if compute_pot:
             pot.index_add_(0, r, -torch.sum(mu, dim=-1))
     n_out = n_slice * leaf_size
-    return g * acc.reshape(n_out, 3), g * pot.reshape(n_out)
+    acc, pot = g * acc.reshape(n_out, 3), g * pot.reshape(n_out)
+    if out is None:
+        return acc, pot
+    live = torch.zeros(n_slice, dtype=torch.bool, device=acc.device)
+    live[rows] = True
+    live = live.repeat_interleave(leaf_size)
+    out[0][live] += acc[live]
+    if compute_pot:
+        out[1][live] += pot[live]
+    return out
 
 
 def _far_nodes_plain(tgt, npos, nm, nq, eps2, guard_zero, compute_pot):
@@ -274,42 +316,56 @@ def far_order(valid):
     return heaviest_first(torch.sum(valid, dim=1, dtype=torch.int32))
 
 
-def _item_sizes(counts, chunk):
-    """(n_items, n_partial, n_split) of near_items(counts, chunk), as one
-    (3,) tensor on the lists' device."""
-    n_chunks = torch.clamp((counts.to(torch.int64) + chunk - 1) // chunk,
-                           min=1)
-    split = n_chunks > 1
-    return torch.stack([n_chunks.sum(), torch.where(split, n_chunks, 0).sum(),
-                        split.sum()])
+def _window_sizes(counts, chunks):
+    """Per column of counts (L, P) int64, one (P, 3 + 3 len(chunks)) tensor
+    on its device: entries, the longest row and the rows with none; then
+    for each chunk, near_items(..., every_row=False)'s items, partial slots
+    and split rows."""
+    cols = [counts.sum(0), counts.max(0).values, (counts == 0).sum(0)]
+    for chunk in chunks:
+        n = (counts + chunk - 1) // chunk
+        split = n > 1
+        cols += [n.sum(0), torch.where(split, n, 0).sum(0), split.sum(0)]
+    return torch.stack(cols, 1)
 
 
-def near_items(counts, chunk, lo=None, sizes=None):
+def _sizes_of(row, k, every_row):
+    """(n_items, n_partial, n_split) of near_items for the k-th chunk of a
+    _window_sizes row read back to the host."""
+    n_items, n_partial, n_split = row[3 + 3 * k:6 + 3 * k]
+    return n_items + (row[2] if every_row else 0), n_partial, n_split
+
+
+def near_items(counts, chunk, lo=None, sizes=None, r=0, every_row=True):
     """K1's work items from the live length counts (L,) of front-packed
     near lists: every row is cut into ceil(count / chunk) items of at most
-    `chunk` entries (an empty row into one empty item, which writes its
-    zeros). Returns (items (n_items, 4) int32 [row, begin, end, dst],
-    splits (n_split, 3) int32 [row, first, n], n_partial), items longest
-    first (a stable sort, so a row's items keep their order among equals).
-    dst is -1 for the single item of a row, which writes the row's output;
+    `chunk` entries (with every_row an empty row into one empty item, which
+    writes its zeros; without it an empty row has no item). Returns a
+    NearWork (items (n_items, 4) int32 [row, begin, end, dst], splits
+    (n_split, 3) int32 [row, first, n], n_partial), items longest first (a
+    stable sort, so a row's items keep their order among equals). dst is -1
+    for the single item of a row, which writes (or adds) the row's output;
     the n items of a split row write partial slots first .. first + n - 1
     in chunk order, which `splits` names for the combining pass; n_partial
-    slots in all.
+    slots in all. r: the targets a thread the launch uses (NearWork.r).
 
     lo (L,): the list position where each row's run starts (the window and
     table forms: a row evaluates positions [lo, lo + count)); None = 0.
     begin and end are list positions.
 
     Index bookkeeping in a few torch ops on the lists' device; reading the
-    three sizes back waits on the host once (sizes: `_item_sizes`, read
-    back by the caller)."""
+    three sizes back waits on the host once (sizes: `_sizes_of`, read back
+    by the caller)."""
     counts = counts.to(torch.int64)
     dev = counts.device
-    n_chunks = torch.clamp((counts + chunk - 1) // chunk, min=1)
+    n_chunks = (counts + chunk - 1) // chunk
+    if every_row:
+        n_chunks = torch.clamp(n_chunks, min=1)
     split = n_chunks > 1
     split_n = torch.where(split, n_chunks, 0)
     if sizes is None:
-        sizes = _item_sizes(counts, chunk).tolist()
+        row = _window_sizes(counts[:, None], (chunk,))[0].tolist()
+        sizes = _sizes_of(row, 0, every_row)
     n_items, n_partial, n_split = sizes
     first_item = torch.cumsum(n_chunks, 0) - n_chunks
     first_slot = torch.cumsum(split_n, 0) - split_n
@@ -330,7 +386,8 @@ def near_items(counts, chunk, lo=None, sizes=None):
     splits = torch.stack([split_rows, first_slot[split_rows],
                           n_chunks[split_rows]], dim=1)
     return NearWork(items.to(torch.int32).contiguous(),
-                    splits.to(torch.int32).contiguous(), n_partial)
+                    splits.to(torch.int32).contiguous(), n_partial, r=r,
+                    chunk=chunk, every_row=every_row)
 
 
 def near_work(valid, idx=None, id_range=None):
@@ -346,26 +403,81 @@ def near_work(valid, idx=None, id_range=None):
         return None
     if id_range is None:
         return near_items(torch.sum(valid, dim=1), NEAR_CHUNK)
-    return near_windows(idx, valid, id_range)[0]
+    return near_windows(idx, valid, id_range, chunk=NEAR_CHUNK)[0]
 
 
-def near_windows(idx, valid, edges, chunk=NEAR_CHUNK):
+def _full_warp_r(leaf_size):
+    """The most targets a thread that still leave a block a full warp
+    (csrc/near_field.cu, r = 0)."""
+    for r in (8, 4, 2):
+        if leaf_size >= 32 * r:
+            return r
+    return 1
+
+
+def window_shape(entries, longest, leaf_size, n_sm):
+    """(targets a thread, entries an item) for K1's launch over one window
+    of `entries` list entries whose longest row holds `longest`: the first
+    of WINDOW_SHAPES (R capped by the leaf size's full-warp R) whose longest
+    item, swept serially by one warp (min(C, longest) * G * R pair terms a
+    lane), takes at most 1 / WINDOW_TAIL of the window's pair terms spread
+    over the card's warp schedulers; the last shape when none does."""
+    r_top = _full_warp_r(leaf_size)
+    per_lane = entries * leaf_size * leaf_size / (
+        32 * _SCHEDULERS_PER_SM * n_sm)
+    for r, chunk in WINDOW_SHAPES:
+        r = min(r, r_top)
+        if min(chunk, longest) * leaf_size * r * WINDOW_TAIL <= per_lane:
+            return r, chunk
+    return WINDOW_SHAPES[-1]
+
+
+def near_windows(idx, valid, edges, chunk=None, writes=None, leaf_size=None,
+                 n_sm=None):
     """K1's work items for each window [edges[w], edges[w + 1]) of leaf
     ids over the front-packed ascending lists idx/valid (L, B): ascending
     lists make each window a run [lo, hi) of list positions, counted here
     for every window at once. One host wait for all windows. Returns a list
-    of len(edges) - 1 NearWork, on the lists' device."""
+    of len(edges) - 1 NearWork, on the lists' device.
+
+    chunk: items of at most this many entries at the leaf size's full-warp
+    R in every window. None: each window's own shape (`window_shape`, from
+    its entries and longest row; leaf_size and n_sm, the SM count of the
+    lists' device when None, enter it). writes: the windows whose items
+    cover every row, for a launch that writes its output; the others skip
+    the rows with no entry in them, for a launch that adds into its output
+    (near_field's out=). None: every window."""
     bounds = torch.stack([torch.sum(valid & (idx < e), dim=1)
                           for e in edges], dim=1)
-    counts = bounds[:, 1:] - bounds[:, :-1]
-    sizes = torch.stack([_item_sizes(counts[:, w], chunk)
-                         for w in range(counts.shape[1])]).tolist()
-    return [near_items(counts[:, w], chunk, lo=bounds[:, w], sizes=sizes[w])
-            for w in range(counts.shape[1])]
+    counts = (bounds[:, 1:] - bounds[:, :-1]).to(torch.int64)
+    n_win = counts.shape[1]
+    shaped = chunk is None
+    chunks = tuple(sorted({c for _, c in WINDOW_SHAPES}, reverse=True)) \
+        if shaped else (chunk,)
+    table = _window_sizes(counts, chunks).tolist()
+    if shaped:
+        if leaf_size is None:
+            raise ValueError("near_windows: a window's own shape needs "
+                             "leaf_size")
+        if n_sm is None:
+            n_sm = torch.cuda.get_device_properties(
+                idx.device).multi_processor_count
+    out = []
+    for w in range(n_win):
+        row = table[w]
+        r, c = (window_shape(row[0], row[1], leaf_size, n_sm) if shaped
+                else (0, chunk))
+        every_row = writes is None or w in writes
+        out.append(near_items(counts[:, w], c, lo=bounds[:, w],
+                              sizes=_sizes_of(row, chunks.index(c),
+                                              every_row),
+                              r=r, every_row=every_row))
+    return out
 
 
 def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
-               compute_pot=True, work=None, leaf_lo=None, src_table=None):
+               compute_pot=True, work=None, leaf_lo=None, src_table=None,
+               out=None):
     """K1: exact near field of targets (L, G, 3) against their front-packed
     ascending lists of source leaves idx (L, B) int32 / valid (L, B) bool
     over the sorted particles pos_s (n_pad, 3), mass_s (n_pad,). Returns
@@ -376,10 +488,16 @@ def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
 
     Window form, leaf_lo (an int): pos_s/mass_s are the shard of sorted
     particles holding leaves [leaf_lo, leaf_lo + n_pad / G); idx keeps
-    global leaf ids and only the entries inside the window are evaluated.
+    global leaf ids and only the entries inside the window are evaluated
+    (items built here by `near_windows` with the window's own shape).
     Table form, src_table: the sources are this packed (n_rows * G, 4)
     table (pos_s and mass_s are None); entries with idx >= n_rows are
-    skipped. Each form counts its launches under its own name."""
+    skipped. Each form counts its launches under its own name.
+
+    out = (acc, pot): add this call's sums into them in place (each term
+    rounded as if written and then added) and return them; rows with no
+    entry are not touched, and pot not at all without the potential. The
+    ring near field accumulates its passes so."""
     if src_table is not None:
         if pos_s is not None or mass_s is not None or leaf_lo is not None:
             raise ValueError("src_table replaces pos_s, mass_s and leaf_lo")
@@ -387,10 +505,12 @@ def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
     else:
         srcs = (pos_s, mass_s)
         form = "near_field" if leaf_lo is None else "near_field_window"
-    if on_cpu(*srcs, tgt_leaves, idx, valid):
+    outs = () if out is None else tuple(out)
+    if on_cpu(*srcs, tgt_leaves, idx, valid, *outs):
         return near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, g=g,
                                 softening=softening, compute_pot=compute_pot,
-                                leaf_lo=leaf_lo, src_table=src_table)
+                                leaf_lo=leaf_lo, src_table=src_table,
+                                out=out)
     n_slice, leaf_size, _ = tgt_leaves.shape
     n_pad = srcs[0].shape[0]
     budget = idx.shape[1]
@@ -411,24 +531,37 @@ def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
     off = int(leaf_lo or 0)
     if work is None and form == "near_field_window":
         work = near_windows(idx, valid, [off, off + n_pad // leaf_size],
-                            NEAR_WINDOW_CHUNK)[0]
+                            writes=() if out is not None else None,
+                            leaf_size=leaf_size)[0]
     elif work is None:
         work = near_work(valid, idx, None if form == "near_field" else
                          (0, n_pad // leaf_size))
     items, splits, n_partial = work
     check("work.items", items, torch.int32, (items.shape[0], 4))
     check("work.splits", splits, torch.int32, (splits.shape[0], 3))
+    if work.r not in (0, 1, 2, 4, 8):
+        raise ValueError(f"work.r {work.r}: targets a thread are 0 (the "
+                         "leaf size's), 1, 2, 4 or 8")
     partial = torch.empty((n_partial, leaf_size, 4), dtype=torch.float32,
                           device=dev)
-    acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
-                      device=dev)
-    pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32, device=dev)
+    if out is None:
+        if not work.every_row:
+            raise ValueError("work items that skip empty rows only add "
+                             "into an output (out=)")
+        acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
+                          device=dev)
+        pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
+                          device=dev)
+    else:
+        acc, pot = out
+        check("out acc", acc, torch.float32, (n_slice * leaf_size, 3))
+        check("out pot", pot, torch.float32, (n_slice * leaf_size,))
     launch(LAUNCHES, form, "pnb_near_field",
            ptr(table), ptr(tgt_leaves), ptr(idx), ptr(items), ptr(splits),
            ptr(acc), ptr(pot), ptr(partial), items.shape[0],
            splits.shape[0], leaf_size, budget, off, float(g),
            float(softening) ** 2, int(softening == 0.0),
-           int(bool(compute_pot)))
+           int(bool(compute_pot)), int(out is not None), work.r)
     return acc, pot
 
 

@@ -45,3 +45,11 @@ def direct_accel(pos, mass, *, g=1.0, softening=0.0, tile=0):
         return (torch.cat([a for a, _ in parts]),
                 torch.cat([p for _, p in parts]))
     return direct_accel_tile(pos, pos, mass, g=g, softening=softening)
+
+
+def direct_energy(pos, vel, mass, *, g=1.0, softening=0.0):
+    """(KE, PE) via the direct pairwise sum. PE counts each pair once."""
+    _, pot = direct_accel(pos, mass, g=g, softening=softening)
+    ke = 0.5 * torch.sum(mass * torch.sum(vel * vel, dim=-1))
+    pe = 0.5 * torch.sum(mass * pot)
+    return ke, pe

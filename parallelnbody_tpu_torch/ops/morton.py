@@ -41,3 +41,18 @@ def morton_encode(pos, center, half_extent, bits: int = MORTON_BITS):
     ey = _spread_bits_3(q[:, 1])
     ez = _spread_bits_3(q[:, 2])
     return (ex << 2) | (ey << 1) | ez
+
+
+def morton_decode(key, bits: int = MORTON_BITS):
+    """Inverse of the bit interleave: (N,) int32 keys -> (N, 3) int32
+    cells."""
+    def compact(v):
+        v = v & 0x09249249
+        v = (v | (v >> 2)) & 0x030C30C3
+        v = (v | (v >> 4)) & 0x0300F00F
+        v = (v | (v >> 8)) & 0x030000FF
+        v = (v | (v >> 16)) & 0x3FF
+        return v
+
+    return torch.stack([compact(key >> 2), compact(key >> 1), compact(key)],
+                       dim=-1)

@@ -309,40 +309,44 @@ def _owned_tree(pos_own, mass_own, sentinel, cfg, *, leaf_size,
                        sentinel, max_levels=cfg.bh_max_levels)
 
 
-def ring_windows(near_idx, near_valid, n_ranks, n_leaf_loc):
-    """K1's work items for each rank's window of the ring near field (one
-    host wait for all P windows; None entries on the CPU)."""
+def ring_windows(near_idx, near_valid, n_ranks, n_leaf_loc, rank,
+                 leaf_size):
+    """K1's work items for each rank's window of the ring near field, each
+    window shaped by its own work (one host wait for all P windows; None
+    entries on the CPU). The rank's own window, its first pass, writes the
+    output, so its items cover every row; the others add into it and skip
+    the rows with no entry in them."""
     if near_valid.device.type == "cpu":
         return [None] * n_ranks
     edges = [w * n_leaf_loc for w in range(n_ranks + 1)]
     return bh_kernels.near_windows(near_idx, near_valid, edges,
-                                   bh_kernels.NEAR_WINDOW_CHUNK)
+                                   writes=(rank,), leaf_size=leaf_size)
 
 
 def _near_ring(pos_own, mass_own, tgt_leaves, near_idx, near_valid, cfg, *,
                group: RingGroup, n_leaf_loc, compute_pot, works=None):
     """Ring near field: the owned tiles rotate around the ring; pass p
     evaluates the window of leaves owned by rank (self - p) % P with K1's
-    window form, the next rotation started before the pass computes.
-    Passes add up in pass order. Returns (acc, pot)."""
+    window form, the next rotation started before the pass computes. The
+    first pass writes (acc, pot) and each later pass adds its window into
+    them, in pass order. Returns (acc, pot)."""
     n_ranks, rank = group.world_size, group.rank
     if works is None:
-        works = ring_windows(near_idx, near_valid, n_ranks, n_leaf_loc)
+        works = ring_windows(near_idx, near_valid, n_ranks, n_leaf_loc, rank,
+                             tgt_leaves.shape[1])
     sh = torch.cat([pos_own, mass_own[:, None]], 1)
-    acc = pot = None
+    out = None
     for p in range(n_ranks):
         nxt = group.shift_start(sh) if p < n_ranks - 1 else None
         owner = (rank - p) % n_ranks
-        a, ph = bh_kernels.near_field(
+        out = bh_kernels.near_field(
             sh[:, :3].contiguous(), sh[:, 3].contiguous(), tgt_leaves,
             near_idx, near_valid, g=cfg.g, softening=cfg.softening,
             compute_pot=compute_pot, work=works[owner],
-            leaf_lo=owner * n_leaf_loc)
-        acc = a if acc is None else acc + a
-        pot = ph if pot is None else pot + ph
+            leaf_lo=owner * n_leaf_loc, out=out)
         if nxt is not None:
             sh = nxt.wait()
-    return acc, pot
+    return out
 
 
 def _lists(tree, cfg, *, start, n_leaf_loc, dtype, octet_only=False):
@@ -436,7 +440,8 @@ def _plan_owned(pos_own, mass_own, sentinel, cfg, *, group: RingGroup,
     _, _, ni, nv, fk, fv, _, of = _lists(
         tree, cfg, start=group.rank * n_leaf_loc, n_leaf_loc=n_leaf_loc,
         dtype=pos_own.dtype, octet_only=True)
-    works = (ring_windows(ni, nv, group.world_size, n_leaf_loc)
+    works = (ring_windows(ni, nv, group.world_size, n_leaf_loc, group.rank,
+                          leaf_size)
              if cfg.bh_comm == "ring" else None)
     return _OwnedPlan(ni, nv, fk, fv, works, bh_kernels.far_order(fv)), of
 
@@ -509,6 +514,7 @@ def dist_bh_accel(pos, mass, cfg, group: RingGroup, *, compute_pot=True):
     overflow (clipped exchange slots and list entries) summed over ranks;
     nonzero means degraded results: raise cfg.bh_pair_slack /
     cfg.bh_own_slack or the list budgets."""
+    cfg = cfg.with_resolved_leaf(group.device)
     n_ranks, rank = group.world_size, group.rank
     n_local = pos.shape[0]
     leaf_size = cfg.resolve_bh_leaf_size()
@@ -554,6 +560,7 @@ def make_distributed_run(cfg, group: RingGroup, n_steps, debug_exchange=False):
     from parallelnbody_tpu_torch.api import _plan_ratio, _reuse_block_size
     from parallelnbody_tpu_torch.ops.integrators import get_integrator
 
+    cfg = cfg.with_resolved_leaf(group.device)
     integrator = get_integrator(cfg.integrator)
     leaf_size = cfg.resolve_bh_leaf_size()
     reuse = _dist_reuse_eligible(cfg, n_steps) and not debug_exchange

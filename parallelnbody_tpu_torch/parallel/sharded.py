@@ -42,6 +42,7 @@ def _bh_sharded_accel(pos_local, mass_local, cfg: SimConfig,
                                                 plan_tree,
                                                 slice_row_of_sorted)
 
+    cfg = cfg.with_resolved_leaf(group.device)
     n_ranks, rank = group.world_size, group.rank
     n_local = pos_local.shape[0]
     leaf = cfg.resolve_bh_leaf_size()

@@ -87,7 +87,7 @@ def owned_geometry(group, cfg_json, arrays, with_sources=False):
     (own_cap, 4) [x, y, z, m] table and rank 0 its target leaves and
     assembled LET source table (the inputs of K1's window and table
     forms)."""
-    cfg = SimConfig.from_json(cfg_json)
+    cfg = SimConfig.from_json(cfg_json).with_resolved_leaf(group.device)
     state = local_state(group, cfg, arrays)
     n_local = state.n
     leaf = cfg.resolve_bh_leaf_size()

@@ -119,3 +119,14 @@ def state_to_numpy(state: SimState) -> dict:
            for name in ("pos", "vel", "mass", "acc", "pot", "time", "step")}
     out["seed"] = state.seed
     return out
+
+
+def domain_half_extent(state: SimState) -> torch.Tensor:
+    """Root-cube half extent: max |coordinate| over all particles (the
+    reference's ComputeCubeSize, OctreeSearch.cpp:47-56)."""
+    return torch.max(torch.abs(state.pos))
+
+
+def center_of_mass(state: SimState) -> torch.Tensor:
+    m = state.mass[:, None]
+    return torch.sum(m * state.pos, dim=0) / torch.sum(state.mass)

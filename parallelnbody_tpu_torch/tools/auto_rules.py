@@ -22,10 +22,19 @@ phase_crossover, not here.
   block       a run of BLOCK_STEPS steps, a length at which the CPU's plan
               ratio and the card's pick different block sizes, at each
               block size, on the same two configs, alternated ABBA.
-  leaf        leaf 128 against 256 at N = 2^19 and 2^20 (the rule
-              SimConfig.resolve_bh_leaf_size: 128 up to 2^19, 256 above):
-              step(1) and step(16) (two rebuild blocks of 8), on the
-              shipped Plummer config (RULE_CONFIG) at each N.
+  leaf        leaf 128 against 256 at N = 2^20 .. 2^23 (the rule
+              SimConfig.resolve_bh_leaf_size, by device), two runs of each
+              in the order 128, 256, 256, 128: step(1) and step(16) (two
+              rebuild blocks of 8), on the shipped Plummer config
+              (RULE_CONFIG) at each N, with the refinement each side
+              resolves to, its sections, peak device memory and the
+              sampled rms force error (k = 4096) of the states after
+              step(1) and after step(16).
+  calib       the budget calibration that Simulation gets on the card:
+              each of CALIB_CASES at leaf 128 and 256, its auto budgets
+              calibrated on the t = 0 state alone (the CPU's rule) and by
+              prepare_simulation (also one step on), then CALIB_STEPS
+              steps: the list overflow summed after each call.
   refine      dense against staged refinement at 4096, 8192 and 16384
               leaves of 256 (the rule SimConfig.resolve_bh_refine: staged
               from 8192 leaves), with each run's peak device memory, on
@@ -47,11 +56,15 @@ import subprocess
 import torch
 
 from parallelnbody_tpu_torch import SimConfig
-from parallelnbody_tpu_torch.api import (_REUSE_PLAN_RATIO, _reuse_block_size,
-                                         make_run, prepare_simulation)
-from parallelnbody_tpu_torch.cli import (_AUTO_BUDGET_FIELDS,
-                                         recalibrate_on_overflow)
+from parallelnbody_tpu_torch.api import (_REUSE_PLAN_RATIO,
+                                         AUTO_BUDGET_FIELDS,
+                                         _fill_initial_forces,
+                                         _reuse_block_size, calibrate_budgets,
+                                         init_simulation, make_run,
+                                         prepare_simulation)
+from parallelnbody_tpu_torch.cli import recalibrate_on_overflow
 from parallelnbody_tpu_torch.ops import bh
+from parallelnbody_tpu_torch.utils.accuracy import rms_force_error_sample
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -64,9 +77,17 @@ PLAN_REPS = 3
 RULE_CONFIG = "examples/barneshut_1m_reuse.json"
 BLOCK_STEPS = 33        # 0.3 picks blocks of 3 (11 blocks), 0.5 of 7 (5)
 BLOCK_REPS = 2          # ABBA pairs
-LEAF_N = (1 << 19, 1 << 20)
+LEAF_N = (1 << 20, 1 << 21, 1 << 22, 1 << 23)
+LEAF_ORDER = (128, 256, 256, 128)   # two runs of each, in turns
+RMS_K = 4096
+LEAF_STEP_REPS = 10      # per-step Barnes-Hut moves a few % within a run
 REFINE_N = (1 << 20, 1 << 21, 1 << 22)   # 4096, 8192, 16384 leaves of 256
 FLOOR_N = (128, 256, 512, 1024, 2048)
+CALIB_CASES = (("SimConfig(n=2^20)", None, 1 << 20),
+               ("SimConfig(n=2^21)", None, 1 << 21),
+               (RULE_CONFIG, RULE_CONFIG, None),
+               ("examples/galaxy_2m.json", "examples/galaxy_2m.json", None))
+CALIB_STEPS = (1, 1, 1, 1, 16, 16)
 GIB = 2**30
 
 
@@ -106,7 +127,7 @@ def _prepared(cfg, steps):
     returned state clip nothing that the configuration states. Every
     step: a single step's near lists can need several times the maximum
     of the states around it."""
-    auto = [f for f in _AUTO_BUDGET_FIELDS if getattr(cfg, f) == 0]
+    auto = [f for f in AUTO_BUDGET_FIELDS if getattr(cfg, f) == 0]
     cfg, state0 = prepare_simulation(cfg, "cuda")
     if cfg.resolve_force("cuda") == "barnes_hut" and auto:
         state = state0
@@ -118,7 +139,7 @@ def _prepared(cfg, steps):
 
 
 def _budgets(cfg):
-    return {f: getattr(cfg, f) for f in _AUTO_BUDGET_FIELDS}
+    return {f: getattr(cfg, f) for f in AUTO_BUDGET_FIELDS}
 
 
 def _timed(run, state0, reps, totals):
@@ -137,23 +158,29 @@ def _gate(row):
     return row
 
 
-def _sim_ms(cfg, reuse=False):
+def _sim_ms(cfg, reuse=False, rms=False, step_reps=STEP_REPS):
     """{"step1_ms", "step16_ms" (reuse), "overflow", "peak_gib", budgets}
     on the card; each length warmed up by one call, every call from the
-    t = 0 state."""
+    t = 0 state. rms: also "rms_step1" / "rms_step16", the sampled rms
+    force error of the state each length reaches (after the peak memory is
+    read: the direct sum's temporaries are not the run's)."""
     torch.cuda.reset_peak_memory_stats()
     lengths = (1, 16) if reuse else (1,)
     cfg, state0 = _prepared(cfg, lengths[-1])
-    out, totals = {}, [0]
+    out, totals, ends = {}, [0], {}
     for k in lengths:
         run = make_run(cfg, k, report_overflow=True)
-        run(state0)
-        out[f"step{k}_ms"] = _timed(run, state0, STEP_REPS if k == 1 else 2,
+        ends[k] = run(state0)[0]
+        out[f"step{k}_ms"] = _timed(run, state0, step_reps if k == 1 else 2,
                                     totals) / k
     out["overflow"] = totals[0]
     out["peak_gib"] = torch.cuda.max_memory_allocated() / GIB
     out.update(_budgets(cfg))
-    del state0
+    for k, state in ends.items() if rms else ():
+        out[f"rms_step{k}"] = rms_force_error_sample(
+            state.pos, state.mass, state.acc, g=cfg.g,
+            softening=cfg.softening, k=RMS_K)
+    del state0, ends
     _free()
     return out
 
@@ -224,12 +251,21 @@ def block():
 
 def leaf():
     for n in LEAF_N:
-        for size in (128, 256):
+        auto = SimConfig(n=n)
+        for size in LEAF_ORDER:
             cfg = _load(RULE_CONFIG).replace(n=n, bh_leaf_size=size)
             yield _gate({"rule": "leaf", "n": n, "leaf": size,
-                         "auto_leaf": SimConfig(n=n).resolve_bh_leaf_size(),
+                         "auto_leaf_cpu": auto.resolve_bh_leaf_size("cpu"),
+                         "auto_leaf_cuda": auto.resolve_bh_leaf_size("cuda"),
+                         "n_leaves": bh.plan_tree(n, size,
+                                                  cfg.bh_max_levels)[0],
                          "refine": cfg.resolve_bh_refine(),
-                         **_sim_ms(cfg, reuse=True)})
+                         "sections": bh.resolve_sections(
+                             cfg.bh_sections, bh.plan_tree(
+                                 n, size, cfg.bh_max_levels)[0],
+                             cfg.resolve_bh_refine()),
+                         **_sim_ms(cfg, reuse=True, rms=True,
+                                   step_reps=LEAF_STEP_REPS)})
 
 
 def refine():
@@ -245,6 +281,34 @@ def refine():
                 **_sim_ms(cfg, reuse=True)})
 
 
+def calib():
+    for name, path, n in CALIB_CASES:
+        base = _load(path) if path else SimConfig(n=n)
+        for size in (128, 256):
+            cfg = base.replace(bh_leaf_size=size)
+            for how in ("t0", "prepared"):
+                if how == "t0":
+                    state = init_simulation(cfg, "cuda",
+                                            compute_forces=False)
+                    run_cfg = calibrate_budgets(cfg, state)
+                    state = _fill_initial_forces(run_cfg, state)
+                else:
+                    run_cfg, state = prepare_simulation(cfg, "cuda")
+                total, after = 0, []
+                for k in CALIB_STEPS:
+                    state, of = make_run(run_cfg, k,
+                                         report_overflow=True)(state)
+                    total += int(of)
+                    after.append(total)
+                yield {"rule": "calib", "case": name, "leaf": size,
+                       "calibrated": how,
+                       "refine": run_cfg.resolve_bh_refine(),
+                       "steps": list(CALIB_STEPS),
+                       "overflow_after": after, **_budgets(run_cfg)}
+                del state
+                _free()
+
+
 def floor():
     for n in FLOOR_N:
         row = {"rule": "floor", "n": n,
@@ -255,7 +319,7 @@ def floor():
 
 
 RULES = {"plan_eval": plan_eval, "block": block, "leaf": leaf,
-         "refine": refine, "floor": floor}
+         "calib": calib, "refine": refine, "floor": floor}
 
 
 def main(argv=None):

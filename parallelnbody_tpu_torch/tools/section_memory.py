@@ -55,6 +55,7 @@ def measure(path, sections):
         cfg = SimConfig.from_json(f.read())
     if sections:
         cfg = cfg.replace(bh_sections=sections)
+    cfg = cfg.with_resolved_leaf("cuda")
     leaf = cfg.resolve_bh_leaf_size()
     n_leaves = bh.plan_tree(cfg.n, leaf, cfg.bh_max_levels)[0]
     rec = {"config": path, "n": cfg.n, "n_leaves": n_leaves,

@@ -171,8 +171,10 @@ def render_trajectory(traj_dir, out_dir=None, *, size=512, plane="xy",
         img = render_ppm(pos, mass, size=size, plane=plane, extent=extent)
         if show_tree:
             leaf_size = (cfg_d.get("bh_leaf_size", 0)
-                         # 0 = auto (SimConfig.resolve_bh_leaf_size)
-                         or SimConfig(n=len(pos)).resolve_bh_leaf_size())
+                         # 0 = auto, resolved for the device the boxes are
+                         # computed on (a run on the card records its leaf)
+                         or SimConfig(n=len(pos)).resolve_bh_leaf_size(
+                             device))
             lo, hi = tree_boxes(torch.from_numpy(pos).to(device),
                                 torch.from_numpy(mass).to(device),
                                 leaf_size=leaf_size,

@@ -17,6 +17,8 @@ Pallas kernels against their jnp versions): kernel and plain version sum
 the same f32 terms in another order, with another rsqrt.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -714,14 +716,29 @@ def test_auto_force_on_the_card(cuda, n, method):
     assert launched[want] > 0, launched
 
 
+def test_simulation_resolves_the_card_leaf(cuda):
+    """Simulation(SimConfig(n=2^20)) on the card resolves the auto leaf by
+    the card's rule (128, where the CPU's gives 256), calibrates and steps
+    at it (per step and one rebuild block) with nothing clipped."""
+    cfg = SimConfig(n=1 << 20)
+    sim = Simulation(cfg, device=cuda)
+    assert sim.cfg.bh_leaf_size == cfg.resolve_bh_leaf_size("cuda") == 128
+    assert sim.cfg.resolve_bh_refine() == cfg.resolve_bh_refine("cuda")
+    sim.step(1)
+    sim.step(8)
+    torch.cuda.synchronize()
+    assert int(sim.overflow) == 0
+    assert bool(torch.isfinite(sim.state.acc).all())
+
+
 # ------------------------------------------ K1's window and table forms
 @pytest.mark.parametrize("n_sh", [1, 4])
 @pytest.mark.parametrize("compute_pot", [True, False])
 def test_near_field_window_form_matches_plain(lists, n_sh, compute_pot):
     """K1's window form (leaf_lo=) on each shard of the sorted particles
-    against its plain version (on its own items, NEAR_WINDOW_CHUNK entries
-    at most); with one shard over every leaf and the unwindowed form's
-    items, bit for bit the unwindowed form."""
+    against its plain version (on its own items, shaped by the window's
+    work); with one shard over every leaf and the unwindowed form's items,
+    bit for bit the unwindowed form."""
     L = lists
     n_leaves = L["tgt"].shape[0]
     nl = n_leaves // n_sh
@@ -748,6 +765,130 @@ def test_near_field_window_form_matches_plain(lists, n_sh, compute_pot):
                                        L["ni"], L["nv"], leaf_lo=0,
                                        work=same_items, **kw)
         assert torch.equal(win, full)
+
+
+@pytest.fixture(scope="module")
+def ring_lists(cuda):
+    """Rank 0 of an 8-rank ring at leaf 256: N = 262144 (1024 leaves, 128
+    a rank) Plummer particles, sorted; rank 0's target leaves and near
+    lists (theta 0.72, octet) with every third row emptied, and the window
+    edges of the 8 shards. Window 0 (the rank's own) is heavy, the others
+    light."""
+    leaf, n_ranks, theta = 256, 8, 0.72
+    cfg = SimConfig(n=262144, ic="plummer", seed=5)
+    state = init_simulation(cfg, "cpu", compute_forces=False)
+    pos_s, mass_s, _, tree, _, n_pad = bh._prepare(
+        state.pos, state.mass, leaf_size=leaf, curve="hilbert",
+        multipole_order=2)
+    n_leaves = n_pad // leaf
+    nl = n_leaves // n_ranks
+    far, rej = bh.traverse(tree, theta, start_leaf=0, n_slice=nl)
+    ni, nv, *_, of = bh.build_interaction_lists_octet(
+        tree, far, rej, theta=theta, start_leaf=0, n_slice=nl,
+        near_budget=n_leaves, far_budget=n_leaves, dtype=torch.float32)
+    assert int(of) == 0
+    nv[::3] = False
+    out = dict(pos_s=pos_s, mass_s=mass_s,
+               tgt=pos_s[:nl * leaf].reshape(nl, leaf, 3), ni=ni, nv=nv)
+    out = {k: v.contiguous().to(cuda) for k, v in out.items()}
+    out["edges"] = [w * nl for w in range(n_ranks + 1)]
+    return out
+
+
+def _ring_window(R, w, fn=bh_kernels.near_field, **kw):
+    e = R["edges"]
+    rows = slice(e[w] * 256, e[w + 1] * 256)
+    return fn(R["pos_s"][rows].contiguous(), R["mass_s"][rows].contiguous(),
+              R["tgt"], R["ni"], R["nv"], g=1.5, softening=0.02,
+              leaf_lo=e[w], **kw)
+
+
+def _window_counts(R, w):
+    e, ni, nv = R["edges"], R["ni"], R["nv"]
+    lo = torch.sum(nv & (ni < e[w]), dim=1)
+    return torch.sum(nv & (ni < e[w + 1]), dim=1) - lo, lo
+
+
+@pytest.mark.parametrize("mode", ["write", "add"])
+@pytest.mark.parametrize("window", ["heavy", "light"])
+@pytest.mark.parametrize("shape", bh_kernels.WINDOW_SHAPES,
+                         ids=lambda s: f"r{s[0]}c{s[1]}")
+def test_near_field_window_shapes_match_plain(ring_lists, shape, window,
+                                              mode):
+    """K1's window form at each launch shape it can choose (targets a
+    thread x entries an item), on a heavy and a light window, writing its
+    output or adding into one, against its plain version; a second launch
+    from the same start gives the same bits; an added window leaves the
+    rows without entries as they were."""
+    R = ring_lists
+    counts = [int(_window_counts(R, w)[0].sum())
+              for w in range(len(R["edges"]) - 1)]
+    w = 0 if window == "heavy" else min(
+        (c, w) for w, c in enumerate(counts) if c > 0)[1]
+    assert counts[0] > 4 * counts[w] or window == "heavy"
+    c, lo = _window_counts(R, w)
+    r, chunk = shape
+    work = bh_kernels.near_items(c, chunk, lo=lo, r=r,
+                                 every_row=mode == "write")
+    n = R["tgt"].shape[0] * 256
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    start = (torch.randn((n, 3), generator=gen).cuda(),
+             torch.randn((n,), generator=gen).cuda())
+
+    def run(fn=bh_kernels.near_field, **extra):
+        out = None if mode == "write" else tuple(t.clone() for t in start)
+        return _ring_window(R, w, fn, compute_pot=True, out=out, **extra)
+
+    got = run(work=work)
+    for a, b in zip(got, run(bh_kernels.near_field_plain)):
+        _close(a, b)
+    again = run(work=work)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if mode == "add":
+        empty = (c == 0).repeat_interleave(256)
+        assert bool(empty.any())
+        assert torch.equal(got[0][empty], start[0][empty])
+        assert torch.equal(got[1][empty], start[1][empty])
+
+
+@pytest.mark.parametrize("compute_pot", [True, False])
+def test_ring_window_form_accumulates_as_written_and_added(ring_lists,
+                                                           compute_pot):
+    """The ring's windows in pass order (0, 7, 6, ..., 1), the first
+    written and the others added in place, equal the same launches each
+    written and added by torch in that order, bit for bit, at every
+    targets-a-thread (the sum order of a target does not depend on it);
+    the windows shaped by their work (parallel/distributed.ring_windows)
+    match the plain ring."""
+    R = ring_lists
+    n_win = len(R["edges"]) - 1
+    order = [(0 - p) % n_win for p in range(n_win)]
+    items = bh_kernels.near_windows(R["ni"], R["nv"], R["edges"], chunk=8)
+    kw = dict(compute_pot=compute_pot)
+    want = None
+    for w in order:
+        a = _ring_window(R, w, work=items[w], **kw)
+        want = a if want is None else tuple(x + y for x, y in zip(want, a))
+    for r in (1, 2, 4, 8):
+        out = None
+        for w in order:
+            work = dataclasses.replace(items[w], r=r)
+            out = _ring_window(R, w, work=work, out=out, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), r
+    shaped = bh_kernels.near_windows(R["ni"], R["nv"], R["edges"],
+                                     writes=(0,), leaf_size=256)
+    assert shaped[0].every_row and not any(s.every_row for s in shaped[1:])
+    out = plain = None
+    for w in order:
+        out = _ring_window(R, w, work=shaped[w], out=out, **kw)
+        plain = _ring_window(R, w, bh_kernels.near_field_plain, out=plain,
+                             **kw)
+    _close(out[0], plain[0])
+    _close(out[1], plain[1])
+    with pytest.raises(ValueError, match="add into"):
+        _ring_window(R, 1, work=shaped[1], **kw)
 
 
 @pytest.mark.parametrize("cut", [1.0, 0.5])
