@@ -30,7 +30,14 @@ Phases, each of which exits non-zero on failure:
        list), in full at N = 65536 and at N = 262144 with leaf 128, and on
        a scattered (front_packed=False) list;
        each of the four launched twice on the same inputs gives the same
-       bits.
+       bits;
+       K5-K7 (the tensor-core all-pairs kernels of tools/mxu_allpairs.py)
+       at both precisions in full at N = 16384 (Hilbert-sorted Plummer)
+       and, V3 and V1, at N = 1000, launched twice for the same bits, and
+       at 3xTF32 at N = 262144, timed beside their plain versions; then the
+       tool's table (V0 = K3, V3, V1, V4 at one TF32 pass and 3xTF32: rms
+       against the f64 direct sum at N = 16384, ms, bound, share and the
+       MUFU floor at N = 262144), V4 at 3xTF32 below rms 1e-4.
   4. Octet main path: Simulation(cfg, device="cuda") on the N = 1M config,
      then step(1) (per step) and step(16) (two rebuild blocks of 8).
   5. All-pairs path: examples/allpairs_262k.json, step(1) and step(16);
@@ -123,10 +130,12 @@ Each kernel's bound is the least time the card could take for the work of
 this run's inputs: the larger of its FP32 operations over 67 TFLOP/s, its
 rsqrts over the MUFU rate (16 a clock per SM, 1/16 of the FP32 rate) and
 the bytes of its inputs and outputs, each moved once, over 3.35 TB/s (the
-H100 SXM's published rates at 700 W). A monopole pair term without the
-potential is 18 FP32 operations (an FMA as two) and one rsqrt, which the
-MUFU term counts; a quadrupole term 48 (terms.cuh quad_term) and one
-rsqrt, with the share against the former term's 57 printed beside.
+H100 SXM's published rates at 700 W), and for K5-K7 also their
+tensor-core FLOPs over 495 TFLOP/s (dense TF32). A monopole pair term
+without the potential is 18 FP32 operations (an FMA as two) and one
+rsqrt, which the MUFU term counts; a quadrupole term 48 (terms.cuh
+quad_term) and one rsqrt, with the share against the former term's 57
+printed beside.
 share = bound / time.
 K1 is timed on work items built beforehand, K2 and K4 on launch orders
 built beforehand, as the paths build them once per list build; their own
@@ -159,8 +168,9 @@ from parallelnbody_tpu_torch.api import (calibrate_budgets, init_simulation,
                                          make_run)
 from parallelnbody_tpu_torch.config import IC_KINDS, reference_compat_config
 from parallelnbody_tpu_torch.kernels import build
-from parallelnbody_tpu_torch.ops import bh, bh_kernels, direct_kernels
-from parallelnbody_tpu_torch.tools import sass
+from parallelnbody_tpu_torch.ops import (bh, bh_kernels, direct_kernels,
+                                         direct_mma)
+from parallelnbody_tpu_torch.tools import mxu_allpairs, sass
 from parallelnbody_tpu_torch.utils.accuracy import (direct_accel_at,
                                                     rms_force_error_sample)
 
@@ -229,6 +239,17 @@ FLOPS_MONOPOLE = 18         # d 3, r^2 6, w 3, sums 6 (terms.cuh); + 1 rsqrt
 # 57; shares against that count are printed beside ("share_57ops").
 FLOPS_QUADRUPOLE = 48
 FLOPS_QUADRUPOLE_OLD = 57
+# K5-K7 (tools/mxu_allpairs.py FLOPS_PAIR, the same breakdown): V3 and V4
+# off the band 12 (d 3, r^2 6, w 3; the sums on the tensor cores), V1 8
+# (|x_i|^2 + |x_j|^2 1, -2 x_i.x_j 2, max 1, + eps^2 1, w 3), each + 1 for
+# the split of w at 3xTF32; V4's band pairs 18. Their tensor-core FLOPs
+# (W @ [x, y, z, 1] 8 a pair, V1's cross term 6 more, times the passes)
+# over TF32_FLOPS, dense TF32.
+TF32_FLOPS = 495e12
+MMA_KERNELS = {"allpairs_mma_v3": "v3", "allpairs_mma_v1": "v1",
+               "allpairs_mma_v4": "v4"}
+MMA_PARITY_N = 16384        # K5-K7 in full against the plain versions
+MMA_RMS_BOUND = RMS_BOUND_ALLPAIRS  # V4 at 3xTF32 (the others: printed)
 
 KERNELS = {
     "near_field": ("parallelnbody_tpu_torch/csrc/near_field.cu",
@@ -245,6 +266,14 @@ KERNELS = {
                  "parallelnbody_tpu/ops/pallas_direct.py:38"),
     "far_gather": ("parallelnbody_tpu_torch/csrc/far_gather.cu",
                    "parallelnbody_tpu/ops/pallas_bh.py:41"),
+    # The matrix-unit all-pairs kernels of a TPU experiment, run by the
+    # port's tools/mxu_allpairs.py (their launches are that tool's).
+    "allpairs_mma_v3": ("parallelnbody_tpu_torch/csrc/allpairs_mma.cu",
+                        "scripts/mxu_allpairs.py:41"),
+    "allpairs_mma_v1": ("parallelnbody_tpu_torch/csrc/allpairs_mma.cu",
+                        "scripts/mxu_allpairs.py:65"),
+    "allpairs_mma_v4": ("parallelnbody_tpu_torch/csrc/allpairs_mma.cu",
+                        "scripts/mxu_allpairs.py:86"),
 }
 # Each kernel's instantiation on the main path (compute_pot=False, softened;
 # leaf 256: K1 with 8 targets a thread writing its output, K2 and K4 with 4
@@ -255,15 +284,21 @@ MAIN_INSTANCE = {
     "allpairs": "allpairs_kernelILb0ELb0E",
     "far_gather": "far_gather_kernelILi4ELb1ELb0ELb0ELb0E",
 }
+# K5-K7's instantiations (variant code, precision), both precisions.
+MMA_INSTANCE = {
+    (name, p): f"allpairs_mma_kernelILi{direct_mma.VARIANTS[v]}ELi{p}E"
+    for name, v in MMA_KERNELS.items() for p in direct_mma.PRECISIONS}
 
 
 def reset_launch_counts():
     bh_kernels.reset_launch_counts()
     direct_kernels.reset_launch_counts()
+    direct_mma.reset_launch_counts()
 
 
 def launch_counts():
-    return {**bh_kernels.LAUNCHES, **direct_kernels.LAUNCHES}
+    return {**bh_kernels.LAUNCHES, **direct_kernels.LAUNCHES,
+            **direct_mma.LAUNCHES}
 
 
 def log(msg=""):
@@ -274,12 +309,15 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(terms, flops_per_term, n_bytes):
+def bound(terms, flops_per_term, n_bytes, tc_flops=0):
     """The least time for `terms` interaction terms of flops_per_term FP32
-    operations and one rsqrt each, moving n_bytes: bound_ms, bound_by
-    ("operations" or "bytes") and the resource ("fp32", "mufu", "hbm")."""
+    operations (a mean, where terms differ) and one rsqrt each, plus
+    tc_flops on the tensor cores, moving n_bytes: bound_ms, bound_by
+    ("operations" or "bytes") and the resource ("fp32", "mufu", "tensor",
+    "hbm")."""
     secs = {"fp32": terms * flops_per_term / FP32_FLOPS,
-            "mufu": terms / MUFU_RATE, "hbm": n_bytes / HBM_BYTES}
+            "mufu": terms / MUFU_RATE, "tensor": tc_flops / TF32_FLOPS,
+            "hbm": n_bytes / HBM_BYTES}
     res = max(secs, key=secs.get)
     return {"bound_ms": secs[res] * 1e3,
             "bound_by": "bytes" if res == "hbm" else "operations",
@@ -339,8 +377,9 @@ def clocks():
 
 
 def phase_build():
-    """Build and load the kernels; returns {kernel: SASS instructions a pair
-    of its main-path inner loop}."""
+    """Build and load the kernels; returns {kernel: {"sass_per_pair": SASS
+    instructions a pair of its main-path inner loop}} (K5-K7: the loop
+    with HMMA, at 3xTF32, and "sass_per_pair_tf32" at one pass)."""
     t0 = time.perf_counter()
     lib = build.build()
     build.load_library()
@@ -356,12 +395,26 @@ def phase_build():
             raise AssertionError(f"{name}: {len(found)} kernels match "
                                  f"{instance} in the SASS")
         rec = loops[found[0]]
-        per_pair[name] = rec["per_pair"]
+        per_pair[name] = {"sass_per_pair": rec["per_pair"]}
         regs, smem = usage.get(found[0], (None, None))
         log(f"SASS {name} ({instance}): inner loop {rec['instructions']} "
             f"instructions, {rec['pairs']} MUFU.RSQ, {rec['per_pair']:.3f} a "
             f"pair; {regs} registers, {smem} bytes static shared; "
             f"{json.dumps(rec['opcodes'])}")
+    for (name, p), instance in MMA_INSTANCE.items():
+        found = [m for m in loops if instance in m]
+        if len(found) != 1 or "tensor_loop" not in loops[found[0]]:
+            raise AssertionError(f"{name}: no tensor-core loop of {instance} "
+                                 "in the SASS")
+        rec = loops[found[0]]["tensor_loop"]
+        key = "sass_per_pair" if p == 3 else "sass_per_pair_tf32"
+        per_pair.setdefault(name, {})[key] = rec["per_pair"]
+        regs, smem = usage.get(found[0], (None, None))
+        log(f"SASS {name} precision {p} ({instance}): tensor-core loop "
+            f"{rec['instructions']} instructions, {rec['pairs']} MUFU.RSQ, "
+            f"{rec['per_pair']:.3f} a pair (K3: "
+            f"{per_pair['allpairs']['sass_per_pair']:.3f}); {regs} registers, "
+            f"{smem} bytes static shared; {json.dumps(rec['opcodes'])}")
     return per_pair
 
 
@@ -760,6 +813,90 @@ def phase_allpairs_parity(cfg_json):
         held(f"N={PARITY_N} full", PARITY_N, compute_pot)
         held(f"N={ODD_N} full", ODD_N, compute_pot)
     return rec
+
+
+def phase_mma():
+    """K5-K7 (ops/direct_mma.py): each at both precisions against its plain
+    version in full at N = 16384 (Hilbert-sorted Plummer, the tool's
+    accuracy inputs) and launched twice for the same bits, V3 and V1 also
+    at an odd N; at N = 262144 each 3xTF32 kernel against its plain
+    version, timed. Then the tool's table (tools/mxu_allpairs.py: V0 = K3,
+    V3, V1, V4 at precision 1 and 3; rms against the f64 sum at 16384, ms
+    at 262144) with every launch count set to 0 just before and read just
+    after: each of K5-K7 must launch, and V4 at 3xTF32 (and V0) stay below
+    the all-pairs rms bound. Returns {kernel: numbers, launches}."""
+    dev = torch.device(DEVICE)
+    eps = mxu_allpairs.EPS
+    out = {name: {"max_abs_err": 0.0, "deterministic": True}
+           for name in MMA_KERNELS}
+    sorted16 = mxu_allpairs.plummer_sorted(MMA_PARITY_N, dev)
+    odd = init_simulation(SimConfig(n=ODD_N, ic="plummer", softening=eps),
+                          dev, compute_forces=False)
+    for name, v in MMA_KERNELS.items():
+        kernel, plain = direct_mma.WRAPPERS[v], direct_mma.PLAIN[v]
+        cases = [(f"N={MMA_PARITY_N} sorted", sorted16)]
+        if v != "v4":
+            cases.append((f"N={ODD_N}", (odd.pos, odd.mass)))
+        for p in direct_mma.PRECISIONS:
+            kw = dict(softening=eps, precision=p)
+            for label, (pos, mass) in cases:
+                err = max_err(f"{name} precision {p} {label}",
+                              (kernel(pos, mass, **kw),),
+                              (plain(pos, mass, **kw),))
+                out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+                log(f"{name} precision {p} {label}: max abs err {err:.3e}")
+            repeat_equal(f"{name} precision {p}",
+                         lambda: (kernel(*sorted16, **kw),))
+    del sorted16, odd
+    pos, mass = mxu_allpairs.plummer_sorted(mxu_allpairs.N_THROUGHPUT, dev)
+    for name, v in MMA_KERNELS.items():
+        kw = dict(softening=eps, precision=3)
+        got = direct_mma.WRAPPERS[v](pos, mass, **kw)
+        want, out[name]["plain_ms"] = cuda_ms(
+            lambda: direct_mma.PLAIN[v](pos, mass, **kw))
+        err = max_err(f"{name} precision 3 N={pos.shape[0]}", (got,), (want,))
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        log(f"{name} precision 3 N={pos.shape[0]}: max abs err {err:.3e}; "
+            f"plain {out[name]['plain_ms']:.1f} ms")
+        del got, want
+    del pos, mass
+
+    reset_launch_counts()
+    table = mxu_allpairs.table()
+    launches = launch_counts()
+    log(f"mxu_allpairs table: launches {json.dumps(launches)}")
+    by = {(r["kernel"], r["precision"]): r for r in table}
+    for (v, p), r in by.items():
+        if v in ("v0", "v4") and p in (None, 3) and \
+                not r["rms_err"] < MMA_RMS_BOUND:
+            raise AssertionError(f"{r['variant']}: rms {r['rms_err']:.3e} "
+                                 f">= {MMA_RMS_BOUND}")
+    for name, v in MMA_KERNELS.items():
+        if launches[name] <= 0:
+            raise AssertionError(f"mxu_allpairs table: {name} not launched")
+        rec = out[name]
+        rec["launches"] = launches[name]
+        for p, sfx in ((1, "_tf32"), (3, "")):
+            r = by[(v, p)]
+            work = bound(r["pairs"], r["fp32_ops"] / r["pairs"], r["bytes"],
+                         r["tc_flops"])
+            rec.update({f"ms{sfx}": r["ms"], f"rms_err{sfx}": r["rms_err"],
+                        f"pairs_per_s{sfx}": r["pairs_per_s"],
+                        f"bound_ms{sfx}": work["bound_ms"],
+                        f"bound_resource{sfx}": work["bound_resource"],
+                        f"share{sfx}": work["bound_ms"] / r["ms"],
+                        f"floor_share{sfx}": r["mufu_floor_ms"] / r["ms"]})
+        rec["bound_by"] = work["bound_by"]  # 3xTF32's
+        rec.update({"terms": by[(v, 3)]["pairs"],
+                    "band_pairs": by[(v, 3)]["band_pairs"],
+                    "mufu_floor_ms": by[(v, 3)]["mufu_floor_ms"]})
+        log(f"{name} at N={mxu_allpairs.N_THROUGHPUT}: 3xTF32 "
+            f"{rec['ms']:.3f} ms (share {rec['share']:.3f}), TF32 "
+            f"{rec['ms_tf32']:.3f} ms (share {rec['share_tf32']:.3f}); MUFU "
+            f"floor {rec['mufu_floor_ms']:.3f} ms; K3 "
+            f"{by[('v0', None)]['ms']:.3f} ms; rms at N={MMA_PARITY_N} {rec['rms_err']:.3e} / "
+            f"{rec['rms_err_tf32']:.3e}; plain {rec['plain_ms']:.1f} ms")
+    return out
 
 
 def gather_lists_for(cfg, state):
@@ -1956,12 +2093,15 @@ def main():
     kernels = phase_kernel_parity(cfg_json)
     kernels["allpairs"] = phase_allpairs_parity(allpairs_json)
     kernels["far_gather"] = phase_gather_parity(cfg_json)
+    kernels.update(phase_mma())
     for name, value in per_pair.items():
-        kernels[name]["sass_per_pair"] = value
+        kernels[name].update(value)
     # Each kernel's launches are read from the path that carries it.
     launches = phase_octet_path(cfg_json)
     launches["allpairs"] = phase_allpairs_path(allpairs_json)["allpairs"]
     launches["far_gather"] = phase_gather_path(cfg_json)["far_gather"]
+    for name in MMA_KERNELS:
+        launches[name] = kernels[name].pop("launches")
     phase_crossover()
 
     phase_staged_parity(staged_json, kernels)
@@ -1996,7 +2136,7 @@ def main():
          for k, v in dist.items()}))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
-    # No single PyTorch call computes any of the four functions.
+    # No single PyTorch call computes any of the seven functions.
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **kernels[name], "library_ms": None}

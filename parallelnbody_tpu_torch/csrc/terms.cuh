@@ -19,12 +19,12 @@
 // predicated multiplies per pair); r^2 >= eps^2 is never denormal on a
 // softened path, and with GUARD_ZERO a zero r^2 is masked anyway.
 //
-// Tensor cores do not fit these terms: r^2 through |x|^2 + |y|^2 - 2 x.y in
-// TF32 or fp16 loses near-field separations to cancellation, and the rsqrt
-// and the weights are element-wise. A pair is 12 FP32 instructions (3 FADD
-// for d, 3 FFMA for r^2, 3 FMUL for m u and w, 3 FFMA for the sums) and one
-// MUFU.RSQ; the tile routine below amortises the shared-memory load of a
-// source over the R targets a thread holds.
+// A pair is 12 FP32 instructions (3 FADD for d, 3 FFMA for r^2, 3 FMUL for
+// m u and w, 3 FFMA for the sums) and one MUFU.RSQ; the tile routine below
+// amortises the shared-memory load of a source over the R targets a thread
+// holds. Moving the sums (or r^2's cross term) onto the tensor cores
+// (allpairs_mma.cu, K5-K7) runs fewer instructions a pair but ran no
+// faster on the card, and lost accuracy unless re-centred (PERF.md §6).
 
 #pragma once
 

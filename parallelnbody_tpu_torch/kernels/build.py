@@ -38,6 +38,10 @@ _SIGNATURES = (
     ("pnb_allpairs",
      [_VP] * 4 + [_I, _I, _I, _F, _I, _I, _VP], _I),
     ("pnb_allpairs_splits", [_I, _I], _I),
+    ("pnb_allpairs_mma",
+     [_VP] * 4 + [_I, _I, _F, _I, _I, _I, _I, _I, _VP], _I),
+    ("pnb_allpairs_mma_splits", [_I, _I, _I], _I),
+    ("pnb_mma_tf32_probe", [_VP] * 4 + [_I, _I, _VP], _I),
     ("pnb_far_gather",
      [_VP] * 8 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _VP], _I),
     ("pnb_error_string", [_I], ctypes.c_char_p),

@@ -6,7 +6,9 @@
 For every kernel in LIBRARY (default: the library of this checkout's
 sources, built if needed), `cuobjdump -sass` gives the machine code; the
 innermost backward-branch loop that holds the most MUFU.RSQ is the loop over
-sources (one rsqrt a pair or node-target term). Printed, one JSON line per
+sources (one rsqrt a pair or node-target term); for a tensor-core kernel
+(K5-K7) the one that also holds HMMA is reported too (`tensor_loop`: V4's
+band loop runs on the FP32 pipes alone). Printed, one JSON line per
 kernel: its instructions, rsqrts, instructions per pair (instructions /
 MUFU.RSQ), instructions by opcode, and the registers and static shared
 memory that `ptxas -v` reported in the build log kept beside the library
@@ -70,7 +72,8 @@ def _opcode(text):
 def inner_loops(lib_path):
     """{mangled kernel name: {instructions, pairs, per_pair, opcodes,
     text}} for the innermost loop of each kernel that holds the most
-    MUFU.RSQ (pairs = its MUFU.RSQ count)."""
+    MUFU.RSQ (pairs = its MUFU.RSQ count), with `tensor_loop` (the same
+    keys but text) for the one of those with HMMA, where there is one."""
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True).stdout
@@ -89,19 +92,28 @@ def inner_loops(lib_path):
         inner = [(a, b) for a, b in loops
                  if not any(a <= c and d <= b and (c, d) != (a, b)
                             for c, d in loops)]
-        best = None
+        best = tensor = None
         for a, b in inner:
             text = [t for x, t in insns if a <= x <= b]
             body = [_opcode(t) for t in text]
             mufu = sum(op.startswith("MUFU.RSQ") for op in body)
-            if mufu and (best is None or mufu > best["pairs"]):
-                best = {"instructions": len(body), "pairs": mufu,
-                        "per_pair": len(body) / mufu,
-                        "opcodes": dict(collections.Counter(
-                            op.split(".")[0] for op in body).most_common()),
-                        "text": text}
+            if not mufu:
+                continue
+            rec = {"instructions": len(body), "pairs": mufu,
+                   "per_pair": len(body) / mufu,
+                   "opcodes": dict(collections.Counter(
+                       op.split(".")[0] for op in body).most_common()),
+                   "text": text}
+            if best is None or mufu > best["pairs"]:
+                best = rec
+            if "HMMA" in rec["opcodes"] and (tensor is None
+                                             or mufu > tensor["pairs"]):
+                tensor = rec
         if best:
-            out[name] = best
+            out[name] = dict(best)
+            if tensor is not None:
+                out[name]["tensor_loop"] = {k: v for k, v in tensor.items()
+                                            if k != "text"}
     return out
 
 

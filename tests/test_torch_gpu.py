@@ -1,6 +1,7 @@
 """The CUDA kernels K1 (near field), K2 (octet far field), K3 (all-pairs)
 and K4 (gather far field) on the card, on dense and staged lists, and the
-sectioned and staged paths through them.
+sectioned and staged paths through them; K5-K7, the tensor-core all-pairs
+kernels of tools/mxu_allpairs.py, at both precisions.
 
 Every test here is marked `gpu` and skips where torch.cuda.is_available()
 is False. The file imports neither JAX nor the JAX package, so it also runs
@@ -948,3 +949,147 @@ def test_two_gloo_ranks_on_one_card(cuda, comm):
     rms_single = rms_force_error_sample(state.pos, state.mass, single.cpu(),
                                         **kw)
     assert rms < 1.5 * rms_single + 1e-3, (rms, rms_single)
+
+
+# ------------------------------------------------ K5-K7 (tensor cores)
+
+MMA_N = 8192
+
+
+@pytest.fixture(scope="module")
+def mma_inputs(cuda):
+    """Hilbert-sorted Plummer (the tool's inputs) at N = 8192 on the card."""
+    from parallelnbody_tpu_torch.tools import mxu_allpairs
+
+    return mxu_allpairs.plummer_sorted(MMA_N, cuda)
+
+
+def _mma(variant, pos, mass, precision, **kw):
+    from parallelnbody_tpu_torch.ops import direct_mma
+
+    args = dict(softening=0.01, precision=precision, **kw)
+    return (direct_mma.WRAPPERS[variant](pos, mass, **args),
+            direct_mma.PLAIN[variant](pos, mass, **args))
+
+
+@pytest.mark.parametrize("precision", [1, 3])
+@pytest.mark.parametrize("variant", ["v3", "v1", "v4"])
+def test_mma_kernel_matches_plain(mma_inputs, variant, precision):
+    """K5-K7 against their plain versions on the raw sums: the same TF32
+    operands and products; V1's cross term summed as the tensor core sums
+    it (direct_mma.tensor_core_step), the sums over sources in f32."""
+    from parallelnbody_tpu_torch.ops import direct_mma
+
+    direct_mma.reset_launch_counts()
+    got, want = _mma(variant, *mma_inputs, precision)
+    assert direct_mma.LAUNCHES[f"allpairs_mma_{variant}"] == 1
+    _close(got, want)
+
+
+@pytest.mark.parametrize("precision", [1, 3])
+@pytest.mark.parametrize("variant", ["v3", "v1"])
+@pytest.mark.parametrize("n", [1000, 4133])
+def test_mma_kernel_partial_tiles(cuda, variant, precision, n):
+    """V3 and V1 at an n that fills neither the last block of targets nor
+    the last slab of 8 sources: massless zero sources add exactly 0."""
+    g = np.random.default_rng(n)
+    pos = torch.from_numpy(g.standard_normal((n, 3)).astype(np.float32))
+    mass = torch.from_numpy(g.uniform(0.5, 1.5, n).astype(np.float32) / n)
+    got, want = _mma(variant, pos.to(cuda), mass.to(cuda), precision)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("tiles", [(128, 512, 0), (64, 64, 2), (256, 1024, 3)],
+                         ids=["512-band0", "64-band2", "1024-band3"])
+@pytest.mark.parametrize("precision", [1, 3])
+def test_mma_v4_tiles_and_bands(mma_inputs, tiles, precision):
+    """V4 at other function tiles: j-tiles that end inside the kernel's
+    staged tile (64), several per staged tile, and wider bands."""
+    tile_i, tile_j, band_tiles = tiles
+    got, want = _mma("v4", *mma_inputs, precision, tile_i=tile_i,
+                     tile_j=tile_j, band_tiles=band_tiles)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("precision", [1, 3])
+@pytest.mark.parametrize("variant", ["v3", "v1", "v4"])
+def test_mma_kernel_repeat_bit_equal(mma_inputs, variant, precision):
+    """No float atomics: the source ranges' partial sums are added in
+    order, so two launches on the same inputs give the same bits."""
+    from parallelnbody_tpu_torch.ops import direct_mma
+
+    fn = direct_mma.WRAPPERS[variant]
+    first = fn(*mma_inputs, softening=0.01, precision=precision)
+    second = fn(*mma_inputs, softening=0.01, precision=precision)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_mma_wrappers_refuse_on_the_card(mma_inputs):
+    from parallelnbody_tpu_torch.ops import direct_mma
+
+    pos, mass = mma_inputs
+    for fn in direct_mma.WRAPPERS.values():
+        with pytest.raises(TypeError, match="float32 only"):
+            fn(pos.double(), mass.double(), softening=0.01, precision=3)
+    with pytest.raises(ValueError, match="multiple of tile_j"):
+        direct_mma.allpairs_mma_v4(pos[:3000].contiguous(),
+                                   mass[:3000].contiguous(), softening=0.01,
+                                   precision=3)
+    with pytest.raises(ValueError, match="multiple of tile_j"):
+        direct_mma.allpairs_mma_v4(pos, mass, softening=0.01, precision=1,
+                                   tile_i=96, tile_j=512)
+
+
+def test_mma_tool_table_on_the_card(cuda):
+    """tools/mxu_allpairs.py at a small size: a record for each variant,
+    V4 at 3xTF32 and V0 (K3) below the all-pairs rms bound 1e-4."""
+    from parallelnbody_tpu_torch.tools import mxu_allpairs
+
+    recs = mxu_allpairs.table(4096, 8192, iters=2)
+    assert [r["variant"] for r in recs] == [v[0] for v in
+                                            mxu_allpairs.VARIANTS]
+    by = {(r["kernel"], r["precision"]): r for r in recs}
+    assert by[("v4", 3)]["rms_err"] < 1e-4
+    assert by[("v0", None)]["rms_err"] < 1e-4
+    assert all(r["ms"] > 0 and r["share"] > 0 for r in recs)
+
+
+@pytest.mark.parametrize("k", [4, 8])
+@pytest.mark.parametrize("spread", ["positions", "exponents"])
+def test_tensor_core_step_is_the_cards_mma(cuda, k, spread):
+    """direct_mma.tensor_core_step, the model of one TF32 mma.sync that
+    V1's plain version sums its cross term with, gives the card's bits:
+    2000 problems of TF32 operands (position-like, or with exponents over
+    2^-8..2^8 and either sign) and f32 accumulators (zero or random)."""
+    import ctypes
+
+    from parallelnbody_tpu_torch.kernels import build
+    from parallelnbody_tpu_torch.ops import direct_mma
+
+    g = np.random.default_rng(k)
+    n = 2000
+
+    def draw(shape):
+        if spread == "positions":
+            return g.standard_normal(shape) * 0.7
+        return (g.choice([-1.0, 1.0], shape) * g.uniform(1, 2, shape)
+                * 2.0 ** g.integers(-8, 8, shape))
+
+    a = direct_mma.tf32_round(torch.tensor(draw((n, 16, k)),
+                                           dtype=torch.float32))
+    b = direct_mma.tf32_round(torch.tensor(draw((n, k, 8)),
+                                           dtype=torch.float32))
+    c = torch.tensor(draw((n, 16, 8)), dtype=torch.float32)
+    c[: n // 2] = 0.0
+    dev = [t.to(cuda).contiguous() for t in (a, b, c)]
+    d = torch.empty_like(dev[2])
+    lib = build.load_library()
+    err = lib.pnb_mma_tf32_probe(
+        *(ctypes.c_void_p(t.data_ptr()) for t in (*dev, d)), n, k,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert err == 0
+    got = d.cpu()
+    want = torch.stack([direct_mma.tensor_core_step(a[p], b[p].T, c[p])
+                        for p in range(n)])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
