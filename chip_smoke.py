@@ -115,6 +115,24 @@ Phases, each of which exits non-zero on failure:
      flags) differ from the shipped configs.
  16. A one-rank group on the card (the nccl branch of the backend rule):
      one NCCL all_reduce and dist_bh_accel at N = 8192.
+ 17. K8-K11, the near-field experiments of scripts/near_kernel_probe.py
+     and the three scripts/flat_kernel_*.py (ops/near_probe.py,
+     ops/near_flat.py): every instantiation against its plain version and
+     launched twice for the same bits, K8 on the N = 65536 leaf-256 lists
+     (modes A, B, C, E x unroll 4, 8 x 4 or 8 floats a source, 4
+     segments; A also in one), K9-K11 on those lists' flat form (4, 8, 16
+     packs a step, both output modes, with and without the potential) and
+     at the scripts' check sizes (within rtol 2e-4 of each target row's
+     largest |value| plus atol 2e-5: random sources cancel some sums to
+     near zero). Then the tools' tables with every launch count set to 0
+     before and read after (tools/near_kernel_probe.py and
+     tools/flat_kernel.py lists on the N = 1M lists, each row that computes
+     K1's function held to K1; flat_kernel proto, tune, tune2 at the
+     scripts' sizes, each bench launch held to its plain version on 32
+     sampled rows; 3 timed calls each): each of K8-K11 must launch. Last,
+     at N = 1M, each kernel's reported row and K8's modes B and C against
+     their plain versions (elementwise rtol 2e-4 / atol 2e-5), which are
+     timed.
 
 Before each path every launch count is set to 0 and after it the counts
 are read (for a multi-device run, each rank's own counts, from
@@ -169,8 +187,9 @@ from parallelnbody_tpu_torch.api import (calibrate_budgets, init_simulation,
 from parallelnbody_tpu_torch.config import IC_KINDS, reference_compat_config
 from parallelnbody_tpu_torch.kernels import build
 from parallelnbody_tpu_torch.ops import (bh, bh_kernels, direct_kernels,
-                                         direct_mma)
-from parallelnbody_tpu_torch.tools import mxu_allpairs, sass
+                                         direct_mma, near_flat, near_probe)
+from parallelnbody_tpu_torch.tools import (flat_kernel, measure, mxu_allpairs,
+                                           near_kernel_probe, sass)
 from parallelnbody_tpu_torch.utils.accuracy import (direct_accel_at,
                                                     rms_force_error_sample)
 
@@ -250,6 +269,16 @@ MMA_KERNELS = {"allpairs_mma_v3": "v3", "allpairs_mma_v1": "v1",
                "allpairs_mma_v4": "v4"}
 MMA_PARITY_N = 16384        # K5-K7 in full against the plain versions
 MMA_RMS_BOUND = RMS_BOUND_ALLPAIRS  # V4 at 3xTF32 (the others: printed)
+# K8-K11, the near-field experiments (tools/near_kernel_probe.py,
+# tools/flat_kernel.py): parity on the N = 65536 lists and at the scripts'
+# check sizes, the tools' tables at their sizes with EXP_ITERS timed calls.
+EXP_KERNELS = ("near_probe", "flat_near", "flat_tune", "flat_tune2")
+EXP_PARITY_N = 65536
+EXP_ITERS = 3
+# Each kernel's row of the tools' tables reported as its time: the
+# script's own first configuration, on K1's 1M lists.
+EXP_HEADLINE = {"near_probe": "A dyn-idx u4", "flat_near": "P=4",
+                "flat_tune": "P=4 rmw", "flat_tune2": "P=8 step"}
 
 KERNELS = {
     "near_field": ("parallelnbody_tpu_torch/csrc/near_field.cu",
@@ -274,6 +303,17 @@ KERNELS = {
                         "scripts/mxu_allpairs.py:65"),
     "allpairs_mma_v4": ("parallelnbody_tpu_torch/csrc/allpairs_mma.cu",
                         "scripts/mxu_allpairs.py:86"),
+    # The near-field experiments of four TPU scripts, run by the port's
+    # tools/near_kernel_probe.py and tools/flat_kernel.py (their launches
+    # are those tools' tables).
+    "near_probe": ("parallelnbody_tpu_torch/csrc/near_probe.cu",
+                   "scripts/near_kernel_probe.py:33"),
+    "flat_near": ("parallelnbody_tpu_torch/csrc/near_flat.cu",
+                  "scripts/flat_kernel_proto.py:32"),
+    "flat_tune": ("parallelnbody_tpu_torch/csrc/near_flat.cu",
+                  "scripts/flat_kernel_tune.py:28"),
+    "flat_tune2": ("parallelnbody_tpu_torch/csrc/near_flat.cu",
+                   "scripts/flat_kernel_tune2.py:28"),
 }
 # Each kernel's instantiation on the main path (compute_pot=False, softened;
 # leaf 256: K1 with 8 targets a thread writing its output, K2 and K4 with 4
@@ -294,11 +334,14 @@ def reset_launch_counts():
     bh_kernels.reset_launch_counts()
     direct_kernels.reset_launch_counts()
     direct_mma.reset_launch_counts()
+    near_probe.reset_launch_counts()
+    near_flat.reset_launch_counts()
 
 
 def launch_counts():
     return {**bh_kernels.LAUNCHES, **direct_kernels.LAUNCHES,
-            **direct_mma.LAUNCHES}
+            **direct_mma.LAUNCHES, **near_probe.LAUNCHES,
+            **near_flat.LAUNCHES}
 
 
 def log(msg=""):
@@ -2075,6 +2118,197 @@ def phase_distributed(let_json):
         raise AssertionError(f"nccl rank: {got}")
     return res
 
+# ------------------------------------------------- K8-K11 (experiments)
+def rows_close(name, got, want):
+    """measure.rows_close at RTOL / ATOL: within ATOL + RTOL of each target
+    row's largest |value|, as the scripts' random sources cancel some sums
+    to near zero."""
+    torch.cuda.synchronize()
+    return measure.rows_close(name, got, want, RTOL, ATOL)
+
+
+def _scripts_check_inputs(dev):
+    """The scripts' check inputs (tools/flat_kernel.py), masses made
+    positive: [(label, packs, (rows, tgt_t, src))]."""
+    import numpy as np
+
+    cases = [("proto check", 4, flat_kernel.proto_check_inputs(dev))]
+    for packs, fa in flat_kernel.tune2_check_inputs(
+            np.random.default_rng(0), dev):
+        fa[2][:, :, 3].abs_()
+        cases.append((f"tune2 check P={packs}", packs, fa))
+    return cases
+
+
+def _flat_variants(packs):
+    """(kernel, variant, wrapper, plain, keywords) of K9-K11 at packs."""
+    out = [("flat_near", "", near_flat.flat_near, near_flat.flat_near_plain,
+            {})] if packs == near_flat.PROTO_PACKS else []
+    out += [("flat_tune", m, near_flat.flat_tune, near_flat.flat_tune_plain,
+             {"step_packs": packs, "out_mode": m})
+            for m in near_flat.OUT_MODES]
+    out += [("flat_tune2", m, near_flat.flat_tune2,
+             near_flat.flat_tune2_plain, {"step_packs": packs, "mode": m})
+            for m in near_flat.LANE_MODES]
+    return out
+
+
+def phase_near_experiments():
+    """K8 (near_probe) and K9-K11 (flat_near, flat_tune, flat_tune2), the
+    near-field experiments of four TPU scripts. Each instantiation against
+    its plain version and launched twice for the same bits: K8's modes,
+    unrolls and strides on the N = 65536 leaf-256 lists (4 segments, and A
+    in one); K9-K11 on those lists' flat form (each step size, both output
+    modes, with and without the potential) and at the scripts' check sizes
+    (the row-scale bound of rows_close; K11's two modes within the script's
+    1e-3). Then, with every launch count set to 0 before and read after,
+    the tools' tables: near_kernel_probe and flat_kernel lists on the N = 1M
+    lists (every row that computes K1's function held to K1), flat_kernel
+    proto, tune and tune2 at the scripts' sizes, each bench launch held to
+    its plain version on sampled rows); each of K8-K11 must launch. Last,
+    at N = 1M, each kernel's headline row and K8's B and C against their
+    plain versions, which are timed. Returns {kernel: numbers,
+    launches}."""
+    dev = torch.device(DEVICE)
+    out = {name: {"max_abs_err": 0.0, "deterministic": True}
+           for name in EXP_KERNELS}
+
+    def held(name, label, call, plain, rows_scale=False):
+        got = call()
+        err = (rows_close(f"{name} {label}", got, plain()) if rows_scale
+               else max_err(f"{name} {label}", (got,), (plain(),)))
+        repeat_equal(f"{name} {label}", lambda: (call(),))
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        log(f"{name} {label}: max abs err {err:.3e}; repeat bit-equal")
+        return got
+
+    L = near_kernel_probe.probe_lists(EXP_PARITY_N, dev)
+    n_leaves = L["tgt_t"].shape[0]
+    args = (L["tgt_t"], L["table"], L["idx"], L["valid"])
+    for mode in near_probe.MODES:
+        for unroll in near_probe.UNROLLS:
+            for n_comp in near_probe.N_COMPS:
+                for seg in ((4, 1) if (mode, unroll, n_comp) == ("A", 4, 4)
+                            else (4,)):
+                    kw = dict(mode=mode, unroll=unroll, n_comp=n_comp,
+                              rows_per_seg=n_leaves // seg)
+                    held("near_probe", f"N={EXP_PARITY_N} {kw}",
+                         lambda: near_probe.near_probe(*args, **kw),
+                         lambda: near_probe.near_probe_plain(*args, **kw))
+    for packs in near_flat.STEP_PACKS:
+        rows, src, _, _ = near_flat.pack_lists(
+            L["table"].transpose(1, 2), L["idx"], L["valid"], packs)
+        fa = (rows, L["tgt_t"], src)
+        for name, variant, fn, plain, kw in _flat_variants(packs):
+            for pot in (True, False):
+                kw2 = dict(kw, compute_pot=pot, eps2=1e-4)
+                held(name, f"N={EXP_PARITY_N} lists P={packs} {variant} "
+                     f"pot={pot}", lambda: fn(*fa, **kw2),
+                     lambda: plain(*fa, **kw2))
+        del rows, src, fa
+    for label, packs, fa in _scripts_check_inputs(dev):
+        if packs == near_flat.PROTO_PACKS and label == "proto check":
+            for gz in (False, True):
+                for pot in (True, False):
+                    kw = dict(eps2=0.0 if gz else 1e-2, guard_zero=gz,
+                              compute_pot=pot)
+                    held("flat_near", f"{label} {kw}",
+                         lambda: near_flat.flat_near(*fa, **kw),
+                         lambda: near_flat.flat_near_plain(*fa, **kw), True)
+            continue
+        lanes = {}
+        for name, variant, fn, plain, kw in _flat_variants(packs):
+            if name == "flat_near":
+                continue
+            got = held(name, f"{label} {variant}", lambda: fn(*fa, **kw),
+                       lambda: plain(*fa, **kw), True)
+            lanes[variant] = got
+        diff = float((lanes["step"] - lanes["row"]).abs().max())
+        if not diff < 1e-3:
+            raise AssertionError(f"{label}: K11 step vs row {diff:.3e}")
+    del L, args
+    torch.cuda.empty_cache()
+
+    L1 = near_kernel_probe.probe_lists(near_kernel_probe.N, dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    table = near_kernel_probe.table(iters=EXP_ITERS, lists=L1)
+    table += flat_kernel.lists(iters=EXP_ITERS, L=L1)
+    for sub in ("proto", "tune", "tune2"):
+        table += flat_kernel.SUBCOMMANDS[sub](EXP_ITERS)
+    launches = launch_counts()
+    log(f"experiment tables ({time.perf_counter() - t0:.1f} s): launches "
+        f"{json.dumps({k: launches[k] for k in EXP_KERNELS})}")
+    rows = {(r.get("kernel", "near_probe"), r.get("sub"), r["variant"]): r
+            for r in table if "ms" in r and "variant" in r
+            and r["variant"] != "K1 near_field"}
+    for name in EXP_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"experiment tables: {name} not launched")
+        sub = None if name == "near_probe" else "lists"
+        head = rows[(name, sub, EXP_HEADLINE[name])]
+        rec = out[name]
+        rec.update({k: head[k] for k in ("ms", "bound_ms", "bound_by",
+                                         "bound_resource", "share",
+                                         "pairs")})
+        rec["launches"] = launches[name]
+        rec["headline"] = EXP_HEADLINE[name]
+        rec["k1_ms"] = head["k1_ms"]
+        rec["max_abs_err_vs_k1"] = max(
+            r["max_abs_err_vs_k1"] for k, r in rows.items()
+            if k[0] == name and r.get("max_abs_err_vs_k1") is not None)
+        rec["max_abs_err"] = max(
+            [rec["max_abs_err"]] + [r["max_abs_err_vs_plain"]
+                                    for k, r in rows.items() if k[0] == name
+                                    and "max_abs_err_vs_plain" in r])
+        rec["variants_ms"] = {f"{k[1] or 'probe'} {k[2]}": r["ms"]
+                              for k, r in rows.items() if k[0] == name}
+    del table
+
+    # At N = 1M: the headline launch of each kernel, and K8's B and C
+    # (checked against nothing else there), against the plain version.
+    a1 = (L1["tgt_t"], L1["table"], L1["idx"], L1["valid"])
+    for mode in ("A", "B", "C"):
+        kw = dict(mode=mode, unroll=4, rows_per_seg=a1[0].shape[0] // 4)
+        want, plain_ms = cuda_ms(lambda: near_probe.near_probe_plain(*a1,
+                                                                     **kw))
+        err = max_err(f"near_probe N = 1M {mode} u4",
+                      (near_probe.near_probe(*a1, **kw),), (want,))
+        out["near_probe"]["max_abs_err"] = max(
+            out["near_probe"]["max_abs_err"], err)
+        if mode == "A":
+            out["near_probe"]["plain_ms"] = plain_ms
+        log(f"near_probe N = 1M {mode} u4 against its plain version: max abs "
+            f"err {err:.3e}; plain {plain_ms:.1f} ms")
+        del want
+    eps2 = near_kernel_probe.SOFTENING ** 2
+    for name in EXP_KERNELS[1:]:
+        packs = int(EXP_HEADLINE[name].split()[0][2:])
+        rows_, src, _, _ = near_flat.pack_lists(
+            L1["table"].transpose(1, 2), L1["idx"], L1["valid"], packs)
+        (_, _, fn, plain, kw), = [
+            v for v in _flat_variants(packs)
+            if v[0] == name and (v[1] in EXP_HEADLINE[name] or not v[1])]
+        fa = (rows_, L1["tgt_t"], src)
+        want, out[name]["plain_ms"] = cuda_ms(
+            lambda: plain(*fa, eps2=eps2, **kw))
+        err = max_err(f"{name} N = 1M {EXP_HEADLINE[name]}",
+                      (fn(*fa, eps2=eps2, **kw),), (want,))
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        log(f"{name} N = 1M {EXP_HEADLINE[name]} against its plain version: "
+            f"max abs err {err:.3e}")
+        del rows_, src, fa, want
+    for name in EXP_KERNELS:
+        rec = out[name]
+        log(f"{name} ({rec['headline']}, N = 1M lists): {rec['ms']:.3f} ms, "
+            f"bound {rec['bound_ms']:.3f} ms, share {rec['share']:.3f}; K1 "
+            f"{rec['k1_ms']:.3f} ms; plain {rec['plain_ms']:.1f} ms; "
+            f"launches {rec['launches']}; max abs err vs plain "
+            f"{rec['max_abs_err']:.3e}, vs K1 {rec['max_abs_err_vs_k1']:.3e}")
+    del L1, a1
+    torch.cuda.empty_cache()
+    return out
+
 
 def main():
     t_start = time.perf_counter()
@@ -2131,12 +2365,15 @@ def main():
         "near_field_window"]
     launches["near_field_table"] = dist["LET example"]["launches"][
         "near_field_table"]
+    kernels.update(phase_near_experiments())
+    for name in EXP_KERNELS:
+        launches[name] = kernels[name].pop("launches")
     log("distributed runs (ranks sharing one card): " + json.dumps(
         {k: {m: v[m] for m in ("ms_step", "wall_s") if m in v}
          for k, v in dist.items()}))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
-    # No single PyTorch call computes any of the seven functions.
+    # No single PyTorch call computes any of the eleven functions.
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **kernels[name], "library_ms": None}

@@ -387,6 +387,18 @@ def make_ring_mesh(n_devices: int | None = None, device="cuda",
     return RankPool(n_devices, device, **kw)
 
 
+def make_multislice_ring_mesh(ici: int, dcn: int, device="cuda",
+                              **kw) -> RankPool:
+    """The ring of ici * dcn ranks in slice-major order, started here
+    through make_ring_mesh: rank r is position r % ici of slice r // ici,
+    so a full ring rotation crosses a slice boundary dcn times.
+    Counterpart of the JAX package's make_multislice_ring_mesh (whose
+    device order on one host is the same contiguous partition)."""
+    if ici < 1 or dcn < 1:
+        raise ValueError(f"ici {ici} and dcn {dcn} must be at least 1")
+    return make_ring_mesh(ici * dcn, device, **kw)
+
+
 def state_pspecs(axis: str = "ring") -> SimState:
     """Which SimState fields are sharded over the ranks (`axis`) and which
     are replicated (None): the particle arrays and the scalars."""

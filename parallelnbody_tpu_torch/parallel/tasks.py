@@ -10,6 +10,9 @@ they run.
                                                      evaluation's integer
                                                      outputs (ownership,
                                                      lists, LET plan)
+    ring_neighbour(group)                            the rank a ring shift
+                                                     brings this rank's
+                                                     value from
 
 `arrays` is a full state as numpy arrays (state.state_to_numpy), every rank
 taking its rows; None makes every rank draw the config's ICs itself.
@@ -34,6 +37,14 @@ def local_state(group, cfg: SimConfig, arrays):
     else:
         full = state_from_numpy(arrays, "cpu", torch_dtype(cfg.dtype))
     return mesh.shard_state(full, group)
+
+
+def ring_neighbour(group):
+    """(rank, world size, the rank whose value one ring shift brings
+    here): the ring order of a rank pool."""
+    got = group.shift_start(torch.tensor([group.rank],
+                                         device=group.device)).wait()
+    return group.rank, group.world_size, int(got[0])
 
 
 def sharded(group, cfg_json, arrays, program, n_steps=1,

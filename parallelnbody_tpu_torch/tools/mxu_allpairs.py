@@ -29,8 +29,6 @@ fails without one. chip_smoke.py runs `table` and reads its lines.
 from __future__ import annotations
 
 import argparse
-import json
-import subprocess
 import sys
 
 import torch
@@ -40,18 +38,16 @@ from parallelnbody_tpu_torch.api import init_simulation
 from parallelnbody_tpu_torch.ops import direct_kernels, direct_mma
 from parallelnbody_tpu_torch.ops.bh import domain_cube
 from parallelnbody_tpu_torch.ops.hilbert import hilbert_encode
+from parallelnbody_tpu_torch.tools.measure import (FP32_FLOPS, HBM_BYTES,
+                                                   ITERS, MUFU_RATE,
+                                                   TF32_FLOPS, card, emit,
+                                                   events_ms)
 
 EPS = 0.01
 N_ACCURACY = 16384
 N_THROUGHPUT = 262144
-ITERS = 10
 REF_BLOCK = 2048            # target rows a block of the f64 direct sum
 
-# The H100 SXM's published rates at 700 W.
-FP32_FLOPS = 67e12          # FP32 outside the tensor cores
-MUFU_RATE = FP32_FLOPS / 16  # rsqrt/s
-TF32_FLOPS = 495e12         # dense TF32 on the tensor cores
-HBM_BYTES = 3.35e12
 # FP32 operations a pair (an FMA as two) beside chip_smoke.py's
 # FLOPS_MONOPOLE = 18 (d 3, r^2 6, w 3, sums 6), and one rsqrt each:
 #   V3, V4 off the band: d 3, r^2 6, w 3; the sums on the tensor cores;
@@ -68,14 +64,6 @@ TC_FLOPS_PAIR = {"v3": 8, "v1": 14, "v4": 8}
 VARIANTS = [("V0 K3", "v0", None)] + [
     (f"{v.upper()} {'TF32' if p == 1 else '3xTF32'}", v, p)
     for v in ("v3", "v1", "v4") for p in direct_mma.PRECISIONS]
-
-
-def card():
-    """The card's name and power limit as nvidia-smi prints them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def hsort(pos, mass):
@@ -157,20 +145,6 @@ def bound(w):
             "bound_resource": res, "mufu_floor_ms": secs["mufu"] * 1e3}
 
 
-def events_ms(fn, iters=ITERS):
-    """Mean device ms of iters calls of fn() after one warm-up call, by
-    CUDA events."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def table(n_accuracy=N_ACCURACY, n_throughput=N_THROUGHPUT, iters=ITERS,
           out=None):
     """Runs every variant's accuracy and throughput; prints and returns one
@@ -202,11 +176,7 @@ def table(n_accuracy=N_ACCURACY, n_throughput=N_THROUGHPUT, iters=ITERS,
         rec["share"] = rec["bound_ms"] / ms
         rec["floor_share"] = rec["mufu_floor_ms"] / ms
         rec["card"] = smi
-        line = json.dumps(rec)
-        print(line, flush=True)
-        if out:
-            with open(out, "a") as f:
-                f.write(line + "\n")
+        emit(rec, out)
         records.append(rec)
     return records
 

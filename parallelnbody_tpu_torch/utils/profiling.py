@@ -40,10 +40,30 @@ def profile_trace(log_dir: str | None):
         prof.export_chrome_trace(str(out / "trace.json"))
 
 
-def force_sync(t: torch.Tensor) -> float:
-    """Wait for the work behind tensor `t` and return its first element as
-    a host float: a device synchronize where t lies on a CUDA device, then
-    one host read."""
+def _first_tensor(tree) -> torch.Tensor | None:
+    """The first tensor leaf of a tensor, a NamedTuple (such as SimState), a
+    tuple, a list or a dict (by sorted key), depth first: the order in which
+    jax.tree.leaves lists a pytree's leaves. None where there is none."""
+    if isinstance(tree, torch.Tensor):
+        return tree
+    items = [tree[k] for k in sorted(tree)] if isinstance(tree, dict) else \
+        tree if isinstance(tree, (tuple, list)) else ()
+    for item in items:
+        t = _first_tensor(item)
+        if t is not None:
+            return t
+    return None
+
+
+def force_sync(tree) -> float:
+    """Wait for the work behind `tree` (a tensor, or a NamedTuple, tuple,
+    list or dict holding tensors) and return its first tensor leaf's first
+    element as a host float: a device synchronize where that tensor lies on
+    a CUDA device, then one host read. Counterpart of the JAX package's
+    force_sync, which takes any pytree."""
+    t = _first_tensor(tree)
+    if t is None:
+        raise ValueError(f"force_sync: no tensor in {type(tree).__name__}")
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     return float(t.reshape(-1)[0])

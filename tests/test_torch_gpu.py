@@ -1,7 +1,9 @@
 """The CUDA kernels K1 (near field), K2 (octet far field), K3 (all-pairs)
 and K4 (gather far field) on the card, on dense and staged lists, and the
 sectioned and staged paths through them; K5-K7, the tensor-core all-pairs
-kernels of tools/mxu_allpairs.py, at both precisions.
+kernels of tools/mxu_allpairs.py, at both precisions; K8-K11, the
+near-field experiments of tools/near_kernel_probe.py and
+tools/flat_kernel.py, against their plain versions and against K1.
 
 Every test here is marked `gpu` and skips where torch.cuda.is_available()
 is False. The file imports neither JAX nor the JAX package, so it also runs
@@ -1093,3 +1095,161 @@ def test_tensor_core_step_is_the_cards_mma(cuda, k, spread):
     want = torch.stack([direct_mma.tensor_core_step(a[p], b[p].T, c[p])
                         for p in range(n)])
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# --------------------------------------- K8-K11 (near-field experiments)
+@pytest.fixture(scope="module")
+def probe_inputs(cuda):
+    """K1's lists at N = 65536, leaf 256, theta 0.72 (the probe tool's,
+    built on the card), and their flat form at each step size."""
+    from parallelnbody_tpu_torch.ops import near_flat
+    from parallelnbody_tpu_torch.tools import near_kernel_probe as probe
+
+    L = probe.probe_lists(65536, cuda)
+    L["flat"] = {p: near_flat.pack_lists(L["table"].transpose(1, 2),
+                                         L["idx"], L["valid"], p)[:2]
+                 for p in near_flat.STEP_PACKS}
+    return L
+
+
+def _probe_args(L):
+    return L["tgt_t"], L["table"], L["idx"], L["valid"]
+
+
+@pytest.mark.parametrize("segments", [1, 4])
+@pytest.mark.parametrize("n_comp", [4, 8])
+@pytest.mark.parametrize("unroll", [4, 8])
+@pytest.mark.parametrize("mode", ["A", "B", "C", "E"])
+def test_near_probe_kernel_matches_plain(probe_inputs, mode, unroll, n_comp,
+                                         segments):
+    from parallelnbody_tpu_torch.ops import near_probe
+
+    n_leaves = probe_inputs["tgt_t"].shape[0]
+    kw = dict(mode=mode, unroll=unroll, n_comp=n_comp,
+              rows_per_seg=n_leaves // segments)
+    args = _probe_args(probe_inputs)
+    got = near_probe.near_probe(*args, **kw)
+    _close(got, near_probe.near_probe_plain(*args, **kw))
+    assert torch.equal(got, near_probe.near_probe(*args, **kw))
+
+
+def test_near_probe_mode_a_equals_k1(probe_inputs):
+    """Mode A over 4 segments, the segment base subtracted, sums K1's
+    pairs: its acceleration equals K1's kernel (g = 1, no potential)."""
+    from parallelnbody_tpu_torch.ops import near_probe
+
+    L = probe_inputs
+    n_leaves, g, _ = L["tgt"].shape
+    acc, _ = bh_kernels.near_field(L["pos_s"], L["mass_s"], L["tgt"],
+                                   L["idx"], L["valid"], g=1.0,
+                                   softening=0.01, compute_pot=False)
+    got = near_probe.near_probe(*_probe_args(L), mode="A", unroll=4,
+                                rows_per_seg=n_leaves // 4)
+    _close(got[:, :3], acc.reshape(n_leaves, g, 3).transpose(1, 2))
+    assert not got[:, 3].any()
+
+
+def _flat_call(kernel, L, packs, variant, compute_pot, eps2=1e-4):
+    from parallelnbody_tpu_torch.ops import near_flat
+
+    rows, src = L["flat"][packs]
+    fn = {"K9": near_flat.flat_near, "K10": near_flat.flat_tune,
+          "K11": near_flat.flat_tune2}[kernel]
+    plain = {"K9": near_flat.flat_near_plain,
+             "K10": near_flat.flat_tune_plain,
+             "K11": near_flat.flat_tune2_plain}[kernel]
+    kw = dict(eps2=eps2, compute_pot=compute_pot)
+    if kernel == "K10":
+        kw.update(step_packs=packs, out_mode=variant)
+    elif kernel == "K11":
+        kw.update(step_packs=packs, mode=variant)
+    args = (rows, L["tgt_t"], src)
+    return (lambda: fn(*args, **kw)), (lambda: plain(*args, **kw))
+
+
+@pytest.mark.parametrize("compute_pot", [True, False])
+@pytest.mark.parametrize("kernel,packs,variant",
+                         [("K9", 4, None)]
+                         + [("K10", p, m) for p in (4, 8, 16)
+                            for m in ("rmw", "steps")]
+                         + [("K11", p, m) for p in (4, 8, 16)
+                            for m in ("step", "row")])
+def test_flat_kernels_match_plain_on_k1s_lists(probe_inputs, kernel, packs,
+                                               variant, compute_pot):
+    """Each flat kernel on the flat form of K1's N = 65536 lists against
+    its plain version; launched twice, the same bits."""
+    call, plain = _flat_call(kernel, probe_inputs, packs, variant,
+                             compute_pot)
+    got = call()
+    _close(got, plain())
+    assert torch.equal(got, call())
+    if not compute_pot:
+        assert not got[:, 3].any()
+
+
+@pytest.mark.parametrize("kernel,packs,variant",
+                         [("K9", 4, None), ("K10", 4, "steps"),
+                          ("K11", 16, "row")])
+def test_flat_kernels_equal_k1(probe_inputs, kernel, packs, variant):
+    """The flat form holds K1's pairs plus zero-mass padding: each kernel's
+    sums equal K1's (acceleration, and the potential sum negated)."""
+    L = probe_inputs
+    n_leaves, g, _ = L["tgt"].shape
+    acc, pot = bh_kernels.near_field(L["pos_s"], L["mass_s"], L["tgt"],
+                                     L["idx"], L["valid"], g=1.0,
+                                     softening=0.01, compute_pot=True)
+    want = torch.cat([acc.reshape(n_leaves, g, 3),
+                      -pot.reshape(n_leaves, g, 1)], dim=2).transpose(1, 2)
+    call, _ = _flat_call(kernel, L, packs, variant, True)
+    _close(call(), want)
+
+
+def test_flat_out_modes_agree_bit_for_bit(probe_inputs):
+    """K10 "steps" adds each row's step partials in step order, the sum
+    "rmw" carries: the same bits."""
+    rmw, _ = _flat_call("K10", probe_inputs, 8, "rmw", True)
+    steps, _ = _flat_call("K10", probe_inputs, 8, "steps", True)
+    assert torch.equal(rmw(), steps())
+
+
+@pytest.mark.parametrize("packs", [4, 8, 16])
+def test_flat_kernels_on_the_scripts_correctness_sizes(cuda, packs):
+    """The shapes of the scripts' own checks (flat_kernel_tune2.py: 64
+    rows, poisson(6) sub-tiles a row, G = 256; masses made positive, as
+    flat_kernel_proto.py's check makes them): K10 and K11 against their
+    plain versions within rtol 2e-4 of each row's largest |value| plus
+    atol 2e-5 (random sources cancel some sums to near zero, where two
+    f32 orders of 2048 terms of up to ~100 differ by ~1e-4), K11's two
+    modes within the script's 1e-3 of each other."""
+    from parallelnbody_tpu_torch.ops import near_flat
+    from parallelnbody_tpu_torch.tools import flat_kernel
+
+    args = dict(flat_kernel.tune2_check_inputs(np.random.default_rng(0),
+                                               cuda))[packs]
+    args[2][:, :, 3].abs_()
+    outs = {}
+    for fn, plain, key, modes in (
+            (near_flat.flat_tune, near_flat.flat_tune_plain, "out_mode",
+             near_flat.OUT_MODES),
+            (near_flat.flat_tune2, near_flat.flat_tune2_plain, "mode",
+             near_flat.LANE_MODES)):
+        for m in modes:
+            kw = {"step_packs": packs, key: m}
+            outs[m] = got = fn(*args, **kw)
+            want = plain(*args, **kw)
+            scale = want.abs().amax(dim=(1, 2), keepdim=True)
+            assert bool(((got - want).abs() <= ATOL + RTOL * scale).all())
+    assert float((outs["step"] - outs["row"]).abs().max()) < 1e-3
+
+
+def test_flat_wrappers_refuse_on_the_card(probe_inputs):
+    from parallelnbody_tpu_torch.ops import near_flat
+
+    rows, src = probe_inputs["flat"][4]
+    bad = rows.clone()
+    bad[bad == 3] = 2                           # row 3 owns no step
+    with pytest.raises(ValueError, match="ascend"):
+        near_flat.flat_near(bad, probe_inputs["tgt_t"], src, eps2=1e-4)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        near_flat.flat_tune2(rows, probe_inputs["tgt_t"][:, :, :48].
+                             contiguous(), src, step_packs=4, mode="row")
