@@ -133,6 +133,26 @@ Phases, each of which exits non-zero on failure:
      at N = 1M, each kernel's reported row and K8's modes B and C against
      their plain versions (elementwise rtol 2e-4 / atol 2e-5), which are
      timed.
+ 18. In a process of its own (this script with --geometry-tools FILE,
+     run between phases 13 and 14; by then this process's profiler loses
+     CUDA activity records), the per-phase Barnes-Hut tools, each with
+     every launch count set to 0 before and read after, their JSON lines
+     kept in
+     build/chip_smoke_tools.jsonl: tools/bh_breakdown.py in the script's
+     gather mode at N = 1M, in octet mode on examples/barneshut_1m_reuse.json
+     (calibrated) with --rebuild 8, and on examples/barneshut_8m.json
+     (staged, calibrated), each phase's events ms, busy ms and share and
+     the per-step and rebuild-8 rows printed; tools/li_profile.py;
+     tools/staged_probe.py --mode phases at 1M; tools/octet_probe.py
+     --set 8m and --set probe --quick; tools/reuse_probe.py at 1M, --k 16;
+     tools/theta_sweep.py. Fails where the composed phases differ from
+     bh_accel beyond rtol 2e-4 / atol 2e-5, a calibrated run (the two
+     --config breakdowns, reuse_probe's timed runs) overflows, a tool
+     does not launch K1, K2, K4 or K3 where it runs them, or a busy
+     reading is not whole (tools/measure.py busy_reading: its device
+     records fewer than its launch calls, or other than one of each port
+     kernel the wrappers counted) in 3 tries. First, the 1M octet path's
+     per-step ms and busy share read afresh in that process.
 
 Before each path every launch count is set to 0 and after it the counts
 are read (for a multi-device run, each rank's own counts, from
@@ -188,8 +208,11 @@ from parallelnbody_tpu_torch.config import IC_KINDS, reference_compat_config
 from parallelnbody_tpu_torch.kernels import build
 from parallelnbody_tpu_torch.ops import (bh, bh_kernels, direct_kernels,
                                          direct_mma, near_flat, near_probe)
-from parallelnbody_tpu_torch.tools import (flat_kernel, measure, mxu_allpairs,
-                                           near_kernel_probe, sass)
+from parallelnbody_tpu_torch.tools import (bh_breakdown, flat_kernel,
+                                           li_profile, measure, mxu_allpairs,
+                                           near_kernel_probe, octet_probe,
+                                           reuse_probe, sass, staged_probe,
+                                           theta_sweep)
 from parallelnbody_tpu_torch.utils.accuracy import (direct_accel_at,
                                                     rms_force_error_sample)
 
@@ -275,6 +298,9 @@ MMA_RMS_BOUND = RMS_BOUND_ALLPAIRS  # V4 at 3xTF32 (the others: printed)
 EXP_KERNELS = ("near_probe", "flat_near", "flat_tune", "flat_tune2")
 EXP_PARITY_N = 65536
 EXP_ITERS = 3
+TOOL_ITERS = 3              # timed calls a phase in the geometry tools
+TOOLS_LOG = os.path.join(ROOT, "build", "chip_smoke_tools.jsonl")
+GEOMETRY_TOOLS_ARG = "--geometry-tools"   # phase 18 alone (a child process)
 # Each kernel's row of the tools' tables reported as its time: the
 # script's own first configuration, on K1's 1M lists.
 EXP_HEADLINE = {"near_probe": "A dyn-idx u4", "flat_near": "P=4",
@@ -472,22 +498,6 @@ def cuda_ms(fn, reps=1):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end) / reps
-
-
-def device_ms(fn):
-    """The device time (ms) of the kernels and copies that one call of fn()
-    runs, summed from torch.profiler's CUDA activity; None where the
-    profiler records no device activity. Beside the call's time on the
-    events clock it gives the device's busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    busy = sum(getattr(e, "self_device_time_total", 0)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy / 1e3 if busy > 0 else None
 
 
 def busy_share(dev_ms, ms):
@@ -1139,8 +1149,8 @@ def phase_octet_path(cfg_json):
                                (1, REUSE_STEPS), RMS_BOUND)
     _, ms_step = cuda_ms(lambda: sim.step(1), STEP_REPS)
     _, ms_block = cuda_ms(lambda: sim.step(REUSE_STEPS))
-    dev_step = device_ms(lambda: sim.step(1))
-    dev_block = device_ms(lambda: sim.step(REUSE_STEPS))
+    dev_step = measure.busy_ms(lambda: sim.step(1))
+    dev_block = measure.busy_ms(lambda: sim.step(REUSE_STEPS))
     ms_reuse = ms_block / REUSE_STEPS
     log(f"octet path: ms/step at N={cfg.n}: per-step {ms_step:.2f} (mean of "
         f"{STEP_REPS} step(1)), rebuild every {cfg.bh_rebuild_every} "
@@ -1199,7 +1209,7 @@ def phase_gather_path(cfg_json):
                              f"{int(og)} / {int(oo)}")
 
     _, ms_step = cuda_ms(lambda: sim.step(1), STEP_REPS)
-    dev_step = device_ms(lambda: sim.step(1))
+    dev_step = measure.busy_ms(lambda: sim.step(1))
     log(f"gather path: ms/step at N={cfg.n}: {ms_step:.2f} (mean of "
         f"{STEP_REPS} step(1); gather rebuilds the lists every step); device "
         f"busy per step {dev_step or float('nan'):.2f} ms (share "
@@ -1393,8 +1403,8 @@ def phase_staged_path(staged_json):
         f"{c.bh_cand2_budget} cand1 {c.bh_cand_budget}")
     _, ms_step = cuda_ms(lambda: sim.step(1), STAGED_STEP_REPS)
     _, ms_block = cuda_ms(lambda: sim.step(REUSE_STEPS))
-    dev_step = device_ms(lambda: sim.step(1))
-    dev_block = device_ms(lambda: sim.step(REUSE_STEPS))
+    dev_step = measure.busy_ms(lambda: sim.step(1))
+    dev_block = measure.busy_ms(lambda: sim.step(REUSE_STEPS))
     ms_reuse = ms_block / REUSE_STEPS
     log(f"staged path: ms/step at N={cfg.n}: per-step {ms_step:.2f} (mean of "
         f"{STAGED_STEP_REPS} step(1)), rebuild every {c.bh_rebuild_every} "
@@ -1434,7 +1444,7 @@ def phase_staged_path(staged_json):
                              f"overflow {int(og)} / {int(oo)}")
     del ag, ao
     _, ms_g = cuda_ms(lambda: gsim.step(1), STAGED_STEP_REPS)
-    dev_g = device_ms(lambda: gsim.step(1))
+    dev_g = measure.busy_ms(lambda: gsim.step(1))
     log(f"staged gather path: ms/step at N={cfg.n}: {ms_g:.2f} (mean of "
         f"{STAGED_STEP_REPS} step(1)); device busy per step "
         f"{dev_g or float('nan'):.2f} ms (share {busy_share(dev_g, ms_g)})")
@@ -2309,6 +2319,158 @@ def phase_near_experiments():
     torch.cuda.empty_cache()
     return out
 
+# ------------------------------------- per-phase geometry tools (phase 18)
+def run_tool(label, fn, need):
+    """fn() (a tool's main) with its JSON lines kept in TOOLS_LOG instead
+    of standard output, every launch count set to 0 just before and read
+    just after; fails unless each kernel of `need` was launched. Returns
+    (records, launches)."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        records = fn()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    with open(TOOLS_LOG, "a") as f:
+        f.write(buf.getvalue())
+    log(f"{label}: {time.perf_counter() - t0:.1f} s, {len(records)} lines; "
+        f"launches {json.dumps(launches)}")
+    for name in need:
+        if not launches.get(name):
+            raise AssertionError(f"{label}: {name} was not launched")
+    lost = [r.get("phase") or r.get("stage") or r.get("theta")
+            for r in records if "busy_ms" in r and r["busy_ms"] is None]
+    if lost:
+        raise AssertionError(f"{label}: no whole profiler reading in "
+                             f"{measure.BUSY_TRIES} tries for {lost}")
+    return records, launches
+
+
+def _ms(v):
+    return "n/a" if v is None else f"{v:.3f}"
+
+
+def phase_table(label, records):
+    """Logs bh_breakdown's phases (events ms, busy ms, busy share) and its
+    composed rows; returns its summary."""
+    for r in records:
+        if "phase" in r:
+            stats = {k: r[k] for k in ("overflow", "n_leaves", "items")
+                     if k in r}
+            work = (f"; {r['pairs']:.4e} terms, bound {r['bound_ms']:.3f} ms"
+                    if "pairs" in r else "")
+            log(f"  {label} {r['phase']:<32} events {_ms(r['ms'])} ms, busy "
+                f"{_ms(r['busy_ms'])} ms, share {_ms(r['busy_share'])}"
+                f"{work} {json.dumps(stats) if stats else ''}")
+    s = records[-1]
+    log(f"  {label} per step {_ms(s['per_step_ms'])} ms (busy "
+        f"{_ms(s['per_step_busy_ms'])}); rebuild {s.get('rebuild')} "
+        f"{_ms(s.get('rebuild_ms'))} ms/step (busy "
+        f"{_ms(s.get('rebuild_busy_ms'))}); bh_accel "
+        f"{_ms(s['bh_accel_ms'])} ms (busy {_ms(s['bh_accel_busy_ms'])}); "
+        f"composed - bh_accel max abs {s['max_abs_diff']:.3e}; overflow "
+        f"{s['overflow']}; peak {_ms(s.get('peak_gib'))} GiB")
+    return s
+
+
+def phase_geometry_tools():
+    """Phase 18 in a process of its own (this script with
+    GEOMETRY_TOOLS_ARG), which prints its lines here: by the time the
+    earlier phases have run, this process's torch.profiler loses CUDA
+    activity records, and the tools' busy readings would not be whole.
+    Fails where the child does. Returns {tool: launches}, the child's."""
+    torch.cuda.empty_cache()
+    out = os.path.join(ROOT, "build", "chip_smoke_tools_launches.json")
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                         GEOMETRY_TOOLS_ARG, out], timeout=900).returncode
+    if rc != 0:
+        raise AssertionError(f"phase 18 (geometry tools) exited {rc}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def geometry_tools():
+    """The per-phase Barnes-Hut tools (tools/bh_breakdown.py, li_profile,
+    staged_probe, octet_probe, reuse_probe, theta_sweep) on the card, each
+    with the launch counts set to 0 before and read after. Fails where the
+    composed phases differ from bh_accel beyond rtol 2e-4 / atol 2e-5 (the
+    tool raises), a calibrated row overflows, a tool does not launch the
+    kernels it runs, or a busy reading is not whole in measure.BUSY_TRIES
+    tries. First reads the 1M per-step busy share of
+    examples/barneshut_1m_reuse.json afresh. Returns {tool: launches}."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.dirname(TOOLS_LOG), exist_ok=True)
+    with open(TOOLS_LOG, "w"):
+        pass
+    with open(CONFIG) as f:
+        sim = Simulation(SimConfig.from_json(f.read()), device=DEVICE)
+    sim.step(1)
+    _, ms_step = cuda_ms(lambda: sim.step(1), STEP_REPS)
+    dev_step = measure.busy_ms(lambda: sim.step(1))
+    if dev_step is None:
+        raise AssertionError("1M step(1): no whole profiler reading in "
+                             f"{measure.BUSY_TRIES} tries")
+    log(f"1M octet path in a fresh process: per-step {ms_step:.2f} ms "
+        f"(mean of {STEP_REPS} step(1)); device busy {dev_step:.2f} ms "
+        f"(share {busy_share(dev_step, ms_step)}, a whole reading)")
+    del sim
+    torch.cuda.empty_cache()
+    it = ["--iters", str(TOOL_ITERS)]
+    runs = {}
+
+    def go(label, fn, need):
+        records, runs[label] = run_tool(label, fn, need)
+        return records
+
+    rec = go("bh_breakdown gather 1M", lambda: bh_breakdown.main(it),
+             ("near_field", "far_gather"))
+    phase_table("gather 1M", rec)
+    for label, path, refine in (("octet 1M", CONFIG, "dense"),
+                                ("staged 8M", STAGED_CONFIG, "staged")):
+        rec = go(f"bh_breakdown {label}", lambda: bh_breakdown.main(
+            it + ["--config", path, "--rebuild", "8"]),
+            ("near_field", "far_octet"))
+        s = phase_table(label, rec)
+        if s["overflow"] or s["refine"] != refine:
+            raise AssertionError(f"bh_breakdown {label}: overflow "
+                                 f"{s['overflow']}, refine {s['refine']}")
+    rec = go("li_profile", lambda: li_profile.main(it), ())
+    stages = {r["stage"]: [_ms(r["ms"]), _ms(r["busy_ms"])]
+              for r in rec if "stage" in r}
+    log(f"  li_profile (events, busy ms): {json.dumps(stages)}; " + json.dumps(
+        {k: rec[-1][k] for k in ("a_to_e_ms", "l1_overflow", "overflow",
+                                 "lists_equal")}))
+    rec = go("staged_probe phases", lambda: staged_probe.main(
+        it + ["--mode", "phases"]), ("near_field", "far_gather"))
+    log("  staged_probe: " + json.dumps(
+        {r["phase"]: [_ms(r["ms"]), _ms(r["busy_ms"])] for r in rec}))
+    for label, argv in (("octet_probe 8m", ["--set", "8m"]),
+                        ("octet_probe probe quick", ["--quick"])):
+        rec = go(label, lambda: octet_probe.main(argv),
+                 ("near_field", "far_octet", "far_gather"))
+        for r in rec:
+            log(f"  {label} leaf {r['leaf']} {r['refine']} {r['far_mode']}: "
+                f"{_ms(r['ms'])} ms (busy {_ms(r['busy_ms'])}), overflow "
+                f"{r['overflow']}, {r['far_kernel']} terms "
+                f"{r['far_terms']:.4e}, near pairs {r['near_pairs']:.4e}")
+    rec = go("reuse_probe 1M", lambda: reuse_probe.main(
+        it + ["--k", str(REUSE_STEPS)]), ("near_field", "far_octet"))
+    for r in rec:
+        log("  reuse_probe " + json.dumps({k: v for k, v in r.items()
+                                           if k not in ("tool", "card")}))
+    rec = go("theta_sweep", lambda: theta_sweep.main(it),
+             ("near_field", "far_octet", "allpairs"))
+    for r in rec:
+        log(f"  theta_sweep theta {r['theta']}: rms {r['rms_err']:.3e} "
+            f"(overflow {r['overflow_rms']}), 1M {_ms(r['ms'])} ms (busy "
+            f"{_ms(r['busy_ms'])}), overflow {r['overflow']}")
+    log("geometry tools busy readings: " + json.dumps(measure.READINGS))
+    log(f"geometry tools wall time {time.perf_counter() - t0:.1f} s "
+        f"(lines in {TOOLS_LOG})")
+    return runs
+
 
 def main():
     t_start = time.perf_counter()
@@ -2352,6 +2514,10 @@ def main():
         staged_gather["near_field"]
     kernels["far_gather"]["launches_staged8m"] = staged_gather["far_gather"]
     phase_ics()
+    tools = phase_geometry_tools()
+    for name in ("near_field", "far_octet", "far_gather", "allpairs"):
+        kernels[name]["launches_geometry_tools"] = {
+            label: n[name] for label, n in tools.items() if name in n}
     with open(LET_CONFIG) as f:
         let_json = f.read()
     kernels.update(phase_k1_forms(let_json))
@@ -2387,4 +2553,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [GEOMETRY_TOOLS_ARG]:
+        phase_environment()
+        build.load_library()
+        with open(sys.argv[2], "w") as f:
+            json.dump(geometry_tools(), f)
+    else:
+        main()

@@ -634,14 +634,23 @@ def build_interaction_lists(tree, far_masks, rejects_l1, *, theta, start_leaf,
     near_idx, near_valid, far0_idx, far0_valid, overflow = leaf_interactions(
         tree, rejects_l1, theta, start_leaf=start_leaf, n_slice=n_slice,
         near_budget=near_budget, far0_budget=far0_budget)
+    up_idx, up_valid, nodes_up, leaf_nodes = _upper_list(tree, far_masks,
+                                                         dtype)
+    return (near_idx, near_valid, far0_idx, far0_valid, up_idx, up_valid,
+            nodes_up, leaf_nodes, overflow)
+
+
+def _upper_list(tree, far_masks, dtype):
+    """The gather form's upper far class: the accepted nodes of levels >= 1
+    compacted at full width over their stacked node table, and the leaf
+    node table. Returns (up_idx, up_valid, nodes_up, leaf_nodes)."""
     nodes_up = torch.cat(
         [_node_table(tree, k, dtype) for k in range(1, tree.n_levels)], dim=0)
     up_mask = torch.cat([far_masks[k] for k in range(1, tree.n_levels)],
                         dim=1)
     cols_up = _iota(*up_mask.shape, up_mask.device)
     up_idx, up_valid, _ = _row_compact(up_mask, cols_up, nodes_up.shape[0])
-    return (near_idx, near_valid, far0_idx, far0_valid, up_idx, up_valid,
-            nodes_up, _node_table(tree, 0, dtype), overflow)
+    return up_idx, up_valid, nodes_up, _node_table(tree, 0, dtype)
 
 
 def _eval_far_list(tgt_leaves, table, idx, valid, *, g, softening,
@@ -868,13 +877,19 @@ def bh_accel(pos, mass, *, leaf_size=256, theta=0.5, g=1.0, softening=1e-2,
     acc, pot = _join(accs), _join(pots)
     overflow = torch.sum(torch.stack(ovfs), dtype=torch.int32)
 
-    # Unsort back to the caller's particle order: sorted row i belongs at
-    # original row perm[i] (perm is a permutation, so the scatter is exact).
+    acc, pot = _unsort(acc, pot, perm, n)
+    return acc, pot, overflow
+
+
+def _unsort(acc, pot, perm, n):
+    """Sorted-order (acc, pot) back to the caller's particle order, the
+    first n rows: sorted row i belongs at original row perm[i] (perm is a
+    permutation, so the scatter is exact)."""
     acc_out = torch.empty_like(acc)
     acc_out[perm] = acc
     pot_out = torch.empty_like(pot)
     pot_out[perm] = pot
-    return acc_out[:n], pot_out[:n], overflow
+    return acc_out[:n], pot_out[:n]
 
 
 def bh_accel_target_slice(pos_all, mass_all, rank, n_ranks, *, leaf_size,
@@ -978,6 +993,19 @@ def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
                       tuple(works), tuple(orders))
 
 
+def _refresh_nodes8(pos_s, mass_s, *, leaf_size, multipole, max_levels,
+                    n_live):
+    """The pyramid refresh of a frozen-list evaluation: the multipole
+    pyramid of the CURRENT sorted positions as K2's 8-aligned node table
+    (pads, rows [n_live:], left out of the domain cube)."""
+    lo = torch.amin(pos_s[:n_live], dim=0)
+    hi = torch.amax(pos_s[:n_live], dim=0)
+    _, _, sentinel = domain_cube(lo, hi)
+    tree = build_tree(pos_s, mass_s, leaf_size, sentinel,
+                      multipole_order=multipole, max_levels=max_levels)
+    return _nodes_all_octet(tree, pos_s.dtype)
+
+
 def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
                   softening, multipole, max_levels, compute_pot, n_live,
                   sections=1):
@@ -988,15 +1016,10 @@ def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
     cube). sections > 1 evaluates the target windows one after the other,
     each with the work items and launch order the plan built for it;
     physics identical to the unsectioned evaluation."""
-    dtype = pos_s.dtype
-    n_pad = pos_s.shape[0]
-    n_leaves = n_pad // leaf_size
-    lo = torch.amin(pos_s[:n_live], dim=0)
-    hi = torch.amax(pos_s[:n_live], dim=0)
-    _, _, sentinel = domain_cube(lo, hi)
-    tree = build_tree(pos_s, mass_s, leaf_size, sentinel,
-                      multipole_order=multipole, max_levels=max_levels)
-    nodes8 = _nodes_all_octet(tree, dtype)
+    n_leaves = pos_s.shape[0] // leaf_size
+    nodes8 = _refresh_nodes8(pos_s, mass_s, leaf_size=leaf_size,
+                             multipole=multipole, max_levels=max_levels,
+                             n_live=n_live)
     tgt = pos_s.reshape(n_leaves, leaf_size, 3)
     windows = _windows(n_leaves, sections)
     for built in (plan.near_work, plan.far_order):

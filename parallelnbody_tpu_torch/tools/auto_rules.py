@@ -15,7 +15,8 @@ phase_crossover, not here.
   plan_eval   the rebuild-block cost model of api._reuse_block_size: one
               block's plan (Hilbert sort, multipole pyramid, traversal and
               lists with K1's work items and K2's launch order) against one
-              frozen-list evaluation (bh_eval_lists), at N = 1M dense
+              frozen-list evaluation (bh_eval_lists), split by
+              tools/reuse_probe.py's make_plan_eval, at N = 1M dense
               (examples/barneshut_1m_reuse.json) and N = 8M staged
               (examples/barneshut_8m.json). Behind
               api._REUSE_PLAN_RATIO["cuda"].
@@ -51,7 +52,6 @@ import argparse
 import gc
 import json
 import os
-import subprocess
 
 import torch
 
@@ -64,6 +64,8 @@ from parallelnbody_tpu_torch.api import (_REUSE_PLAN_RATIO,
                                          prepare_simulation)
 from parallelnbody_tpu_torch.cli import recalibrate_on_overflow
 from parallelnbody_tpu_torch.ops import bh
+from parallelnbody_tpu_torch.tools import measure
+from parallelnbody_tpu_torch.tools.reuse_probe import make_plan_eval
 from parallelnbody_tpu_torch.utils.accuracy import rms_force_error_sample
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -89,13 +91,6 @@ CALIB_CASES = (("SimConfig(n=2^20)", None, 1 << 20),
                ("examples/galaxy_2m.json", "examples/galaxy_2m.json", None))
 CALIB_STEPS = (1, 1, 1, 1, 16, 16)
 GIB = 2**30
-
-
-def _card():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def _events_ms(fn, reps):
@@ -188,34 +183,12 @@ def _sim_ms(cfg, reuse=False, rms=False, step_reps=STEP_REPS):
 def plan_eval():
     for path in PLAN_CONFIGS:
         cfg, state = prepare_simulation(_load(path), "cuda")
-        leaf = cfg.resolve_bh_leaf_size()
-        n_levels = bh.plan_tree(cfg.n, leaf, cfg.bh_max_levels)[2]
-        refine, cands = bh.resolve_refine(
-            cfg.resolve_bh_refine(), (cfg.bh_cand2_budget,
-                                      cfg.bh_cand_budget),
-            n_levels, cfg.bh_near_budget, cfg.bh_far_budget)
-
-        def plan():
-            pos_s, mass_s, _, tree, _, _ = bh._prepare(
-                state.pos, state.mass, leaf_size=leaf, curve=cfg.bh_curve,
-                multipole_order=cfg.bh_multipole,
-                max_levels=cfg.bh_max_levels)
-            return pos_s, mass_s, bh.bh_plan_lists(
-                tree, theta=cfg.theta, near_budget=cfg.bh_near_budget,
-                far_budget=cfg.bh_far_budget, refine=refine,
-                cand_budgets=cands, dtype=pos_s.dtype)
-
-        def evaluate():
-            return bh.bh_eval_lists(
-                pos_s, mass_s, lists, leaf_size=leaf, g=cfg.g,
-                softening=cfg.softening, multipole=cfg.bh_multipole,
-                max_levels=cfg.bh_max_levels,
-                compute_pot=cfg.track_potential, n_live=cfg.n)
-
-        pos_s, mass_s, lists = plan()                      # warm-up
-        evaluate()
-        plan_ms = _events_ms(plan, PLAN_REPS)
-        eval_ms = _events_ms(evaluate, PLAN_REPS)
+        plan, evaluate, _, refine = make_plan_eval(cfg)
+        pos_s, mass_s, _, lists = plan(state.pos, state.mass)   # warm-up
+        evaluate(pos_s, mass_s, lists)
+        plan_ms = _events_ms(lambda: plan(state.pos, state.mass), PLAN_REPS)
+        eval_ms = _events_ms(lambda: evaluate(pos_s, mass_s, lists),
+                             PLAN_REPS)
         yield _gate({"rule": "plan_eval", "config": path, "n": cfg.n,
                      "refine": refine, "plan_ms": plan_ms,
                      "eval_ms": eval_ms, "ratio": plan_ms / eval_ms,
@@ -331,7 +304,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("auto_rules: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = _card()
+    card = measure.card()
     for name in args.only:
         for rec in RULES[name]():
             line = json.dumps({"card": card, **rec})

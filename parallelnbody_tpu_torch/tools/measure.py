@@ -1,15 +1,20 @@
 """What the card-measuring tools share: the H100's published rates, the
 card's name and power limit, CUDA-event timing (one call, or rounds of
-several calls in alternating order), the least time of a pair sum, the
-parity checks against a reference output, and the JSON lines they print.
+several calls in alternating order), the device's busy time from
+torch.profiler (a reading held against the launches it saw) and a
+phase's two times, the least time of a pair sum, the parity checks
+against a reference output, and the JSON lines they print.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 
 import torch
+
+from parallelnbody_tpu_torch.ops import bh_kernels, direct_kernels
 
 # The H100 SXM's published rates at 700 W.
 FP32_FLOPS = 67e12          # FP32 outside the tensor cores
@@ -17,6 +22,31 @@ MUFU_RATE = FP32_FLOPS / 16  # rsqrt/s
 TF32_FLOPS = 495e12         # dense TF32 on the tensor cores
 HBM_BYTES = 3.35e12
 ITERS = 10                  # timed calls after the warm-up
+# A profiler session on the card now and then loses some or all of its
+# device records (tools/bh_breakdown.py, NVIDIA H100 80GB HBM3, 700.00 W:
+# a traverse with none, then a list build at 0.49 of its 2.1 ms).
+# `busy_reading` tells a whole reading from such a one; `busy_ms` tries
+# this many, and counts them in READINGS.
+BUSY_TRIES = 3
+READINGS = {"whole": 0, "not_whole": 0}
+# The device kernel each counted launch of the port's wrappers runs once
+# (a wrapper's second kernel, such as K1's combine, has its own name).
+KERNEL_SYMBOLS = {"near_field": "near_field_kernel",
+                  "near_field_window": "near_field_kernel",
+                  "near_field_table": "near_field_kernel",
+                  "far_octet": "far_octet_kernel",
+                  "far_gather": "far_gather_kernel",
+                  "allpairs": "allpairs_kernel"}
+# The runtime calls of which each puts one kernel, copy or fill on the
+# device.
+DEVICE_CALLS = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC",
+                          "cuLaunchKernel", "cuLaunchKernelEx",
+                          "cudaMemcpyAsync", "cudaMemsetAsync"})
+# FP32 operations of a softened monopole pair term without the potential
+# and of the quadrupole term of K2 and K4 (csrc/terms.cuh quad_term), an
+# FMA as two; one rsqrt each beside them.
+FLOPS_MONOPOLE = 18
+FLOPS_QUADRUPOLE = 48
 
 
 def card():
@@ -40,6 +70,84 @@ def timed(fn, iters=ITERS):
     end.record()
     torch.cuda.synchronize()
     return first, start.elapsed_time(end) / iters
+
+
+def _launches():
+    return {**bh_kernels.LAUNCHES, **direct_kernels.LAUNCHES}
+
+
+def busy_reading(fn):
+    """(busy ms, whole) of one call of fn() under torch.profiler: the
+    device time of its kernels, copies and fills, and whether the reading
+    is whole: some device time, no fewer device records than the runtime
+    calls that put one on the device, and one record of each port kernel
+    launch the wrappers counted. A session that lost records, or took
+    some of an earlier session's, is not whole."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = _launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    after = _launches()
+    events = prof.key_averages()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    launched = {}
+    for name, sym in KERNEL_SYMBOLS.items():
+        launched[sym] = launched.get(sym, 0) + after[name] - before[name]
+    recorded = {sym: sum(e.count for e in dev
+                         if re.search(rf"\b{sym}\b", e.key))
+                for sym in launched}
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in dev) / 1e3
+    calls = sum(e.count for e in events if e.key in DEVICE_CALLS)
+    return busy, (busy > 0 and sum(e.count for e in dev) >= calls
+                  and recorded == launched)
+
+
+def busy_ms(fn):
+    """The device time (ms) of the kernels, copies and fills that one call
+    of fn() runs, from the first whole `busy_reading` of up to BUSY_TRIES
+    calls; None where none was whole. Beside the call's time on the
+    events clock it gives the device's busy share."""
+    for _ in range(BUSY_TRIES):
+        busy, whole = busy_reading(fn)
+        READINGS["whole" if whole else "not_whole"] += 1
+        if whole:
+            return busy
+    return None
+
+
+def phase(fn, iters, device):
+    """(the output of a first call of fn(), {"ms", "busy_ms",
+    "busy_share"}) of one phase. On a CUDA device: ms is the mean of iters
+    calls after the first by CUDA events, the wall time on the stream, the
+    host's waits inside the phase included; busy_ms is `busy_ms` of
+    one more call (None where no reading was whole); busy_share =
+    busy_ms / ms. On the CPU (the tests' plain versions) one call and
+    None for each: no device was timed."""
+    if torch.device(device).type != "cuda":
+        return fn(), {"ms": None, "busy_ms": None, "busy_share": None}
+    out, ms = timed(fn, iters)
+    busy = busy_ms(fn)
+    return out, {"ms": ms, "busy_ms": busy,
+                 "busy_share": None if busy is None else busy / ms}
+
+
+def card_of(device):
+    """`card()` on a CUDA device; "cpu" elsewhere."""
+    return card() if torch.device(device).type == "cuda" else "cpu"
+
+
+def device_of(name):
+    """torch.device(name); raises SystemExit for a CUDA device where torch
+    has none: a tool asked for the card does not fall back to the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"{name}: torch.cuda.is_available() is False; "
+                         "the tools measure the card (--device cpu runs "
+                         "the plain versions, for the tests)")
+    return dev
 
 
 def events_ms(fn, iters=ITERS):

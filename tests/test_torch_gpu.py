@@ -1253,3 +1253,81 @@ def test_flat_wrappers_refuse_on_the_card(probe_inputs):
     with pytest.raises(ValueError, match="multiple of 32"):
         near_flat.flat_tune2(rows, probe_inputs["tgt_t"][:, :, :48].
                              contiguous(), src, step_packs=4, mode="row")
+
+
+# ------------------------------------------------ per-phase geometry tools
+@pytest.mark.parametrize("refine,far_mode", [("dense", "gather"),
+                                             ("dense", "octet"),
+                                             ("staged", "octet"),
+                                             ("staged", "gather")])
+def test_bh_breakdown_on_the_card(cuda, refine, far_mode):
+    """tools/bh_breakdown.py at N = 65536, leaf 64: every phase timed on
+    the card (events and busy ms), the composed phases equal to bh_accel
+    (the tool raises beyond rtol 2e-4 / atol 2e-5), nothing clipped."""
+    from parallelnbody_tpu_torch.tools import bh_breakdown
+
+    bh_kernels.reset_launch_counts()
+    recs = bh_breakdown.main(["--n", "65536", "--leaf", "64", "--near",
+                              "1024", "--far", "1024", "--iters", "2",
+                              "--refine", refine, "--far-mode", far_mode])
+    summary = recs[-1]
+    assert summary["overflow"] == 0
+    assert summary["max_abs_diff"] < 1e-3
+    assert all(r["ms"] > 0 and r["busy_ms"] > 0 for r in recs[:-1])
+    assert summary["per_step_ms"] > 0 and summary["peak_gib"] > 0
+    assert bh_kernels.LAUNCHES["near_field"] > 0
+    far = "far_octet" if far_mode == "octet" else "far_gather"
+    assert bh_kernels.LAUNCHES[far] > 0
+    assert ("rebuild_ms" in summary) == (far_mode == "octet")
+
+
+def test_geometry_tools_on_the_card(cuda):
+    """tools/li_profile.py, staged_probe.py (phases), octet_probe.py
+    (--quick), reuse_probe.py and theta_sweep.py at small N on the card:
+    each timed line has its events and busy ms, li_profile's stages
+    compose to leaf_interactions' lists, reuse_probe's runs clip
+    nothing."""
+    from parallelnbody_tpu_torch.tools import (li_profile, octet_probe,
+                                               reuse_probe, staged_probe,
+                                               theta_sweep)
+
+    it = ["--iters", "2"]
+    li = li_profile.main(["--n", "65536", "--leaf", "64"] + it)
+    assert li[-1]["lists_equal"] and li[-1]["l1_overflow"] == 0
+    sp = staged_probe.main(["--n", "65536", "--leaf", "64", "--near", "1024",
+                            "--far", "1024", "--mode", "phases"] + it)
+    assert [r["phase"] for r in sp][-2:] == [
+        "K1 near (items prebuilt)", "K1 near (items built in the call)"]
+    op = octet_probe.main(["--n", "65536", "--quick"])
+    assert [r["far_kernel"] for r in op] == ["K4", "K2"]
+    assert op[0]["far_terms"] == op[1]["far_terms"] > 0
+    rp = reuse_probe.main(["--n", "65536", "--k", "2"] + it)
+    assert [r["step"] for r in rp if "step" in r] == [1, 2]
+    ts = theta_sweep.main(["--n", "65536", "--n-rms", "16384"] + it)
+    assert [r["theta"] for r in ts] == [0.7, 0.75, 0.8, 0.85]
+    for r in li[:-1] + sp + op + rp[:3] + ts:
+        assert r["ms"] > 0 and r["busy_ms"] > 0, r
+
+
+def test_busy_reading_holds_the_launches(lists):
+    """measure.busy_reading on one K2 launch is whole, with device time;
+    with a K1 launch counted and no K1 record (as a session that lost it
+    would read) it is not."""
+    from parallelnbody_tpu_torch.tools import measure
+
+    L = lists
+    order = bh_kernels.far_order(L["fv"])
+
+    def k2():
+        return bh_kernels.far_octet(L["tgt"], L["nodes8"], L["fk"], L["fv"],
+                                    order=order, g=1.0, softening=0.01)
+
+    k2()
+    busy, whole = measure.busy_reading(k2)
+    assert whole and busy > 0
+
+    def k2_and_a_lost_k1():
+        bh_kernels.LAUNCHES["near_field"] += 1
+        return k2()
+
+    assert not measure.busy_reading(k2_and_a_lost_k1)[1]
