@@ -153,6 +153,28 @@ Phases, each of which exits non-zero on failure:
      records fewer than its launch calls, or other than one of each port
      kernel the wrappers counted) in 3 tries. First, the 1M octet path's
      per-step ms and busy share read afresh in that process.
+ 19. In a process of its own (this script with --port-tools FILE, run
+     after phase 18), the benchmark suite and the probes ported last,
+     each with every launch count set to 0 before and read after, their
+     JSON lines in build/chip_smoke_port_tools.jsonl:
+     tools/bench_suite.py's full list (all-pairs 65536 and 262144,
+     Barnes-Hut 262144, 1M, the 2M galaxy collision, 4M and 8M, each per
+     step and at rebuild 8; without --xl, the one cut, listed in the
+     phase's JSON line), every row without error, K1 and K2 launched in
+     each Barnes-Hut row and K3 in each all-pairs row, overflow 0 and rms
+     below 2e-3 on the Barnes-Hut rows; tools/sections_probe.py at 16M
+     in 1 and 4 windows, bit-equal forces; on 8 ranks sharing the card,
+     tools/dist_collectives_probe.py (ring and LET, per step and at
+     rebuild 8, budgets 320 / 1024: the counts by kind, the structural
+     counts they recompose into, the JAX package's count for that
+     structure),
+     tools/dist_production_probe.py (N = 262144 at near budget 2560,
+     overflow 0 and rms below 2e-3 for ring and LET, the migrant series)
+     and
+     tools/exchange_volume_probe.py (both cases, 120 steps, overflow 0),
+     K1's window or table form and K2 launched on rank 0 of every run;
+     tools/let_halo_probe.py and tools/let_granularity_probe.py. A busy
+     reading that is not whole in 3 tries is printed as not measured.
 
 Before each path every launch count is set to 0 and after it the counts
 are read (for a multi-device run, each rank's own counts, from
@@ -208,11 +230,17 @@ from parallelnbody_tpu_torch.config import IC_KINDS, reference_compat_config
 from parallelnbody_tpu_torch.kernels import build
 from parallelnbody_tpu_torch.ops import (bh, bh_kernels, direct_kernels,
                                          direct_mma, near_flat, near_probe)
-from parallelnbody_tpu_torch.tools import (bh_breakdown, flat_kernel,
-                                           li_profile, measure, mxu_allpairs,
+from parallelnbody_tpu_torch.parallel import RankPool
+from parallelnbody_tpu_torch.tools import (bench_suite, bh_breakdown,
+                                           dist_collectives_probe,
+                                           dist_production_probe,
+                                           exchange_volume_probe,
+                                           flat_kernel, let_granularity_probe,
+                                           let_halo_probe, li_profile,
+                                           measure, mxu_allpairs,
                                            near_kernel_probe, octet_probe,
-                                           reuse_probe, sass, staged_probe,
-                                           theta_sweep)
+                                           reuse_probe, sass, sections_probe,
+                                           staged_probe, theta_sweep)
 from parallelnbody_tpu_torch.utils.accuracy import (direct_accel_at,
                                                     rms_force_error_sample)
 
@@ -301,6 +329,27 @@ EXP_ITERS = 3
 TOOL_ITERS = 3              # timed calls a phase in the geometry tools
 TOOLS_LOG = os.path.join(ROOT, "build", "chip_smoke_tools.jsonl")
 GEOMETRY_TOOLS_ARG = "--geometry-tools"   # phase 18 alone (a child process)
+PORT_TOOLS_ARG = "--port-tools"           # phase 19 alone (a child process)
+PORT_TOOLS_LOG = os.path.join(ROOT, "build", "chip_smoke_port_tools.jsonl")
+PORT_TOOLS_BENCH = os.path.join(ROOT, "build", "chip_smoke_bench.md")
+# Phase 19's sizes: each tool's defaults (the scripts') but these cuts,
+# which the phase's JSON line lists; the uncut runs are the tools' own
+# (README.md, PERF.md).
+PORT_TOOLS_CUTS = ["bench_suite without --xl (16M and 32M)",
+                   "dist_collectives_probe at budgets 320 / 1024 (the "
+                   "script's 256 / 512 clip on the ranks; the counts do not "
+                   "depend on them)"]
+COLLECTIVES_BUDGETS = (320, 1024)
+PORT_TOOLS_CUTS.append(
+    "dist_production_probe at near budget 2560, the global leaf count (the "
+    "script's 1024 clips the outermost leaves' near lists, up to ~2050 "
+    "entries, on the port's ICs and on the JAX package's alike)")
+PRODUCTION_BUDGETS = (2560, 2048)
+DIST_RANKS = 8              # the scripts' rank count, sharing the card
+COLLECTIVES_N = 8192        # dist_collectives_probe's N, 16 steps, k = 8
+PRODUCTION_N = 262144       # dist_production_probe's N, 16 steps, k = 8
+EXCHANGE_N = 16384          # exchange_volume_probe's N
+EXCHANGE_STEPS = 120        # exchange_volume_probe's steps a case
 # Each kernel's row of the tools' tables reported as its time: the
 # script's own first configuration, on K1's 1M lists.
 EXP_HEADLINE = {"near_probe": "A dyn-idx u4", "flat_near": "P=4",
@@ -2320,10 +2369,11 @@ def phase_near_experiments():
     return out
 
 # ------------------------------------- per-phase geometry tools (phase 18)
-def run_tool(label, fn, need):
-    """fn() (a tool's main) with its JSON lines kept in TOOLS_LOG instead
-    of standard output, every launch count set to 0 just before and read
-    just after; fails unless each kernel of `need` was launched. Returns
+def run_tool(label, fn, need, log_path=None, whole=True):
+    """fn() (a tool's main) with its JSON lines kept in log_path (default
+    TOOLS_LOG) instead of standard output, every launch count set to 0 just
+    before and read just after; fails unless each kernel of `need` was
+    launched, or (whole) where a busy reading was not whole. Returns
     (records, launches)."""
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -2332,7 +2382,7 @@ def run_tool(label, fn, need):
         records = fn()
     torch.cuda.synchronize()
     launches = {k: v for k, v in launch_counts().items() if v}
-    with open(TOOLS_LOG, "a") as f:
+    with open(log_path or TOOLS_LOG, "a") as f:
         f.write(buf.getvalue())
     log(f"{label}: {time.perf_counter() - t0:.1f} s, {len(records)} lines; "
         f"launches {json.dumps(launches)}")
@@ -2340,8 +2390,12 @@ def run_tool(label, fn, need):
         if not launches.get(name):
             raise AssertionError(f"{label}: {name} was not launched")
     lost = [r.get("phase") or r.get("stage") or r.get("theta")
-            for r in records if "busy_ms" in r and r["busy_ms"] is None]
-    if lost:
+            or r.get("name") for r in records
+            if "busy_ms" in r and r["busy_ms"] is None]
+    if lost and not whole:
+        log(f"{label}: busy not measured (no whole profiler reading in "
+            f"{measure.BUSY_TRIES} tries) for {lost}")
+    elif lost:
         raise AssertionError(f"{label}: no whole profiler reading in "
                              f"{measure.BUSY_TRIES} tries for {lost}")
     return records, launches
@@ -2472,6 +2526,147 @@ def geometry_tools():
     return runs
 
 
+# ------------------------------- the benchmark suite and probes (phase 19)
+def phase_port_tools():
+    """Phase 19 in a process of its own (this script with PORT_TOOLS_ARG),
+    which prints its lines here: the tools' busy readings need a fresh
+    process's profiler, as phase 18's do. Fails where the child does.
+    Returns {tool: launches}, the child's (this process's counts; the
+    ranks' are in the tools' records)."""
+    torch.cuda.empty_cache()
+    out = os.path.join(ROOT, "build", "chip_smoke_port_tools_launches.json")
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                         PORT_TOOLS_ARG, out], timeout=900).returncode
+    if rc != 0:
+        raise AssertionError(f"phase 19 (port tools) exited {rc}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def _need(label, launches, names):
+    missing = [k for k in names if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{label}: {missing} not launched ({launches})")
+
+
+def check_bench_rows(rows):
+    """Every row of the suite: K1 and K2 launched in a Barnes-Hut row's
+    timed steps, K3 in an all-pairs row's; no clip and the rms class on
+    the Barnes-Hut rows (an error row already made the tool exit)."""
+    for r in rows:
+        bh_row = r["force"] == "barnes_hut"
+        _need(r["name"], r["launches"], ("near_field", "far_octet")
+              if bh_row else ("allpairs",))
+        if bh_row and (r["overflow"] or not r["rms_force_error"] < RMS_BOUND):
+            raise AssertionError(f"{r['name']}: overflow {r['overflow']}, "
+                                 f"rms {r['rms_force_error']:.3e}")
+        log(f"  {r['name']}: {r['ms_per_step']:.3f} ms/step (events "
+            f"{_ms(r['events_ms_per_step'])}, busy share "
+            f"{_ms(r.get('busy_share'))}), rms "
+            f"{_ms(r.get('rms_force_error'))}, overflow {r.get('overflow')}, "
+            f"peak {_ms(r['peak_gib'])} GiB, init+first "
+            f"{r['init_plus_first_s']:.1f} s, {json.dumps(r['launches'])}")
+
+
+def check_dist(comm, rec):
+    """A distributed run: nothing clipped, K2 and K1's form for the comm
+    launched on rank 0."""
+    form = "near_field_window" if comm == "ring" else "near_field_table"
+    _need(f"{comm} run", rec["launches_rank0"], (form, "far_octet"))
+    if rec["overflow"]:
+        raise AssertionError(f"{comm} run: overflow {rec['overflow']}")
+
+
+def port_tools():
+    """The benchmark suite, the sections probe, the three multi-rank
+    probes on DIST_RANKS ranks sharing the card and the two LET geometry
+    probes, at the tools' sizes but PORT_TOOLS_CUTS, each with the launch
+    counts set to 0 before and read after, their JSON lines in
+    PORT_TOOLS_LOG. Returns {tool: launches}."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.dirname(PORT_TOOLS_LOG), exist_ok=True)
+    with open(PORT_TOOLS_LOG, "w"):
+        pass
+    runs, seconds = {}, {}
+    dev = torch.device(DEVICE)
+
+    def go(label, fn, need=()):
+        t = time.perf_counter()
+        records, runs[label] = run_tool(label, fn, need, PORT_TOOLS_LOG,
+                                        whole=False)
+        seconds[label] = time.perf_counter() - t
+        return records
+
+    rows = go("bench_suite", lambda: bench_suite.main(
+        ["--out", PORT_TOOLS_BENCH]), ("near_field", "far_octet",
+                                       "allpairs"))
+    check_bench_rows(rows)
+    rows = go("sections_probe", lambda: sections_probe.main([]),
+              ("near_field", "far_octet"))
+    for r in rows:
+        if r["oom"]:
+            raise AssertionError(f"sections_probe: out of memory at {r}")
+        log(f"  sections {r['sections']} (resolved {r['resolved']}): "
+            f"{_ms(r['ms'])} ms an evaluation, overflow {r['overflow']}, "
+            f"peak {_ms(r['peak_gib'])} GiB, bit-equal to sections "
+            f"{r['bit_equal_to']}")
+    with RankPool(DIST_RANKS, dev) as pool:
+        recs = go("dist_collectives_probe", lambda: (
+            dist_collectives_probe.probe(
+                pool, COLLECTIVES_N, 16, 8, ["ring", "let"], dev,
+                near=COLLECTIVES_BUDGETS[0], far=COLLECTIVES_BUDGETS[1])))
+        for r in recs[:-1]:
+            check_dist(r["comm"], r)
+            log(f"  collectives {r['comm']} {r['run']}: "
+                f"{json.dumps(r['counts'])} = {r['total']} "
+                f"(JAX's calls for the same structure: "
+                f"{r['jax_equivalent_total']}); structure "
+                f"{json.dumps(r['structure'])}")
+        log(f"  collectives reduction: {json.dumps(recs[-1]['reduction'])}")
+        cfg = dist_production_probe.make_cfg(PRODUCTION_N, 128,
+                                             *PRODUCTION_BUDGETS, 8)
+        rep = go("dist_production_probe", lambda: [
+            dist_production_probe.probe(pool, cfg, 16, dev)])[0]
+        for comm in ("ring", "let"):
+            check_dist(comm, rep[comm])
+            if not rep[comm]["rms_force_error"] < RMS_BOUND:
+                raise AssertionError(f"dist_production {comm}: rms "
+                                     f"{rep[comm]['rms_force_error']:.3e}")
+        if rep["per_step"]["overflow"]:
+            raise AssertionError(f"dist_production per step: overflow "
+                                 f"{rep['per_step']['overflow']}")
+        log("  dist_production: " + json.dumps(
+            {c: {k: rep[c][k] for k in ("overflow", "wall_s",
+                                        "rms_force_error", "steps_done")}
+             for c in ("ring", "let")})
+            + f"; ring - LET max |dpos| {rep['ring_vs_let_max_pos_diff']:.3e}"
+            f"; migrants {rep['per_step']['migrants_entry']} then "
+            f"{rep['per_step']['migrants_series']}")
+        recs = go("exchange_volume_probe", lambda: [
+            exchange_volume_probe.run_case(pool, name, c, EXCHANGE_STEPS, dev)
+            for name, c in exchange_volume_probe.cases(
+                EXCHANGE_N, 0.004, 0.9, 1.0, 4.0)])
+        for r in recs:
+            check_dist("ring", r)
+            log(f"  exchange {r['case']}: entry "
+                f"{r['entry_exchange_frac']:.4f}, steady mean "
+                f"{r['steady_mean_frac']:.5f} p90 {r['steady_p90_frac']:.5f}"
+                f" max {r['steady_max_frac']:.5f}")
+    for label, tool in (("let_halo_probe", let_halo_probe),
+                        ("let_granularity_probe", let_granularity_probe)):
+        for r in go(label, lambda: tool.main([])):
+            log(f"  {label}: " + json.dumps(
+                {k: v for k, v in r.items()
+                 if k not in ("tool", "card", "per_rank")}))
+    log("phase 19: " + json.dumps({"cuts": PORT_TOOLS_CUTS,
+                                   "seconds": seconds,
+                                   "launches": runs}))
+    log(f"port tools wall time {time.perf_counter() - t0:.1f} s (lines in "
+        f"{PORT_TOOLS_LOG}, table in {PORT_TOOLS_BENCH})")
+    return runs
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_environment()
@@ -2518,6 +2713,10 @@ def main():
     for name in ("near_field", "far_octet", "far_gather", "allpairs"):
         kernels[name]["launches_geometry_tools"] = {
             label: n[name] for label, n in tools.items() if name in n}
+    ports = phase_port_tools()
+    for name in ("near_field", "far_octet", "allpairs"):
+        kernels[name]["launches_port_tools"] = {
+            label: n[name] for label, n in ports.items() if name in n}
     with open(LET_CONFIG) as f:
         let_json = f.read()
     kernels.update(phase_k1_forms(let_json))
@@ -2558,5 +2757,10 @@ if __name__ == "__main__":
         build.load_library()
         with open(sys.argv[2], "w") as f:
             json.dump(geometry_tools(), f)
+    elif sys.argv[1:2] == [PORT_TOOLS_ARG]:
+        phase_environment()
+        build.load_library()
+        with open(sys.argv[2], "w") as f:
+            json.dump(port_tools(), f)
     else:
         main()

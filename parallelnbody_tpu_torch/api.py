@@ -185,12 +185,14 @@ AUTO_BUDGET_FIELDS = ("bh_near_budget", "bh_far_budget", "bh_cand2_budget",
                       "bh_cand_budget")
 
 
-def prepare_simulation(cfg: SimConfig, device="cuda"
+def prepare_simulation(cfg: SimConfig, device="cuda",
+                       state: SimState | None = None
                        ) -> tuple[SimConfig, SimState]:
     """ICs + budget auto-calibration + t=0 forces, in that order. Returns
     (calibrated cfg, initialized state); make_step/make_run are built from
     the returned cfg, which holds the leaf size resolved for `device`
-    (calibrate_budgets resolves it).
+    (calibrate_budgets resolves it). `state`, where given, holds the
+    initial conditions (on `device`) in place of the config's own.
 
     On a CUDA device the auto budgets also cover the state one step on: a
     trial step from the t = 0 state is measured as the t = 0 state is, and
@@ -200,7 +202,8 @@ def prepare_simulation(cfg: SimConfig, device="cuda"
     tools/auto_rules.py calib, PERF.md). On the CPU the JAX package's t = 0
     calibration alone."""
     device = resolve_device(device)
-    state = init_simulation(cfg, device, compute_forces=False)
+    if state is None:
+        state = init_simulation(cfg, device, compute_forces=False)
     cal = calibrate_budgets(cfg, state)
     state = _fill_initial_forces(cal, state)
     auto = [f for f in AUTO_BUDGET_FIELDS if getattr(cfg, f) == 0]

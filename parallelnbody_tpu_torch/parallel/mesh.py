@@ -14,8 +14,9 @@ Backend rule: nccl when every rank has a card of its own (world size <=
 torch.cuda.device_count()); gloo when ranks share a card, or on the CPU.
 Under gloo, tensors on a card are staged through pinned host memory
 explicitly, here and nowhere else, and the bytes staged are counted
-(`RingGroup.staged_bytes`). A backend that fails raises; nothing switches
-to another backend or device.
+(`RingGroup.staged_bytes`). Every collective that runs (none at world size
+1) is counted by kind in `RingGroup.collectives`. A backend that fails
+raises; nothing switches to another backend or device.
 
 Ranks are started by `RankPool` (torch.multiprocessing, spawn) or, for a
 run that a launcher such as torchrun starts, joined by `init_distributed`
@@ -33,7 +34,7 @@ import shutil
 import tempfile
 import time
 import traceback
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -49,7 +50,8 @@ _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
         "max": dist.ReduceOp.MAX}
 
 # Per-rank statistics of the last RankPool.run in this process (launch
-# counts, bytes staged, backend), rank order: the CLI's ranks report here.
+# counts, collectives by kind, bytes staged, backend), rank order: the
+# CLI's ranks report here.
 LAST_RANK_STATS: list = []
 
 
@@ -84,6 +86,14 @@ class RingGroup:
     device: torch.device
     backend: str
     staged_bytes: int = 0
+    # Collectives run, by kind: "all_gather", "all_to_all",
+    # "all_reduce:sum" / ":min" / ":max", "shift" (the ring ppermute),
+    # "broadcast", "broadcast_object", "gather", "scatter". A call at world
+    # size 1 runs none and counts none.
+    collectives: dict = field(default_factory=dict)
+
+    def count(self, kind: str):
+        self.collectives[kind] = self.collectives.get(kind, 0) + 1
 
     @property
     def staging(self) -> bool:
@@ -107,6 +117,7 @@ class RingGroup:
         """Concatenation along dim 0 of every rank's t, in rank order."""
         if self.world_size == 1:
             return t
+        self.count("all_gather")
         h = self._host(t)
         parts = [torch.empty_like(h) for _ in range(self.world_size)]
         dist.all_gather(parts, h)
@@ -117,6 +128,7 @@ class RingGroup:
         result holds the blocks received, in source-rank order."""
         if self.world_size == 1:
             return t
+        self.count("all_to_all")
         h = self._host(t)
         out = torch.empty_like(h)
         dist.all_to_all_single(out, h)
@@ -125,6 +137,7 @@ class RingGroup:
     def all_reduce(self, t, op: str = "sum"):
         if self.world_size == 1:
             return t
+        self.count(f"all_reduce:{op}")
         h = self._host(t).clone()
         dist.all_reduce(h, op=_OPS[op])
         return self._device(h)
@@ -134,6 +147,7 @@ class RingGroup:
         ppermute); `.wait()` returns the received tensor."""
         if self.world_size == 1:
             return _Shift(self, [], t)
+        self.count("shift")
         h = self._host(t)
         recv = torch.empty_like(h)
         ops = [dist.P2POp(dist.isend, h, (self.rank + 1) % self.world_size),
@@ -144,6 +158,7 @@ class RingGroup:
     def broadcast(self, t, src: int = 0):
         if self.world_size == 1:
             return t
+        self.count("broadcast")
         h = self._host(t).clone()
         dist.broadcast(h, src)
         return self._device(h)
@@ -152,6 +167,7 @@ class RingGroup:
         """A picklable object from rank src to every rank."""
         if self.world_size == 1:
             return obj
+        self.count("broadcast_object")
         box = [obj]
         dist.broadcast_object_list(
             box, src, device=self.device if self.backend == "nccl" else None)
@@ -250,6 +266,7 @@ def _rank_main(rank, world_size, device, backend, store_path, timeout, tasks,
             break
         fn, args = task
         before, staged = _launch_counts(), group.staged_bytes
+        group.collectives = {}
         try:
             out = to_host(fn(group, *args))
         except BaseException:  # noqa: BLE001 - reported to the parent
@@ -257,6 +274,7 @@ def _rank_main(rank, world_size, device, backend, store_path, timeout, tasks,
             return
         after = _launch_counts()
         stats = {"launches": {k: after[k] - before[k] for k in after},
+                 "collectives": dict(group.collectives),
                  "staged_bytes": group.staged_bytes - staged,
                  "backend": group.backend, "device": str(group.device)}
         results.put((rank, "ok", out, stats))
@@ -274,7 +292,8 @@ class RankPool:
     in each rank) and returns the results in rank order, tensors as numpy.
     A rank that raises, dies or overruns the timeout closes the pool and
     raises RankError with its traceback. LAST_RANK_STATS holds each rank's
-    kernel launches in the last run, with the bytes staged and the backend
+    kernel launches in the last run, its collectives by kind (the counter
+    is set to empty as each run starts), the bytes staged and the backend
     (this process's own launch counts do not include them).
 
     On a card the kernels are built here, before any rank starts, so that
@@ -449,6 +468,7 @@ def gather_state(state: SimState, group: RingGroup, dst: int = 0):
     gathered in rank order, for snapshots and checkpoints."""
     if group.world_size == 1:
         return state
+    group.count("gather")
     h = group._host(_pack(state))
     parts = ([torch.empty_like(h) for _ in range(group.world_size)]
              if group.rank == dst else None)
@@ -477,6 +497,7 @@ def scatter_state(state, group: RingGroup, src: int = 0) -> SimState:
     if group.world_size == 1:
         return _unpack(_pack(state).to(dev), like, scalars)
     n_local = rows.stop - rows.start
+    group.count("scatter")
     recv = group._host(torch.empty((n_local, 11), dtype=dtype, device=dev))
     chunks = None
     if group.rank == src:

@@ -21,32 +21,29 @@ from __future__ import annotations
 import argparse
 import gc
 import json
-import subprocess
 import time
 
 import torch
 
 from parallelnbody_tpu_torch import SimConfig, Simulation
 from parallelnbody_tpu_torch.ops import bh
+from parallelnbody_tpu_torch.tools.measure import card as card_name
 
 GIB = 2**30
 
 
-def _card():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
-def _phase(fn):
-    """(result, peak GiB allocated while fn ran, wall s) of fn()."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+def peak_phase(fn, device="cuda"):
+    """(result, peak GiB allocated while fn ran, wall s) of fn(); the peak
+    is None off a CUDA device."""
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
-    return (out, torch.cuda.max_memory_allocated() / GIB,
+    if cuda:
+        torch.cuda.synchronize()
+    return (out, torch.cuda.max_memory_allocated() / GIB if cuda else None,
             time.perf_counter() - t0)
 
 
@@ -62,10 +59,10 @@ def measure(path, sections):
            "bh_sections": cfg.bh_sections,
            "sections": bh.resolve_sections(cfg.bh_sections, n_leaves,
                                            cfg.resolve_bh_refine())}
-    sim, rec["init_gib"], rec["init_s"] = _phase(
+    sim, rec["init_gib"], rec["init_s"] = peak_phase(
         lambda: Simulation(cfg, device="cuda"))
     for k in (1, 16):
-        _, rec[f"step{k}_gib"], rec[f"step{k}_s"] = _phase(
+        _, rec[f"step{k}_gib"], rec[f"step{k}_s"] = peak_phase(
             lambda: sim.step(k))
     rec["overflow"] = int(sim.overflow)
     rec["budgets"] = {f: getattr(sim.cfg, f) for f in (
@@ -89,7 +86,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("section_memory: needs a CUDA device")
-    card = _card()
+    card = card_name()
     total = torch.cuda.get_device_properties(0).total_memory / GIB
     for path in args.config:
         for s in args.sections:

@@ -1331,3 +1331,88 @@ def test_busy_reading_holds_the_launches(lists):
         return k2()
 
     assert not measure.busy_reading(k2_and_a_lost_k1)[1]
+
+
+def test_bench_suite_row_on_the_card(cuda):
+    """tools/bench_suite.py's step and rebuild rows at N = 65536 on the
+    card: events and busy time, calibrated budgets that do not clip, K1
+    and K2 launched in the timed steps, the rms class."""
+    from parallelnbody_tpu_torch.tools import bench_suite
+
+    cfg = SimConfig(n=65536, force="barnes_hut", theta=0.72,
+                    track_potential=False, **bench_suite.COMMON)
+    for row in (bench_suite.measure_step(cfg, cuda, iters=2),
+                bench_suite.measure_reuse(cfg, cuda, k=4, n_steps=8)):
+        assert row["overflow"] == 0 and row["rms_force_error"] < 2e-3
+        assert row["launches"]["near_field"] > 0
+        assert row["launches"]["far_octet"] > 0
+        assert row["events_ms_per_step"] > 0 and row["peak_gib"] > 0
+        assert row["leaf"] == 128 and row["refine"] == "dense"
+    direct = bench_suite.measure_step(
+        SimConfig(n=16384, force="direct_pallas", track_potential=False,
+                  **bench_suite.COMMON), cuda, iters=2)
+    assert direct["launches"]["allpairs"] > 0 and direct["pairs_per_sec"] > 0
+
+
+def test_sections_probe_on_the_card(cuda):
+    """tools/sections_probe.py at N = 262144, leaf 64, in 1, 2 and 4
+    windows: forces bit-equal (the tool raises otherwise), timed."""
+    from parallelnbody_tpu_torch.tools import sections_probe
+
+    rows = sections_probe.main(["--n", "262144", "--leaf", "64",
+                                "--sections", "1", "2", "4", "--iters",
+                                "2"])
+    assert [(r["resolved"], r["bit_equal_to"]) for r in rows] == [
+        (1, 1), (2, 1), (4, 1)]
+    assert all(r["ms"] > 0 and r["peak_gib"] > 0 for r in rows)
+
+
+def test_collectives_and_distributed_probes_on_the_card(cuda):
+    """Two ranks sharing the card (gloo, host staging): the collective
+    counts recompose into the structure of each run
+    (dist_collectives_probe.structure raises otherwise), K1's window and
+    table forms and K2 launch on the ranks, the production probe's runs
+    clip nothing and stay in the rms class, and the exchange volume probe
+    counts its migrants."""
+    from parallelnbody_tpu_torch.parallel import RankPool
+    from parallelnbody_tpu_torch.tools import (dist_collectives_probe,
+                                               dist_production_probe,
+                                               exchange_volume_probe)
+
+    with RankPool(2, cuda, timeout=300.0) as pool:
+        recs = dist_collectives_probe.probe(pool, 4096, 4, 2,
+                                            ["ring", "let"], cuda)
+        for r in recs[:-1]:
+            assert r["overflow"] == 0
+            form = ("near_field_window" if r["comm"] == "ring"
+                    else "near_field_table")
+            assert r["launches_rank0"][form] > 0
+            assert r["launches_rank0"]["far_octet"] > 0
+        rep = dist_production_probe.probe(
+            pool, dist_production_probe.make_cfg(16384, 64, 512, 1024, 2),
+            4, cuda)
+        for comm in ("ring", "let"):
+            assert rep[comm]["overflow"] == 0
+            assert rep[comm]["rms_force_error"] < 2e-3
+        assert rep["ring_vs_let_max_pos_diff"] < 1e-4
+        name, cfg = exchange_volume_probe.cases(8192, 0.004, 0.9, 1.0,
+                                                4.0)[0]
+        rec = exchange_volume_probe.run_case(pool, name, cfg, 4, cuda)
+        assert rec["overflow"] == 0 and len(rec["migrants"]) == 4
+        assert rec["collectives_rank0"]["all_to_all"] > 0
+
+
+def test_let_probes_on_the_card(cuda):
+    """tools/let_halo_probe.py and let_granularity_probe.py at N = 65536
+    on the card: counts in range, no clip, the card's leaf rule."""
+    from parallelnbody_tpu_torch.tools import (let_granularity_probe,
+                                               let_halo_probe)
+
+    for rec in let_halo_probe.main(["--n", "65536", "--ranks", "4"]):
+        assert rec["leaf"] == 128 and rec["overflow"] == 0
+        assert 0 < rec["max_import_frac"] <= 0.75
+    for row in let_granularity_probe.main(["--n", "65536", "--ranks", "4"]):
+        assert row["leaf"] == 128
+        s1 = row["variants"]["s1_leaf"]["rows_per_rank_mean"]
+        s8 = row["variants"]["s8_subtile"]["rows_per_rank_mean"]
+        assert 0 < s8 <= s1
