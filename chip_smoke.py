@@ -231,14 +231,19 @@ from parallelnbody_tpu_torch.kernels import build
 from parallelnbody_tpu_torch.ops import (bh, bh_kernels, direct_kernels,
                                          direct_mma, near_flat, near_probe)
 from parallelnbody_tpu_torch.parallel import RankPool
-from parallelnbody_tpu_torch.tools import (bench_suite, bh_breakdown,
+from parallelnbody_tpu_torch.tools import (aniso_bounds_probe,
+                                           bench_suite, bh_breakdown,
+                                           cell_leaves_probe,
                                            dist_collectives_probe,
                                            dist_production_probe,
                                            exchange_volume_probe,
                                            flat_kernel, let_granularity_probe,
                                            let_halo_probe, li_profile,
-                                           measure, mxu_allpairs,
-                                           near_kernel_probe, octet_probe,
+                                           mac_experiment, measure,
+                                           multipole_order_probe,
+                                           mxu_allpairs, near_kernel_probe,
+                                           near_octet_stats,
+                                           near_refine_probe, octet_probe,
                                            reuse_probe, sass, sections_probe,
                                            staged_probe, theta_sweep)
 from parallelnbody_tpu_torch.utils.accuracy import (direct_accel_at,
@@ -350,6 +355,19 @@ COLLECTIVES_N = 8192        # dist_collectives_probe's N, 16 steps, k = 8
 PRODUCTION_N = 262144       # dist_production_probe's N, 16 steps, k = 8
 EXCHANGE_N = 16384          # exchange_volume_probe's N
 EXCHANGE_STEPS = 120        # exchange_volume_probe's steps a case
+STAT_TOOLS_ARG = "--stat-tools"           # phase 20 alone (a child process)
+STAT_TOOLS_LOG = os.path.join(ROOT, "build", "chip_smoke_stat_tools.jsonl")
+# Phase 20 runs the six tools at their defaults (the scripts'), timed
+# phases at STAT_ITERS calls; no other cut.
+STAT_ITERS = 3
+STAT_TOOLS_CUTS = [f"--iters {STAT_ITERS} (the tools' timed calls a "
+                   "phase; the scripts timed nothing or 5 calls)"]
+# The staged tree whose parent has more than 8 children: 4 ranks x 40
+# leaves of 32 (levels 160 / 20 / 1), N = 4096, staged refinement forced,
+# theta 0.72. Seed 4 of the Plummer ICs has targets that accept root
+# children past the first octet (seeds 0-2 have none), so the repaired
+# keys are evaluated.
+WIDE_RANKS, WIDE_N, WIDE_LEAF, WIDE_SEED = 4, 4096, 32, 4
 # Each kernel's row of the tools' tables reported as its time: the
 # script's own first configuration, on K1's 1M lists.
 EXP_HEADLINE = {"near_probe": "A dyn-idx u4", "flat_near": "P=4",
@@ -2667,6 +2685,239 @@ def port_tools():
     return runs
 
 
+# ----------------------- the list-statistics and MAC probes (phase 20)
+def phase_stat_tools():
+    """Phase 20 in a process of its own (this script with STAT_TOOLS_ARG),
+    which prints its lines here, as phases 18 and 19 do. Fails where the
+    child does. Returns {tool: launches}, the child's (this process's
+    counts; the ranks' are checked in the child)."""
+    torch.cuda.empty_cache()
+    out = os.path.join(ROOT, "build", "chip_smoke_stat_tools_launches.json")
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                         STAT_TOOLS_ARG, out], timeout=600).returncode
+    if rc != 0:
+        raise AssertionError(f"phase 20 (stat tools) exited {rc}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def _held(label, rec, key, names=None):
+    """A record's max abs error against the plain version(s) (`key`, a
+    number or {kernel: number}): present and finite, else fail."""
+    v = rec.get(key)
+    vals = [v] if names is None else [(v or {}).get(k) for k in names]
+    if any(x is None or not math.isfinite(x) for x in vals):
+        raise AssertionError(f"{label}: {key} not held ({v})")
+    return v
+
+
+def owned_layout(pos, mass, n_ranks, per_rank, leaf):
+    """Particles in curve order cut into n_ranks equal ranges, each padded
+    with zero-mass sentinel rows to per_rank leaves (the owned layout of a
+    distributed tree): (pos_s, mass_s, sentinel)."""
+    center, half, sentinel = bh.domain_cube(torch.amin(pos, 0),
+                                            torch.amax(pos, 0))
+    order = torch.sort(bh.hilbert_encode(pos, center, half),
+                       stable=True).indices
+    n_local, cap = pos.shape[0] // n_ranks, per_rank * leaf
+    pos_s = sentinel.repeat(n_ranks * cap, 1)
+    mass_s = mass.new_zeros(n_ranks * cap)
+    for k in range(n_ranks):
+        rows = order[k * n_local:(k + 1) * n_local]
+        pos_s[k * cap:k * cap + n_local] = pos[rows]
+        mass_s[k * cap:k * cap + n_local] = mass[rows]
+    return pos_s, mass_s, sentinel
+
+
+def wide_parent_check(dev):
+    """The repaired staged octet keys on the card: the 4 x 40-leaf tree,
+    first in one process (K2 on its staged octet lists, which must hold
+    keys past the root's first octet, against the plain version, and K2's
+    forces against K4's on the gather form of the same lists), then through dist_bh_accel on WIDE_RANKS ranks sharing the
+    card, octet against gather (< GATHER_OCTET_BOUND relative) and both
+    against K3's direct sum (< RMS_BOUND). Returns its record."""
+    from parallelnbody_tpu_torch.parallel import mesh, tasks
+    from parallelnbody_tpu_torch.parallel.distributed import _plan
+
+    cfg = SimConfig(n=WIDE_N, ic="plummer", seed=WIDE_SEED,
+                    softening=0.02, dt=1e-3,
+                    force="barnes_hut", bh_leaf_size=WIDE_LEAF,
+                    bh_near_budget=256, bh_distributed=True,
+                    bh_refine="staged", bh_rebuild_every=1, theta=0.72)
+    state = init_simulation(cfg, "cpu", compute_forces=False)
+    per_rank = _plan(WIDE_N // WIDE_RANKS, WIDE_RANKS, WIDE_LEAF)[2]
+    pos_s, mass_s, sentinel = owned_layout(
+        state.pos.to(dev), state.mass.to(dev), WIDE_RANKS, per_rank,
+        WIDE_LEAF)
+    tree = bh.build_tree(pos_s, mass_s, WIDE_LEAF, sentinel,
+                         multipole_order=2)
+    widths = [c.shape[0] for c in tree.com]
+    if widths != [WIDE_RANKS * per_rank, WIDE_RANKS * per_rank // 8, 1]:
+        raise AssertionError(f"wide parent: levels {widths}")
+    n_leaves = widths[0]
+    fm, rej = bh.traverse(tree, cfg.theta, stop_level=2)
+    _, cands = bh.resolve_refine("staged", (0, 0), 3, n_leaves, n_leaves)
+    kw = dict(theta=cfg.theta, start_leaf=0, n_slice=n_leaves,
+              near_budget=n_leaves, far_budget=4 * n_leaves,
+              cand2_budget=cands[0], cand1_budget=cands[1],
+              dtype=torch.float32)
+    _, _, fk, fv, nodes8, of = bh.build_interaction_lists_staged(
+        tree, fm, rej, octet_far=True, **kw)
+    _, _, gi, gv, nodes_all, of_g = bh.build_interaction_lists_staged(
+        tree, fm, rej, **kw)
+    tgt = pos_s.reshape(n_leaves, WIDE_LEAF, 3)
+    fkw = dict(g=1.0, softening=cfg.softening, compute_pot=False)
+    reset_launch_counts()
+    k2, _ = bh_kernels.far_octet(tgt, nodes8, fk, fv, **fkw)
+    k4, _ = bh_kernels.far_gather(tgt, nodes_all, gi, gv, **fkw)
+    if launch_counts()["far_octet"] != 1 or int(of) or int(of_g):
+        raise AssertionError(f"wide parent: K2 launches "
+                             f"{launch_counts()['far_octet']}, overflow "
+                             f"{int(of)} / {int(of_g)}")
+    err = measure.max_abs_err(
+        "K2 on the wide parent's staged octet lists", k2,
+        bh_kernels.far_octet_plain(tgt, nodes8, fk, fv, **fkw)[0], RTOL,
+        ATOL)
+    rel_lists = float(torch.linalg.norm(k2 - k4) / torch.linalg.norm(k4))
+    offs8 = bh._octet_offsets(widths)[0]
+    octs = fk[fv] >> 8
+    past_first = int(torch.sum((octs > offs8[1]) & (octs < offs8[2])))
+    arrays = {k: getattr(state, k).numpy() for k in ("pos", "vel", "mass")}
+    accs = {}
+    with RankPool(WIDE_RANKS, dev) as pool:
+        for far_mode, kern in (("octet", "far_octet"),
+                               ("gather", "far_gather")):
+            outs = pool.run(tasks.sharded, cfg.replace(
+                bh_far_mode=far_mode).to_json(), arrays, "dist_accel")
+            rank_launches(f"wide parent {far_mode}", mesh.LAST_RANK_STATS,
+                          (kern, "near_field_window"), ())
+            if outs[0]["overflow"]:
+                raise AssertionError(f"wide parent {far_mode}: overflow "
+                                     f"{outs[0]['overflow']}")
+            accs[far_mode] = torch.cat([torch.from_numpy(o["state"]["acc"])
+                                        for o in outs])
+    rel = float(torch.linalg.norm(accs["octet"] - accs["gather"])
+                / torch.linalg.norm(accs["gather"]))
+    ref, _ = direct_kernels.allpairs_accel_tile(
+        state.pos.to(dev), state.pos.to(dev), state.mass.to(dev), g=1.0,
+        softening=cfg.softening, compute_pot=False)
+    ref = ref.cpu()
+    rms = {m: float(torch.sqrt(torch.mean(torch.sum((a - ref) ** 2, 1)))
+                    / torch.sqrt(torch.mean(torch.sum(ref ** 2, 1))))
+           for m, a in accs.items()}
+    rec = {"levels": widths, "k2_max_abs_err": err,
+           "k2_vs_k4_same_lists": rel_lists,
+           "octet_keys_past_first_octet": past_first,
+           "ranks_octet_vs_gather": rel, "rms": rms}
+    if not (past_first and rel_lists < GATHER_OCTET_BOUND
+            and rel < GATHER_OCTET_BOUND and max(rms.values()) < RMS_BOUND):
+        raise AssertionError(f"wide parent: {rec}")
+    return rec
+
+
+def stat_tools():
+    """The six list-statistics and MAC tools at their defaults but
+    STAT_TOOLS_CUTS, each with the launch counts set to 0 before and read
+    after, their JSON lines in STAT_TOOLS_LOG; then the repaired staged
+    octet keys (`wide_parent_check`). Fails where a tool does not launch
+    the kernels it runs, a launch is not held to its plain version, an
+    rms is not finite, or the geometric MAC leaves the rms class. Returns
+    {tool: launches}."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.dirname(STAT_TOOLS_LOG), exist_ok=True)
+    with open(STAT_TOOLS_LOG, "w"):
+        pass
+    runs, seconds = {}, {}
+    it = ["--iters", str(STAT_ITERS)]
+
+    def go(label, fn, need=()):
+        t = time.perf_counter()
+        records, runs[label] = run_tool(label, fn, need, STAT_TOOLS_LOG,
+                                        whole=False)
+        seconds[label] = time.perf_counter() - t
+        return records
+
+    rec = go("near_octet_stats", lambda: near_octet_stats.main(it))[-1]
+    log("  near_octet_stats: " + json.dumps(
+        {k: rec[k] for k in ("n_leaves", "overflow", "near_count",
+                             "octets_per_target", "mask_fill",
+                             "pair_mult_if_octet")}))
+    recs = go("near_refine_probe", lambda: near_refine_probe.main(it),
+              ("near_field",))
+    _held("near_refine_probe K1", recs[0], "k1_max_abs_err")
+    log(f"  near_refine_probe: K1 {recs[0]['k1_ms']:.3f} ms, "
+        f"{recs[0]['k1_pairs_per_s']:.4e} pair terms/s (share "
+        f"{recs[0]['k1_share']:.3f}); leaf radius "
+        + json.dumps(recs[0]["leaf_radius"]))
+    for r in recs[1:]:
+        log(f"  sub {r['sub']}: near leaves {r['near_leaf_entries']} "
+            f"({r['ms_eq_cur']:.2f} ms-eq), refined subs "
+            f"{r['refined_subs']} ({r['ms_eq_ref']:.2f} ms-eq, reduction "
+            f"{r['reduction']:.2f}x), full {r['full_share']:.3f}, "
+            f"lane-padded {r['ms_eq_eff']:.2f} ms-eq"
+            + (f"; fattest {json.dumps(r['fattest'])}" if "fattest" in r
+               else ""))
+    recs = go("cell_leaves_probe", lambda: cell_leaves_probe.main(it),
+              ("near_field", "flat_tune2"))
+    _held("cell_leaves_probe K1", recs[0], "k1_max_abs_err")
+    _held("cell_leaves_probe K11", recs[0], "k11_max_abs_err")
+    log(f"  cell_leaves_probe: K1 {recs[0]['k1_pairs_per_s']:.4e} pair "
+        f"terms/s, K11 row {recs[0]['k11_pairs_per_s']:.4e} pairs/s "
+        f"({recs[0]['k11_ms']:.3f} ms, padding "
+        f"{recs[0]['k11_padding_share']:.3f})")
+    for r in recs[1:]:
+        log(f"  {r['structure']}: {r['n_leaves']} leaves, near/target "
+            f"{json.dumps(r['near_per_target'])}, tiles {r['tiles']} "
+            f"({r['padded_ms']:.2f} ms at K1), true pairs "
+            f"{r['true_pairs']:.4e} ({r['true_ms']:.2f} ms at K11 row)")
+    recs = go("mac_experiment", lambda: mac_experiment.main(it),
+              ("near_field", "far_gather", "allpairs"))
+    for r in recs:
+        _held(f"mac_experiment {r['mode']} {r['k']}", r, "max_abs_err_plain")
+        if not all(math.isfinite(r[k]) for k in ("rms", "p999", "max")) or (
+                r["mode"] == "geom" and not r["rms"] < RMS_BOUND):
+            raise AssertionError(f"mac_experiment: {r}")
+        log(f"  mac {r['mode']} k={r['k']}: 262k rms {r['rms']:.3e} p999 "
+            f"{r['p999']:.3e} max {r['max']:.3e} overflow "
+            f"{r['overflow_rms']} | 1M {_ms(r['ms'])} ms (busy "
+            f"{_ms(r['busy_ms'])}, host {_ms(r['host_ms'])}) overflow "
+            f"{r['overflow']}")
+    recs = go("aniso_bounds_probe", lambda: aniso_bounds_probe.main([]),
+              ("near_field", "far_gather", "allpairs"))
+    for r in recs:
+        _held(f"aniso {r['variant']} {r['theta']}", r, "max_abs_err_plain",
+              ("near_field", "far_gather", "allpairs"))
+        if not math.isfinite(r["rms"]) or (
+                r["variant"] == "iso" and r["theta"] <= 0.72
+                and not r["rms"] < RMS_BOUND):
+            raise AssertionError(f"aniso_bounds_probe: {r}")
+        log(f"  aniso {r['variant']} theta {r['theta']}: near tiles "
+            f"{r['near_tiles']} ({r['near_tiles_per_target']:.1f} a "
+            f"target), far leaf {r['far_leaf_entries']} upper "
+            f"{r['far_upper_entries']}, rms {r['rms']:.3e}; masks "
+            f"{_ms(r['masks_ms'])} ms, eval {_ms(r['eval_ms'])} ms")
+    recs = go("multipole_order_probe",
+              lambda: multipole_order_probe.main(it))
+    for r in recs[:-1]:
+        if "alpha" in r and not all(math.isfinite(r[k]) for k in
+                                    ("mono_rms", "quad_rms", "oct_rms")):
+            raise AssertionError(f"multipole_order_probe: {r}")
+        log("  multipole " + json.dumps({k: v for k, v in r.items()
+                                         if k not in ("tool", "card")}))
+    t = time.perf_counter()
+    reset_launch_counts()
+    wide = wide_parent_check(torch.device(DEVICE))
+    runs["wide parent"] = {k: v for k, v in launch_counts().items() if v}
+    seconds["wide parent"] = time.perf_counter() - t
+    log("  wide parent (4 x 40 leaves, staged): " + json.dumps(wide))
+    log("phase 20: " + json.dumps({"cuts": STAT_TOOLS_CUTS,
+                                   "seconds": seconds, "launches": runs}))
+    log(f"stat tools wall time {time.perf_counter() - t0:.1f} s (lines in "
+        f"{STAT_TOOLS_LOG})")
+    return runs
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_environment()
@@ -2717,6 +2968,7 @@ def main():
     for name in ("near_field", "far_octet", "allpairs"):
         kernels[name]["launches_port_tools"] = {
             label: n[name] for label, n in ports.items() if name in n}
+    stats = phase_stat_tools()
     with open(LET_CONFIG) as f:
         let_json = f.read()
     kernels.update(phase_k1_forms(let_json))
@@ -2733,6 +2985,10 @@ def main():
     kernels.update(phase_near_experiments())
     for name in EXP_KERNELS:
         launches[name] = kernels[name].pop("launches")
+    for name in ("near_field", "far_octet", "far_gather", "allpairs",
+                 "flat_tune2"):
+        kernels[name]["launches_stat_tools"] = {
+            label: n[name] for label, n in stats.items() if name in n}
     log("distributed runs (ranks sharing one card): " + json.dumps(
         {k: {m: v[m] for m in ("ms_step", "wall_s") if m in v}
          for k, v in dist.items()}))
@@ -2762,5 +3018,10 @@ if __name__ == "__main__":
         build.load_library()
         with open(sys.argv[2], "w") as f:
             json.dump(port_tools(), f)
+    elif sys.argv[1:2] == [STAT_TOOLS_ARG]:
+        phase_environment()
+        build.load_library()
+        with open(sys.argv[2], "w") as f:
+            json.dump(stat_tools(), f)
     else:
         main()

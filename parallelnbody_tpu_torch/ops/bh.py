@@ -427,11 +427,34 @@ def _upper_keys(far_masks, offs, n_levels):
 def _octet_keys_children(mask_b, parent_idx, child_oct_off, b):
     """Octet keys from per-candidate child masks mask_b (R, B, b) for
     parents parent_idx (R, B): node j's children are rows [j*b, (j+1)*b) of
-    the child level, i.e. bits (j*b) % 8 .. of octet child_oct_off + j*b//8
-    (b is a power of two <= 8, so a parent's children never straddle an
-    octet). Parents with b < 8 may share an octet: their masks are
-    disjoint, so such duplicate-octet entries count each child once, and the
-    far kernels sum every entry."""
+    the child level.
+
+    b <= 8 (a power of two): bits (j*b) % 8 .. of octet
+    child_oct_off + j*b//8, one key per candidate, (R, B), as the JAX
+    package emits them; a parent's children never straddle an octet.
+    Parents with b < 8 may share an octet: their masks are disjoint, so
+    such duplicate-octet entries count each child once, and the far kernels
+    sum every entry.
+
+    b > 8 comes only from a level collapsed into one node (build_upper: a
+    width that is no multiple of 8), so parent_idx is 0 and the children
+    start at an octet boundary and cover ceil(b / 8) octets: one key per
+    covered octet, (R, B, ceil(b / 8)), key o being
+    ((child_oct_off + o) << 8) | children 8o .. 8o + 7 of the mask. (The
+    JAX package packs all b bits into one key there, and bits 8 and up
+    carry into the octet id.)"""
+    if b > 8:
+        n_oct = -(-b // 8)
+        pad = n_oct * 8 - b
+        if pad:
+            mask_b = torch.cat([mask_b, mask_b.new_zeros(
+                mask_b.shape[:2] + (pad,))], dim=2)
+        pw = 1 << torch.arange(8, dtype=torch.int32, device=mask_b.device)
+        small = torch.sum(mask_b.reshape(mask_b.shape[:2] + (n_oct, 8))
+                          .to(torch.int32) * pw, dim=3, dtype=torch.int32)
+        octs = child_oct_off + torch.arange(n_oct, dtype=torch.int32,
+                                            device=mask_b.device)
+        return torch.where(small > 0, (octs << 8) | small, INT32_MAX)
     pw = 1 << torch.arange(b, dtype=torch.int32, device=mask_b.device)
     small = torch.sum(mask_b.to(torch.int32) * pw, dim=2, dtype=torch.int32)
     base = parent_idx * b

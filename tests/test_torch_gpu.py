@@ -1416,3 +1416,106 @@ def test_let_probes_on_the_card(cuda):
         s1 = row["variants"]["s1_leaf"]["rows_per_rank_mean"]
         s8 = row["variants"]["s8_subtile"]["rows_per_rank_mean"]
         assert 0 < s8 <= s1
+
+
+@pytest.fixture
+def cpu_tree(monkeypatch):
+    """bh._prepare on a CUDA input builds the pyramid on the CPU and moves
+    it to the card, so that a tool's lists on the card are those of its
+    CPU run (the tree's sums round otherwise in another order)."""
+    prepare = bh._prepare
+
+    def same_tree(pos, mass, **kw):
+        if pos.device.type != "cuda":
+            return prepare(pos, mass, **kw)
+        out = prepare(pos.cpu(), mass.cpu(), **kw)
+        move = lambda t: None if t is None else t.to(pos.device)  # noqa
+        tree = bh.BHTree(*(tuple(move(x) for x in field)
+                           for field in out[3]))
+        return (*(move(t) for t in out[:3]), tree, *out[4:])
+    monkeypatch.setattr(bh, "_prepare", same_tree)
+
+
+def _stat_args(tool, *argv):
+    return tool.parser().parse_args([*argv, "--iters", "2"])
+
+
+def _plummer(n, dev):
+    state = init_simulation(SimConfig(n=n, ic="plummer", softening=0.01),
+                            "cpu", compute_forces=False)
+    return state.pos.to(dev), state.mass.to(dev)
+
+
+def test_near_octet_and_refine_stats_on_the_card(cuda, cpu_tree):
+    """tools/near_octet_stats.py and near_refine_probe.py at N = 16384,
+    leaf 64 on the card and on the CPU from one pyramid: the same
+    statistics, and on the card K1's rate with its launch held to the
+    plain version."""
+    from parallelnbody_tpu_torch.tools import (near_octet_stats,
+                                               near_refine_probe)
+
+    args = _stat_args(near_octet_stats, "--leaf", "64", "--near", "256",
+                      "--far", "256")
+    got, want = (near_octet_stats.stats(*_plummer(16384, dev), args)[-1]
+                 for dev in (cuda, torch.device("cpu")))
+    assert {k: got[k] for k in ("near_count", "octets_per_target",
+                                "mask_fill", "overflow")} == {
+        k: want[k] for k in ("near_count", "octets_per_target", "mask_fill",
+                             "overflow")}
+    args = _stat_args(near_refine_probe, "--leaf", "64", "--chunk", "128")
+    got, want = (near_refine_probe.probe(*_plummer(16384, dev), args)
+                 for dev in (cuda, torch.device("cpu")))
+    assert got[0]["k1_pairs_per_s"] > 0 and got[0]["k1_max_abs_err"] < 1e-3
+    for g, w in zip(got[1:], want[1:]):
+        assert g["near_leaf_entries"] == w["near_leaf_entries"]
+        assert g["refined_subs"] == pytest.approx(w["refined_subs"],
+                                                  rel=1e-3)
+        assert g["ms_eq_cur"] > 0 and g["ms"] > 0
+
+
+def test_cell_leaves_probe_on_the_card(cuda):
+    """tools/cell_leaves_probe.py at N = 16384, G = 64: the card's tiles
+    and true pairs within 1e-3 of the CPU's (the leaf CoMs' sums round in
+    another order), K1's and K11's rates measured and held."""
+    from parallelnbody_tpu_torch.tools import cell_leaves_probe
+
+    args = _stat_args(cell_leaves_probe, "--g", "64")
+    got, want = (cell_leaves_probe.probe(*_plummer(16384, dev), args)
+                 for dev in (cuda, torch.device("cpu")))
+    assert got[0]["k1_pairs_per_s"] > 0 and got[0]["k11_pairs_per_s"] > 0
+    for g, w in zip(got[1:], want[1:]):
+        assert g["structure"] == w["structure"]
+        assert g["tiles"] == pytest.approx(w["tiles"], rel=1e-3)
+        assert g["true_pairs"] == pytest.approx(w["true_pairs"], rel=1e-3)
+        assert g["padded_ms"] > 0 and g["true_ms"] > 0
+
+
+def test_mac_and_aniso_probes_on_the_card(cuda, cpu_tree):
+    """tools/mac_experiment.py's run and aniso_bounds_probe.py at
+    N = 16384, leaf 64 on the card and on the CPU from one pyramid: the
+    same overflow and masks, rms within 2e-5, each launch (K1, K4, K3)
+    held to its plain version."""
+    from parallelnbody_tpu_torch.tools import (aniso_bounds_probe,
+                                               mac_experiment)
+
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        pos, mass = _plummer(16384, dev)
+        ref, _ = direct_kernels.allpairs_accel_tile(
+            pos, pos, mass, g=1.0, softening=0.01, compute_pot=False)
+        runs[dev.type] = mac_experiment.run(pos, mass, "geom", 0.0, leaf=64,
+                                            near=256, far=256,
+                                            ref=ref.to(dev))
+    assert runs["cuda"]["ovf"] == runs["cpu"]["ovf"] == 0
+    assert abs(runs["cuda"]["rms"] - runs["cpu"]["rms"]) < 2e-5
+    assert runs["cuda"]["max_abs_err_plain"] < 1e-3
+    args = _stat_args(aniso_bounds_probe, "--leaf", "64", "--stride", "16",
+                      "--thetas", "0.72")
+    got, want = (aniso_bounds_probe.probe(*_plummer(16384, dev), args)
+                 for dev in (cuda, torch.device("cpu")))
+    for g, w in zip(got, want):
+        assert (g["near_tiles"], g["far_leaf_entries"]) == (
+            w["near_tiles"], w["far_leaf_entries"])
+        assert abs(g["rms"] - w["rms"]) < 2e-5
+        assert sorted(g["max_abs_err_plain"]) == ["allpairs", "far_gather",
+                                                  "near_field"]

@@ -161,8 +161,57 @@ GEOMETRY = {
 }
 
 
+def _tree_widths(cfg, n_dev):
+    """Level widths of the distributed tree (build_upper's rule: shrink by
+    8 where divisible, else collapse into one node)."""
+    n_local = cfg.n // n_dev
+    widths = [n_dev * JD._plan_cfg(cfg, n_local, n_dev,
+                                   cfg.resolve_bh_leaf_size())[2]]
+    while widths[-1] > 1 and len(widths) < cfg.bh_max_levels:
+        w = widths[-1]
+        widths.append(w // 8 if w % 8 == 0 else 1)
+    return widths
+
+
+def _staged_parent_over_8(cfg, n_dev):
+    """Whether the tree is refined in stages and one of the two levels the
+    stages refine has a parent of more than 8 children: there the JAX
+    package's octet keys carry past their octet
+    (tests/test_torch_octet_children.py), and the port's differ."""
+    widths = _tree_widths(cfg, n_dev)
+    refine, _ = JB.resolve_refine(cfg.resolve_bh_refine(), (1, 1),
+                                  len(widths), 1, 1)
+    return refine == "staged" and any(widths[k - 1] // widths[k] > 8
+                                      for k in (1, 2))
+
+
+def _far_nodes(widths, idx, valid, octet):
+    """Each target row's far list as sorted (level, node) pairs: octet keys
+    over the 8-aligned table, or node ids over the stacked table."""
+    from parallelnbody_tpu_torch.ops import bh as tbh
+
+    offs = (tbh._octet_offsets(widths)[0] if octet
+            else tbh._level_offsets(widths))
+    rows = []
+    for ir, vr in zip(np.asarray(idx), np.asarray(valid)):
+        nodes = []
+        for e in (int(x) for x in ir[vr]):
+            base = e >> 8 if octet else e
+            k = max(i for i, o in enumerate(offs) if o <= base)
+            nodes += ([(k, (base - offs[k]) * 8 + b) for b in range(8)
+                       if e >> b & 1] if octet else [(k, e - offs[k])])
+        rows.append(sorted(nodes))
+    return rows
+
+
 @pytest.mark.parametrize("case", list(GEOMETRY))
 def test_owned_geometry_equals_jax(eight_devices, case):
+    """Every integer output equal to the JAX package's, rank by rank. Where
+    a staged parent has more than 8 children (p8_staged_let_budget1: levels
+    80 / 10 / 1), the octet far list alone is held instead to the gather
+    form of the same lists (octet_far=False, right for any branch factor),
+    which equals the JAX package's gather form bit for bit: the octet keys
+    name exactly the gather list's nodes."""
     n_dev, kw = GEOMETRY[case]
     cfg = _dist_cfg(256 * n_dev if n_dev > 1 else 1024, **kw)
     state = init_simulation(cfg.replace(force="direct"))
@@ -170,10 +219,28 @@ def test_owned_geometry_equals_jax(eight_devices, case):
         state = adversarial(state)
     want = jax_geometry(cfg, state, n_dev)
     got = ranks(n_dev).run(tasks.owned_geometry, tjson(cfg), arrays(state))
+    wide = _staged_parent_over_8(cfg, n_dev)
+    assert wide == (case == "p8_staged_let_budget1")
     for r in range(n_dev):
         for k, v in want[r].items():
+            if wide and k in ("far_idx", "far_valid"):
+                continue
             np.testing.assert_array_equal(np.asarray(got[r][k]).reshape(
                 v.shape), v, err_msg=f"{case} rank {r} {k}")
+    if wide:
+        gcfg = cfg.replace(bh_far_mode="gather")
+        want_g = jax_geometry(gcfg, state, n_dev)
+        got_g = ranks(n_dev).run(tasks.owned_geometry, tjson(gcfg),
+                                 arrays(state))
+        widths = _tree_widths(cfg, n_dev)
+        for r in range(n_dev):
+            for k, v in want_g[r].items():
+                np.testing.assert_array_equal(
+                    np.asarray(got_g[r][k]).reshape(v.shape), v,
+                    err_msg=f"{case} gather rank {r} {k}")
+            assert _far_nodes(widths, got[r]["far_idx"], got[r]["far_valid"],
+                              True) == _far_nodes(
+                widths, got_g[r]["far_idx"], got_g[r]["far_valid"], False)
     if case == "p8_adversarial":
         assert sum(int(w["of_exchange"][0]) for w in want) > 0
     if case == "p8_staged_let_budget1":
