@@ -120,7 +120,8 @@ Phases, each of which exits non-zero on failure:
      ops/near_flat.py): every instantiation against its plain version and
      launched twice for the same bits, K8 on the N = 65536 leaf-256 lists
      (modes A, B, C, E x unroll 4, 8 x 4 or 8 floats a source, 4
-     segments; A also in one), K9-K11 on those lists' flat form (4, 8, 16
+     segments, each written or added over its work items, rows cut into
+     several; A also in one), K9-K11 on those lists' flat form (4, 8, 16
      packs a step, both output modes, with and without the potential) and
      at the scripts' check sizes (within rtol 2e-4 of each target row's
      largest |value| plus atol 2e-5: random sources cancel some sums to
@@ -417,6 +418,14 @@ MAIN_INSTANCE = {
     "allpairs": "allpairs_kernelILb0ELb0E",
     "far_gather": "far_gather_kernelILi4ELb1ELb0ELb0ELb0E",
 }
+# K8's and K11's instantiations on their tools' headline rows: K8 mode A,
+# unroll 4, stride 4, 8 targets a thread (leaf 256); K11 at 8 packs with
+# the potential, 8 targets a thread, "row" and "step".
+EXP_INSTANCE = {
+    ("near_probe", "A u4"): "near_probe_kernelILi0ELi4ELi4ELi8E",
+    ("flat_tune2", "P=8 row"): "flat_lane_kernelILi8ELi8ELb1ELb1E",
+    ("flat_tune2", "P=8 step"): "flat_lane_kernelILi8ELi8ELb1ELb0E",
+}
 # K5-K7's instantiations (variant code, precision), both precisions.
 MMA_INSTANCE = {
     (name, p): f"allpairs_mma_kernelILi{direct_mma.VARIANTS[v]}ELi{p}E"
@@ -515,7 +524,9 @@ def clocks():
 def phase_build():
     """Build and load the kernels; returns {kernel: {"sass_per_pair": SASS
     instructions a pair of its main-path inner loop}} (K5-K7: the loop
-    with HMMA, at 3xTF32, and "sass_per_pair_tf32" at one pass)."""
+    with HMMA, at 3xTF32, and "sass_per_pair_tf32" at one pass; K8 and
+    K11: {row: instructions a pair} and {row: registers} of the
+    EXP_INSTANCE rows)."""
     t0 = time.perf_counter()
     lib = build.build()
     build.load_library()
@@ -536,6 +547,23 @@ def phase_build():
         log(f"SASS {name} ({instance}): inner loop {rec['instructions']} "
             f"instructions, {rec['pairs']} MUFU.RSQ, {rec['per_pair']:.3f} a "
             f"pair; {regs} registers, {smem} bytes static shared; "
+            f"{json.dumps(rec['opcodes'])}")
+    for (name, label), instance in EXP_INSTANCE.items():
+        found = [m for m in loops if instance in m]
+        if len(found) != 1:
+            raise AssertionError(f"{name}: {len(found)} kernels match "
+                                 f"{instance} in the SASS")
+        rec = loops[found[0]]
+        regs, smem = usage.get(found[0], (None, None))
+        per_pair.setdefault(name, {}).setdefault("sass_per_pair", {})[
+            label] = rec["per_pair"]
+        per_pair[name].setdefault("registers", {})[label] = regs
+        log(f"SASS {name} {label} ({instance}): inner loop "
+            f"{rec['instructions']} instructions, {rec['pairs']} MUFU.RSQ, "
+            f"{rec['per_pair']:.3f} a pair (K1: "
+            f"{per_pair['near_field']['sass_per_pair']:.3f}); "
+            f"{rec['kernel_instructions']} in the kernel; {regs} "
+            f"registers, {smem} bytes static shared; "
             f"{json.dumps(rec['opcodes'])}")
     for (name, p), instance in MMA_INSTANCE.items():
         found = [m for m in loops if instance in m]
@@ -2937,7 +2965,8 @@ def main():
     kernels["far_gather"] = phase_gather_parity(cfg_json)
     kernels.update(phase_mma())
     for name, value in per_pair.items():
-        kernels[name].update(value)
+        if name not in EXP_KERNELS:
+            kernels[name].update(value)
     # Each kernel's launches are read from the path that carries it.
     launches = phase_octet_path(cfg_json)
     launches["allpairs"] = phase_allpairs_path(allpairs_json)["allpairs"]
@@ -2985,6 +3014,7 @@ def main():
     kernels.update(phase_near_experiments())
     for name in EXP_KERNELS:
         launches[name] = kernels[name].pop("launches")
+        kernels[name].update(per_pair.get(name, {}))
     for name in ("near_field", "far_octet", "far_gather", "allpairs",
                  "flat_tune2"):
         kernels[name]["launches_stat_tools"] = {

@@ -22,33 +22,62 @@
 // kept from each script:
 //   * K9 and K10: each pack summed over its 128 sources, the packs added
 //     into the step's sum in order, the steps into the row's in order.
-//   * K11: sums kept per source lane (128 a target and component) across
-//     the packs, reduced over the lanes once a step ("step", the step's
-//     sum then added into the row's) or once a row ("row", the lanes
-//     carried across the row's steps).
+//   * K11: sums kept per source lane across the packs, reduced over the
+//     lanes once a step ("step", the step's sum then added into the
+//     row's) or once for the steps carried ("row").
 //
 // What bounds them. A pair is K1's 18 FP32 operations (19 with the
 // potential) and one rsqrt, and a pack of 2 KB serves 128 G pairs: FP32
 // issue, as K1 (bytes only at tiny G).
 //
-// Design. A TPU grid runs its steps in order, so the scripts carry a row's
-// sum from step to step in the output block ("rmw") or in scratch ("row").
-// A card runs blocks in no order, and the port uses no float atomics, so
-// two launch shapes replace that:
-//   * ROW: one block per target row (K11: per row and group of 32 targets)
-//     walks the row's steps in order, from the row starts that the wrapper
-//     finds once in `rows`, and writes the row once. K9, K10 "rmw", K11.
+// K9 and K10. A TPU grid runs its steps in order, so the scripts carry a
+// row's sum from step to step in the output block ("rmw"). A card runs
+// blocks in no order, and the port uses no float atomics, so two launch
+// shapes replace that:
+//   * ROW: one block per target row walks the row's steps in order, from
+//     the row starts that the wrapper finds once in `rows`, and writes the
+//     row once. K9, K10 "rmw".
 //   * STEPS: one block per step writes its (4, G) step sum to `partial`;
 //     flat_combine_kernel then adds each row's partials in step order
 //     (0 + p0 = p0 exactly, so the bits are ROW's). K10 "steps".
-// Pack-sum kernel: one thread per target; a step's P packs are staged
-// into shared memory as float4 [x, y, z, m] (a broadcast LDS.128 a pair).
-// Lane kernel (K11): a target's 128 lane sums do not fit one thread, so a
-// thread is a source lane: 4 groups of 128 threads, each thread holding 8
-// targets' lane sums of its lane and reading its lane's source from the
-// staged step; the lanes are reduced by warp shuffles and then the 4 warps
-// of a group in order, a fixed order, so repeat launches give the same
-// bits.
+// One thread per target; a step's P packs are staged into shared memory
+// as float4 [x, y, z, m] (a broadcast LDS.128 a pair).
+//
+// K11, what bounded the first design: a thread was one of a
+// pack's 128 lanes for 8 targets, a block 512 threads over 32 targets of
+// a row; 86 registers left one block an SM; every step was staged by
+// scalar gathers between two barriers; each row was walked, and staged
+// again, by G / 32 blocks, one block per (row, 32 targets), so the longest
+// rows were the tail; and "step" reduced 128 lanes x 8 targets x 4
+// components with shuffles every step. "row" at 8 packs ran 22.1-22.6 ms
+// on the 1M lists' flat form (0.33 of its bound), "step" 31.5-32.0.
+//
+// K11, the design:
+//   * Balanced work. The wrapper cuts each row's steps into work items of
+//     at most near_flat.lane_chunk(P) steps (8192 sources, K1's item),
+//     heaviest first, one block per item (bh_kernels.near_items); the sums
+//     of a split row's items are added in item order by
+//     flat_lane_combine_kernel, as K10 "steps" adds its steps. In "row"
+//     mode an item carries its lane sums across its own steps and reduces
+//     them once: the reduction falls at the item's end, not the row's.
+//   * Fewer partial sums a target, more pairs an LDS. A block is kSlices
+//     lane slices of T = G / R threads (one warp at G = 256), each thread
+//     holding R targets (K1's rule: 8 at G = 256) and summing the 32 lanes
+//     of its slice of every pack: a target has kSlices partial sums, not
+//     128, and one broadcast LDS.128 serves R pairs (terms.cuh `sweep`).
+//     The slices are added in slice order through shared memory, a fixed
+//     order, so repeat launches give the same bits.
+//   * Staging. A step's packs land in shared memory as float4 [x, y, z, m]
+//     by 4-byte cp.async copies out of the (4, 128) packs, at most 8 packs
+//     (16 KB) a buffer, the next buffer's in flight while this one is
+//     swept, one barrier a buffer: 32 KB of ring a block at 8 and 16
+//     packs, plus 16 KB for the reduction in "step" mode.
+// What it reaches (tools/flat_kernel.py lists, NVIDIA H100 80GB HBM3 at
+// 700 W, PERF.md §6): "row" at 8 packs 13.54 ms on the 1M lists' flat
+// form, 0.542 of its bound (K1 with the potential 13.87 on the same
+// pairs), "step" 14.24 (0.516), the difference the cost of a reduction a
+// step. 14.3 SASS instructions a pair with the potential; 99-102
+// registers and 32-48 KB of shared memory leave four 4-warp blocks an SM.
 
 #include <cuda_runtime.h>
 
@@ -60,9 +89,8 @@ namespace {
 
 constexpr int kLanes = 128;      // sources a pack
 constexpr int kPackFloats = 512;  // (4, 128)
-constexpr int kGroups = 4;       // lane kernel: groups of 128 threads
-constexpr int kLaneR = 8;        // lane kernel: targets a thread
-constexpr int kLaneTargets = kGroups * kLaneR;  // targets a lane block
+constexpr int kSlices = 4;       // lane kernel: lane slices a block
+constexpr int kStagePacks = 8;   // lane kernel: packs a staging buffer
 
 // The P packs of step c into shared memory as float4 [x, y, z, m].
 template <int P>
@@ -147,94 +175,159 @@ __global__ void flat_combine_kernel(const int* __restrict__ starts,
   out[k] = s;
 }
 
-// The 128 lane sums of each of a group's kLaneR targets and 4 components,
-// reduced: warp shuffles, then the group's 4 warps in order (red: shared,
-// kGroups x 4 x kLaneR float4). Returns the sum in the thread of lane r of
-// the group's first warp for target r (r < kLaneR); every thread of the
-// block must call it.
-__device__ __forceinline__ float4 reduce_lanes(float4 (&a)[kLaneR],
-                                               float4 (*red)[4][kLaneR]) {
-  const int g = threadIdx.x / kLanes;
-  const int l = threadIdx.x % kLanes;
-#pragma unroll
-  for (int r = 0; r < kLaneR; ++r) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      a[r].x += __shfl_xor_sync(0xffffffffu, a[r].x, o);
-      a[r].y += __shfl_xor_sync(0xffffffffu, a[r].y, o);
-      a[r].z += __shfl_xor_sync(0xffffffffu, a[r].z, o);
-      a[r].w += __shfl_xor_sync(0xffffffffu, a[r].w, o);
-    }
-  }
-  if (l % 32 == 0) {
-#pragma unroll
-    for (int r = 0; r < kLaneR; ++r) red[g][l / 32][r] = a[r];
-  }
-  __syncthreads();
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (l < kLaneR) {
-    s = red[g][0][l];
-#pragma unroll
-    for (int w = 1; w < 4; ++w) add4(s, red[g][w][l]);
-  }
-  return s;
+// K11. A block runs one work item (row, first step, end step, dst) of a
+// row's steps; its threads are kSlices lane slices of T threads, thread
+// (slice w, i0) holding the R targets i0 + r T of the row (those past G
+// repeat target 0 and are not stored) and summing, for each of them, the
+// sources of its slice's kLanes / kSlices lanes of every pack, pack by
+// pack (one broadcast LDS.128 a source and R targets: every lane of a warp
+// reads the same source).
+
+// The float at src into the float at dst (shared memory), asynchronously.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
 }
 
-// K11: block = (row, group of kLaneTargets targets); thread = (group g,
-// lane l), targets t0 + g * kLaneR + r. ROW_MODE: the lane sums carried
-// across the row's steps and reduced once; else reduced each step and the
-// step sums added into the row's.
-template <int P, bool COMPUTE_POT, bool ROW_MODE>
-__global__ void __launch_bounds__(kGroups * kLanes)
-    flat_lane_kernel(const int* __restrict__ starts,
+// The PC packs from pack s on into shared memory as float4 [x, y, z, m],
+// each float by a 4-byte cp.async from its (4, 128) pack, in flight until
+// the caller waits for them.
+template <int PC>
+__device__ __forceinline__ void stage_packs_async(float4* pack,
+                                                  const float* s) {
+  for (int q = threadIdx.x; q < PC * kLanes; q += blockDim.x) {
+    const float* b = s + (q / kLanes) * kPackFloats + (q % kLanes);
+    float* d = reinterpret_cast<float*>(pack + q);
+    cp_async4(d, b);
+    cp_async4(d + 1, b + kLanes);
+    cp_async4(d + 2, b + 2 * kLanes);
+    cp_async4(d + 3, b + 3 * kLanes);
+  }
+}
+
+// Reduces the kSlices slice sums of each target: every thread writes its
+// R sums to red (slice-major, kSlices x R T float4) and zeroes them; after
+// a barrier, thread k adds, for each target j = k + c * blockDim.x, the
+// slices' sums in slice order into acc[c]. Every thread of the block must
+// call it.
+template <int R, int CR>
+__device__ __forceinline__ void reduce_slices(pnb::Targets<R>& t, float4* red,
+                                              int T, float4 (&acc)[CR]) {
+  const int RT = R * T;
+  const int w = threadIdx.x / T;
+  const int i0 = threadIdx.x % T;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    red[w * RT + i0 + r * T] = t.s[r];
+    t.s[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < CR; ++c) {
+    const int j = threadIdx.x + c * blockDim.x;
+    if (j >= RT) continue;
+    float4 s = red[j];
+#pragma unroll
+    for (int v = 1; v < kSlices; ++v) add4(s, red[v * RT + j]);
+    add4(acc[c], s);
+  }
+}
+
+// K11: ROW_MODE carries the slice sums across the item's steps and reduces
+// them once; else they are reduced every step and the step sums added into
+// the item's sum. The item's sum (targets j = threadIdx.x + c blockDim.x)
+// is stored as the row (dst < 0) or into partial slot dst. A step is
+// staged in stages of PC = min(P, kStagePacks) packs, double-buffered in
+// shared memory: the next stage's copies are in flight while this one is
+// swept, one barrier a stage (and one more a step in "step" mode).
+template <int P, int R, bool COMPUTE_POT, bool ROW_MODE>
+__global__ void __launch_bounds__(kSlices * 128)
+    flat_lane_kernel(const int4* __restrict__ items,
                      const float* __restrict__ tgt,
                      const float* __restrict__ src, float* __restrict__ out,
-                     int G, float eps2) {
-  __shared__ float4 pack[P * kLanes];
-  __shared__ float4 red[kGroups][4][kLaneR];
-  const int blocks_per_row = G / kLaneTargets;
-  const int row = blockIdx.x / blocks_per_row;
-  const int g = threadIdx.x / kLanes;
-  const int l = threadIdx.x % kLanes;
-  const int t0 = (blockIdx.x % blocks_per_row) * kLaneTargets + g * kLaneR;
-  const float* tt = tgt + (long long)row * 4 * G + t0;
-  float xi[kLaneR], yi[kLaneR], zi[kLaneR];
-  float4 a[kLaneR];
+                     float4* __restrict__ partial, int G, float eps2) {
+  constexpr int CR = (R + kSlices - 1) / kSlices;
+  constexpr int L = kLanes / kSlices;
+  constexpr int PC = P < kStagePacks ? P : kStagePacks;
+  constexpr int H = P / PC;  // stages a step
+  extern __shared__ float4 smem[];
+  float4* red = ROW_MODE ? smem : smem + 2 * PC * kLanes;
+  const int T = blockDim.x / kSlices;
+  const int w = threadIdx.x / T;
+  const int i0 = threadIdx.x % T;
+  const int4 item = items[blockIdx.x];
+  const float* tt = tgt + (long long)item.x * 4 * G;
+  pnb::Targets<R> t;
 #pragma unroll
-  for (int r = 0; r < kLaneR; ++r) {
-    xi[r] = tt[r];
-    yi[r] = tt[G + r];
-    zi[r] = tt[2 * G + r];
-    a[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * T;
+    const int j = i < G ? i : 0;
+    t.x[r] = tt[j];
+    t.y[r] = tt[G + j];
+    t.z[r] = tt[2 * G + j];
+    t.s[r] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int c0 = starts[row], c1 = starts[row + 1];
-  for (int c = c0; c < c1; ++c) {
-    __syncthreads();
-    stage_step<P>(pack, src, c);
-    __syncthreads();
+  float4 acc[CR];
+#pragma unroll
+  for (int c = 0; c < CR; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // Stage q: packs (q % H) PC .. of step item.y + q / H.
+  const float* first = src + (long long)item.y * P * kPackFloats;
+  const int n = (item.z - item.y) * H;
+  if (n > 0) stage_packs_async<PC>(smem, first);
+  pnb::cp_async_commit();
+  for (int q = 0; q < n; ++q) {
+    pnb::cp_async_wait<0>();  // this thread's copies of stage q have landed
+    __syncthreads();          // everyone's have; stage q - 1 is swept by all
+    if (q + 1 < n)
+      stage_packs_async<PC>(smem + ((q + 1) & 1) * PC * kLanes,
+                            first + (long long)(q + 1) * PC * kPackFloats);
+    pnb::cp_async_commit();
+    const float4* packs = smem + (q & 1) * PC * kLanes + w * L;
 #pragma unroll 1
-    for (int j = 0; j < P; ++j) {
-      const float4 p = pack[j * kLanes + l];
+    for (int p = 0; p < PC; ++p)
+      pnb::sweep<R, false, COMPUTE_POT>(packs + p * kLanes, L, eps2, t);
+    if (!ROW_MODE && q % H == H - 1) reduce_slices<R, CR>(t, red, T, acc);
+  }
+  if (ROW_MODE) {
+    __syncthreads();  // every stage swept: red may take the ring's place
+    reduce_slices<R, CR>(t, red, T, acc);
+  }
+  float* o = out + (long long)item.x * 4 * G;
 #pragma unroll
-      for (int r = 0; r < kLaneR; ++r)
-        pnb::monopole_term<false, COMPUTE_POT>(p.x - xi[r], p.y - yi[r],
-                                               p.z - zi[r], p.w, eps2, a[r]);
-    }
-    if (!ROW_MODE || c == c1 - 1) {
-      const float4 s = reduce_lanes(a, red);
-      add4(acc, s);
-#pragma unroll
-      for (int r = 0; r < kLaneR; ++r) a[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < CR; ++c) {
+    const int j = threadIdx.x + c * blockDim.x;
+    if (j >= G) continue;
+    if (item.w < 0) {
+      o[j] = acc[c].x;
+      o[G + j] = acc[c].y;
+      o[2 * G + j] = acc[c].z;
+      o[3 * G + j] = acc[c].w;  // 0 without the potential
+    } else {
+      partial[(long long)item.w * G + j] = acc[c];
     }
   }
-  if (l < kLaneR) {
-    float* o = out + (long long)row * 4 * G + t0 + l;
-    o[0] = acc.x;
-    o[G] = acc.y;
-    o[2 * G] = acc.z;
-    o[3 * G] = COMPUTE_POT ? acc.w : 0.f;
-  }
+}
+
+// K11, rows cut into several items: splits[k] = (row, first partial,
+// count); one thread per (split row, target) adds the partials in item
+// order and writes the row.
+__global__ void flat_lane_combine_kernel(const float4* __restrict__ partial,
+                                         const int* __restrict__ splits,
+                                         float* __restrict__ out, int n_split,
+                                         int G) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= (long long)n_split * G) return;
+  const int* sp = splits + 3 * (k / G);
+  const int i = (int)(k % G);
+  const float4* p = partial + (long long)sp[1] * G + i;
+  float4 s = p[0];
+  for (int c = 1; c < sp[2]; ++c) add4(s, p[(long long)c * G]);
+  float* o = out + (long long)sp[0] * 4 * G;
+  o[i] = s.x;
+  o[G + i] = s.y;
+  o[2 * G + i] = s.z;
+  o[3 * G + i] = s.w;
 }
 
 template <int P, bool GUARD_ZERO, bool COMPUTE_POT>
@@ -255,14 +348,29 @@ cudaError_t launch_pack(const int* starts, const int* rows, const float* tgt,
   return cudaGetLastError();
 }
 
-template <int P, bool COMPUTE_POT, bool ROW_MODE>
-cudaError_t launch_lane(const int* starts, const float* tgt, const float* src,
-                        float* out, int n_rows, int G, float eps2,
-                        cudaStream_t stream) {
-  const long long blocks = (long long)n_rows * (G / kLaneTargets);
-  flat_lane_kernel<P, COMPUTE_POT, ROW_MODE>
-      <<<(int)blocks, kGroups * kLanes, 0, stream>>>(starts, tgt, src, out, G,
-                                                      eps2);
+template <int P, int R, bool COMPUTE_POT, bool ROW_MODE>
+cudaError_t launch_lanes(const int4* items, const int* splits,
+                         const float* tgt, const float* src, float* out,
+                         float4* partial, int n_items, int n_split, int G,
+                         float eps2, cudaStream_t stream) {
+  const int T = 32 * ((G + 32 * R - 1) / (32 * R));  // whole warps a slice
+  const size_t ring = 2 * (P < kStagePacks ? P : kStagePacks) * kLanes;
+  const size_t red = (size_t)kSlices * R * T;
+  const size_t smem =
+      (ROW_MODE ? (ring > red ? ring : red) : ring + red) * sizeof(float4);
+  auto kernel = flat_lane_kernel<P, R, COMPUTE_POT, ROW_MODE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<n_items, kSlices * T, smem, stream>>>(items, tgt, src, out,
+                                                 partial, G, eps2);
+  if (n_split > 0) {
+    const long long n = (long long)n_split * G;
+    flat_lane_combine_kernel<<<(int)((n + 255) / 256), 256, 0, stream>>>(
+        partial, splits, out, n_split, G);
+  }
   return cudaGetLastError();
 }
 
@@ -275,9 +383,7 @@ int with_bool(bool b, F f) {
 }  // namespace
 
 // shape: 0 ROW pack sums (K9, K10 "rmw"), 1 STEPS pack sums (K10 "steps",
-// partial (n_steps, 4, G)), 2 lane sums reduced a step (K11 "step"), 3
-// lane sums reduced a row (K11 "row"; guard_zero not taken). step_packs 4,
-// 8 or 16; G at most 1024, and a multiple of 32 for shapes 2 and 3.
+// partial (n_steps, 4, G)). step_packs 4, 8 or 16; G at most 1024.
 extern "C" int pnb_near_flat(const void* starts, const void* rows,
                              const void* tgt, const void* src, void* out,
                              void* partial, int n_rows, int n_steps,
@@ -286,8 +392,7 @@ extern "C" int pnb_near_flat(const void* starts, const void* rows,
                              void* stream) {
   if (n_rows <= 0) return (int)cudaSuccess;
   const int G = leaf_size;
-  if (G <= 0 || G > 1024 || shape < 0 || shape > 3 ||
-      (shape >= 2 && (G % kLaneTargets || guard_zero)))
+  if (G <= 0 || G > 1024 || shape < 0 || shape > 1)
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto s = static_cast<const int*>(starts);
@@ -300,15 +405,59 @@ extern "C" int pnb_near_flat(const void* starts, const void* rows,
     constexpr int P = decltype(p)::value;
     return with_bool(compute_pot, [&](auto cp) {
       constexpr bool CP = decltype(cp)::value;
-      if (shape >= 2)
-        return with_bool(shape == 3, [&](auto row_mode) {
-          return (int)launch_lane<P, CP, decltype(row_mode)::value>(
-              s, t, sr, o, n_rows, G, eps2, st);
-        });
       return with_bool(guard_zero, [&](auto gz) {
         return (int)launch_pack<P, decltype(gz)::value, CP>(
             s, rw, t, sr, o, pa, n_rows, n_steps, G, eps2, shape == 1, st);
       });
+    });
+  };
+  switch (step_packs) {
+    case 4: return with_p(std::integral_constant<int, 4>());
+    case 8: return with_p(std::integral_constant<int, 8>());
+    case 16: return with_p(std::integral_constant<int, 16>());
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K11 over its work items (items (n_items, 4) [row, first step, end step,
+// dst], splits (n_split, 3) [row, first, n], partial (n_partial * G)
+// float4): out (Ls, 4, G) written, every row by its items. row_mode 0 lane
+// sums reduced a step ("step"), 1 once an item ("row"). step_packs 4, 8 or
+// 16; G a multiple of 32, at most 1024.
+extern "C" int pnb_near_flat_lanes(const void* items, const void* splits,
+                                   const void* tgt, const void* src,
+                                   void* out, void* partial, int n_items,
+                                   int n_split, int leaf_size, int step_packs,
+                                   int row_mode, int compute_pot, float eps2,
+                                   void* stream) {
+  if (n_items <= 0) return (int)cudaSuccess;
+  const int G = leaf_size;
+  if (G <= 0 || G > 1024 || G % 32) return (int)cudaErrorInvalidValue;
+  auto go = [&](auto fn) {
+    return (int)fn(static_cast<const int4*>(items),
+                   static_cast<const int*>(splits),
+                   static_cast<const float*>(tgt),
+                   static_cast<const float*>(src), static_cast<float*>(out),
+                   static_cast<float4*>(partial), n_items, n_split, G, eps2,
+                   static_cast<cudaStream_t>(stream));
+  };
+  // R: the most targets a thread that still leave a slice one full warp
+  // (K1's rule, near_field.cu).
+  const int R = G >= 256 ? 8 : G >= 128 ? 4 : G >= 64 ? 2 : 1;
+  auto with_r = [&](auto p, auto cp, auto rm) {
+    constexpr int P = decltype(p)::value;
+    constexpr bool CP = decltype(cp)::value;
+    constexpr bool RM = decltype(rm)::value;
+    switch (R) {
+      case 8: return go(launch_lanes<P, 8, CP, RM>);
+      case 4: return go(launch_lanes<P, 4, CP, RM>);
+      case 2: return go(launch_lanes<P, 2, CP, RM>);
+      default: return go(launch_lanes<P, 1, CP, RM>);
+    }
+  };
+  auto with_p = [&](auto p) {
+    return with_bool(compute_pot, [&](auto cp) {
+      return with_bool(row_mode, [&](auto rm) { return with_r(p, cp, rm); });
     });
   };
   switch (step_packs) {

@@ -44,8 +44,9 @@ _SIGNATURES = (
     ("pnb_mma_tf32_probe", [_VP] * 4 + [_I, _I, _VP], _I),
     ("pnb_far_gather",
      [_VP] * 8 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _VP], _I),
-    ("pnb_near_probe", [_VP] * 5 + [_I] * 9 + [_F, _VP], _I),
+    ("pnb_near_probe", [_VP] * 7 + [_I] * 10 + [_F, _VP], _I),
     ("pnb_near_flat", [_VP] * 6 + [_I] * 5 + [_F, _I, _I, _VP], _I),
+    ("pnb_near_flat_lanes", [_VP] * 6 + [_I] * 6 + [_F, _VP], _I),
     ("pnb_error_string", [_I], ctypes.c_char_p),
 )
 

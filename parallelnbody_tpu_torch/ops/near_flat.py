@@ -34,13 +34,26 @@ or once a row, the lane sums carried across the row's steps.
 sub-tiles of 32 sources, 4 to a pack, each row padded with zero-mass
 sub-tiles to whole steps): the same pairs that K1 evaluates.
 
+K11's kernel runs work items (`lane_items`): each row's steps cut into
+items of at most `lane_chunk(step_packs)` steps (8192 sources, as many as
+K1's item of `bh_kernels.NEAR_CHUNK` leaves of 256), heaviest first
+(`bh_kernels.near_items`), one block each. In an item a target keeps one
+partial sum per slice of 32 of a pack's 128 lanes, reduced in slice order
+once a step ("step") or once at the item's end ("row"), and a split row's
+item sums are added in item order. That is the plain version's order but
+for the lanes grouped four to a target and, in "row", the lanes reduced at
+each item's end rather than the row's: the same f32 terms in another
+order, so kernel and plain version agree to rtol 2e-4 / atol 2e-5, the
+kernels' parity bound.
+
 The wrappers check the scripts' precondition (rows ascending, every row
 owning a step) and raise if it fails; they dispatch on the device of their
 tensors (kernels/launch.py): CPU tensors run the plain version, CUDA
 tensors launch the kernel or raise. f32 only; G at most 1024, K11 also a
 multiple of 32. `LAUNCHES` counts calls of the C entry under each
-wrapper's name; K10 "steps" runs two kernels a call (the step partials,
-then the combining pass), every other form one.
+wrapper's name; K10 "steps" and K11 on a row cut into several items run
+two kernels a call (the partials, then the combining pass), every other
+form one.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ from __future__ import annotations
 import torch
 
 from parallelnbody_tpu_torch.kernels.launch import check, launch, on_cpu, ptr
+from parallelnbody_tpu_torch.ops import bh_kernels
 
 LAUNCHES = {"flat_near": 0, "flat_tune": 0, "flat_tune2": 0}
 LANES = 128          # sources a pack
@@ -58,9 +72,11 @@ STEP_PACKS = (4, 8, 16)
 OUT_MODES = ("rmw", "steps")
 LANE_MODES = ("step", "row")
 TUNE_EPS2 = 1e-2     # the tune scripts' make_kernel default
-# The C entry's launch shapes (csrc/near_flat.cu).
-_SHAPES = {"rmw": 0, "steps": 1, "step": 2, "row": 3}
-_LANE_TARGETS = 32   # targets of one lane-kernel block
+# K9's and K10's launch shapes in their C entry (csrc/near_flat.cu).
+_SHAPES = {"rmw": 0, "steps": 1}
+_LANE_MULTIPLE = 32  # K11's leaf size: whole warps of targets
+# Sources of one K11 work item: K1's item, NEAR_CHUNK leaves of 256.
+LANE_ITEM_SOURCES = bh_kernels.NEAR_CHUNK * 256
 
 # Element budget of one plain-version temporary (steps x G x 128 x 4).
 _PLAIN_BLOCK_ELEMS = 1 << 25
@@ -101,9 +117,9 @@ def _check_args(rows, tgt_t, src, step_packs, lanes=False):
                          f"P = step_packs of {STEP_PACKS}, got "
                          f"{tuple(src.shape)}, step_packs {step_packs}")
     g = tgt_t.shape[2]
-    if not 0 < g <= 1024 or (lanes and g % _LANE_TARGETS):
+    if not 0 < g <= 1024 or (lanes and g % _LANE_MULTIPLE):
         raise ValueError(f"leaf size {g}: 1..1024"
-                         + (f", a multiple of {_LANE_TARGETS}" if lanes
+                         + (f", a multiple of {_LANE_MULTIPLE}" if lanes
                             else ""))
     return row_starts(rows, tgt_t.shape[0])
 
@@ -231,20 +247,43 @@ def flat_tune2_plain(rows, tgt_t, src, *, step_packs, mode, compute_pot=True,
 
 
 # ------------------------------------------------------------------ kernels
-def _flat(name, rows, tgt_t, src, step_packs, shape, eps2, guard_zero,
-          compute_pot):
-    """The plain version on CPU tensors, else the kernel in launch shape
-    `shape` under the launch count `name`."""
-    if on_cpu(rows, tgt_t, src):
-        return _plain(rows, tgt_t, src, step_packs, shape, eps2, guard_zero,
-                      compute_pot)
-    starts = _check_args(rows, tgt_t, src, step_packs,
-                         lanes=shape in LANE_MODES)
+def lane_chunk(step_packs):
+    """K11's steps an item at step_packs packs a step: LANE_ITEM_SOURCES
+    sources (16, 8, 4 steps at 4, 8, 16 packs)."""
+    return max(1, LANE_ITEM_SOURCES // (step_packs * LANES))
+
+
+def lane_items(rows, n_rows, step_packs):
+    """K11's work items for the steps' rows (S,) int32 of n_rows target
+    rows: a `bh_kernels.NearWork` whose items cut each row's steps
+    [starts[r], starts[r + 1]) (`row_starts`, which checks the scripts'
+    precondition) into runs of at most `lane_chunk(step_packs)` steps,
+    heaviest first; begin and end are step indices. Reads sizes back to
+    the host: build them once per work list."""
+    starts = row_starts(rows, n_rows)
+    return bh_kernels.near_items(starts[1:] - starts[:-1],
+                                 lane_chunk(step_packs), lo=starts[:-1])
+
+
+def _check_tensors(rows, tgt_t, src, step_packs):
     n_rows, _, g = tgt_t.shape
     n_steps = rows.shape[0]
     check("rows", rows, torch.int32, (n_steps,))
     check("tgt_t", tgt_t, torch.float32, (n_rows, 4, g))
     check("src", src, torch.float32, (n_steps, step_packs, 4, LANES))
+
+
+def _flat(name, rows, tgt_t, src, step_packs, shape, eps2, guard_zero,
+          compute_pot):
+    """K9 and K10: the plain version on CPU tensors, else the kernel in
+    launch shape `shape` under the launch count `name`."""
+    if on_cpu(rows, tgt_t, src):
+        return _plain(rows, tgt_t, src, step_packs, shape, eps2, guard_zero,
+                      compute_pot)
+    starts = _check_args(rows, tgt_t, src, step_packs)
+    _check_tensors(rows, tgt_t, src, step_packs)
+    n_rows, _, g = tgt_t.shape
+    n_steps = rows.shape[0]
     out = torch.empty_like(tgt_t)
     partial = torch.empty((n_steps if shape == "steps" else 0, 4, g),
                           dtype=torch.float32, device=tgt_t.device)
@@ -270,11 +309,31 @@ def flat_tune(rows, tgt_t, src, *, step_packs, out_mode, compute_pot=True,
 
 
 def flat_tune2(rows, tgt_t, src, *, step_packs, mode, compute_pot=True,
-               eps2=TUNE_EPS2):
-    """K11: per-lane sums, reduced once a step ("step") or once a row
-    ("row"); blocks of 32 targets of a row walk its steps in order."""
-    return _flat("flat_tune2", rows, tgt_t, src, step_packs,
-                 _mode(mode, LANE_MODES), eps2, False, compute_pot)
+               eps2=TUNE_EPS2, work=None):
+    """K11: per-lane sums, reduced once a step ("step") or once at the end
+    of an item's steps ("row"); one block per work item. work
+    (`lane_items(rows, Ls, step_packs)`) may come built beforehand, once
+    per work list (its build checked the rows); else it is built here."""
+    _mode(mode, LANE_MODES)
+    if on_cpu(rows, tgt_t, src):
+        return _plain(rows, tgt_t, src, step_packs, mode, eps2, False,
+                      compute_pot)
+    if work is None:
+        _check_args(rows, tgt_t, src, step_packs, lanes=True)
+        work = lane_items(rows, tgt_t.shape[0], step_packs)
+    elif tgt_t.shape[2] % _LANE_MULTIPLE:
+        raise ValueError(f"leaf size {tgt_t.shape[2]}: a multiple of "
+                         f"{_LANE_MULTIPLE}")
+    _check_tensors(rows, tgt_t, src, step_packs)
+    g = tgt_t.shape[2]
+    out = torch.empty_like(tgt_t)
+    partial = torch.empty((max(work.n_partial, 1) * g, 4),
+                          dtype=torch.float32, device=tgt_t.device)
+    launch(LAUNCHES, "flat_tune2", "pnb_near_flat_lanes", ptr(work.items),
+           ptr(work.splits), ptr(tgt_t), ptr(src), ptr(out), ptr(partial),
+           work.items.shape[0], work.splits.shape[0], g, step_packs,
+           int(mode == "row"), int(bool(compute_pot)), float(eps2))
+    return out
 
 
 # ------------------------------------------------------------ K1's lists

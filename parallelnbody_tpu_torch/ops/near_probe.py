@@ -35,7 +35,18 @@ so does this kernel: the port computes what the script means.
 CPU tensors run `near_probe_plain`, CUDA tensors launch the kernel once per
 segment (`LAUNCHES["near_probe"]` counts each) on the table packed by
 `probe_table` into the card's layout (L, G, n_comp), or raise. f32 only;
-G at most 1024.
+G at most 1024 (mode E: unroll x G at most 7168, its two trips of tiles in
+one block's shared memory).
+
+The kernel runs work items, as K1 does: `probe_items` cuts each row's run
+[lo, hi) of a segment into items of at most `bh_kernels.NEAR_CHUNK`
+entries (`bh_kernels.near_items`, heaviest first; in segment 0 a row with
+no entry gets one empty item, which writes its zeros), one block each.
+The sums of a split row's items are added in chunk order, then written
+(segment 0) or added to the row (later segments): the plain version's
+order but for where the items cut a segment's carry, so kernel and plain
+version agree to f32 rounding (rtol 2e-4 / atol 2e-5, the kernels' parity
+bound).
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from __future__ import annotations
 import torch
 
 from parallelnbody_tpu_torch.kernels.launch import check, launch, on_cpu, ptr
+from parallelnbody_tpu_torch.ops import bh_kernels
 
 LAUNCHES = {"near_probe": 0}
 MODES = {"A": 0, "B": 1, "C": 2, "E": 3}
@@ -50,6 +62,9 @@ UNROLLS = (4, 8)
 N_COMPS = (4, 8)
 EPS2 = 1e-4   # the script's eps2 (softening 0.01)
 
+# Mode E holds two trips of `unroll` tiles of G float4 in shared memory,
+# at most 227 KB a block on the card.
+_E_TILES_MAX = 227 * 1024 // (2 * 16)
 # Element budget of one plain-version temporary (rows x G x G).
 _PLAIN_BLOCK_ELEMS = 1 << 25
 
@@ -70,6 +85,19 @@ def probe_bounds(idx, valid, rows_per_seg):
     zero = torch.zeros(n_leaves, dtype=torch.int32, device=idx.device)
     full = torch.sum(valid, dim=1, dtype=torch.int32)
     return torch.stack([zero, *cuts, full], dim=1).contiguous()
+
+
+def probe_items(bnd, chunk=bh_kernels.NEAR_CHUNK):
+    """The kernel's work items for the bounds bnd (L, n_seg + 1)
+    (`probe_bounds`): for each segment s, a `bh_kernels.NearWork` whose
+    items cut each row's positions [bnd[t, s], bnd[t, s + 1]) into runs of
+    at most `chunk`, heaviest first (`bh_kernels.near_items`); in segment 0
+    every row has an item, later an empty run has none. Reads three sizes
+    a segment back to the host: build them once per list set."""
+    counts = bnd[:, 1:] - bnd[:, :-1]
+    return [bh_kernels.near_items(counts[:, s], chunk, lo=bnd[:, s],
+                                  every_row=s == 0)
+            for s in range(counts.shape[1])]
 
 
 def probe_table(table, n_comp=4):
@@ -104,6 +132,9 @@ def _check_args(tgt_t, table, idx, valid, mode, unroll, rows_per_seg,
                          f"divide the {n_leaves} leaves")
     if not 0 < g <= 1024:
         raise ValueError(f"near_probe: leaf size {g} must be in 1..1024")
+    if mode == "E" and unroll * g > _E_TILES_MAX:
+        raise ValueError(f"near_probe: mode E stages 2 x {unroll} tiles of "
+                         f"{g} sources, more than a block's shared memory")
 
 
 def near_probe_plain(tgt_t, table, idx, valid, *, mode, unroll,
@@ -148,12 +179,12 @@ def near_probe_plain(tgt_t, table, idx, valid, *, mode, unroll,
 
 
 def near_probe(tgt_t, table, idx, valid, *, mode, unroll, rows_per_seg,
-               n_comp=4, eps2=EPS2, bnd=None, packed=None):
+               n_comp=4, eps2=EPS2, bnd=None, packed=None, items=None):
     """K8 on the lists idx/valid (see the module docstring). CPU tensors
     run `near_probe_plain`; CUDA tensors launch the kernel once per segment.
-    bnd (`probe_bounds`) and packed (`probe_table(table, n_comp)`) may come
-    built beforehand, as the script builds its bounds outside the timed
-    call; else they are built here."""
+    bnd (`probe_bounds`), packed (`probe_table(table, n_comp)`) and items
+    (`probe_items(bnd)`) may come built beforehand, as the script builds
+    its bounds outside the timed call; else they are built here."""
     if on_cpu(tgt_t, table, idx, valid):
         return near_probe_plain(tgt_t, table, idx, valid, mode=mode,
                                 unroll=unroll, rows_per_seg=rows_per_seg,
@@ -170,10 +201,22 @@ def near_probe(tgt_t, table, idx, valid, *, mode, unroll, rows_per_seg,
         packed = probe_table(table, n_comp)
     check("bnd", bnd, torch.int32, (n_leaves, n_seg + 1))
     check("packed", packed, torch.float32, (n_leaves, g, n_comp))
+    if packed.data_ptr() % 16:
+        raise ValueError("near_probe: packed must start on a 16-byte "
+                         "boundary (the kernel copies float4)")
+    if items is None:
+        items = probe_items(bnd)
+    if len(items) != n_seg or not items[0].every_row:
+        raise ValueError(f"near_probe: items for {n_seg} segments, the "
+                         "first covering every row (probe_items)")
+    n_partial = max(w.n_partial for w in items)
+    partial = torch.empty((max(n_partial, 1) * g, 4), dtype=torch.float32,
+                          device=tgt_t.device)
     out = torch.empty_like(tgt_t)
-    for s in range(n_seg):
-        launch(LAUNCHES, "near_probe", "pnb_near_probe", ptr(bnd), ptr(idx),
-               ptr(tgt_t), ptr(packed), ptr(out), n_leaves, g, budget,
-               n_seg + 1, s, rows_per_seg, n_comp, MODES[mode], unroll,
-               float(eps2))
+    for s, work in enumerate(items):
+        launch(LAUNCHES, "near_probe", "pnb_near_probe", ptr(work.items),
+               ptr(work.splits), ptr(idx), ptr(tgt_t), ptr(packed), ptr(out),
+               ptr(partial), work.items.shape[0], work.splits.shape[0], g,
+               budget, s * rows_per_seg, rows_per_seg, n_comp, MODES[mode],
+               unroll, int(s > 0), float(eps2))
     return out

@@ -17,12 +17,14 @@ numpy.random.default_rng(0) calls, in the script's order):
   tune2   flat_kernel_tune2.py `main()`: the "step" / "row" check at 64
           rows for step packs 4, 8, 16 (both against the plain version and
           within 1e-3 of each other, the script's check), then step packs
-          8, 16 x "step" / "row", timed;
+          8, 16 x "step" / "row", timed (K11's work items built
+          beforehand, `near_flat.lane_items`);
   lists   K1's near lists at --n (the lists of tools/near_kernel_probe.py,
           N = 1M: leaf 256, theta 0.72) cut into the flat form
           (`near_flat.pack_lists`: the same pairs K1 evaluates, rows padded
           with zero-mass sources to whole steps): K9, then K10 and K11 at
-          step packs 4, 8, 16, each held to K1's output (compute_pot, eps
+          step packs 4, 8, 16 (K1's and K11's work items built
+          beforehand), each held to K1's output (compute_pot, eps
           0.01; rtol 2e-4 / atol 2e-5) and timed beside K1 in --rounds
           rounds, in table order on even rounds and in reverse on odd
           ones; the packing's own time and bytes are printed apart.
@@ -256,10 +258,11 @@ def tune2(iters=ITERS, out=None):
                                near_flat.LANES)).astype(np.float32)
         args = (_t(rows, dev), _t(tgt_t, dev), _t(src, dev))
         del src
+        work = near_flat.lane_items(args[0], N_ROWS, packs)
         for mode in near_flat.LANE_MODES:
             def call(mode=mode):
                 return near_flat.flat_tune2(*args, step_packs=packs,
-                                            mode=mode)
+                                            mode=mode, work=work)
             got, ms = timed(call, iters)
             err = held_rows(f"tune2 P={packs} {mode}", got, args,
                             near_flat.flat_tune2_plain, step_packs=packs,
@@ -303,9 +306,10 @@ def lists(n=probe.N, iters=ITERS, out=None, L=None, rounds=1):
         variants = [("flat_tune", f"P={packs} {m}", functools.partial(
             near_flat.flat_tune, *fa, step_packs=packs, out_mode=m,
             eps2=eps2)) for m in near_flat.OUT_MODES]
+        work = near_flat.lane_items(rows, n_leaves, packs)
         variants += [("flat_tune2", f"P={packs} {m}", functools.partial(
-            near_flat.flat_tune2, *fa, step_packs=packs, mode=m, eps2=eps2))
-            for m in near_flat.LANE_MODES]
+            near_flat.flat_tune2, *fa, step_packs=packs, mode=m, eps2=eps2,
+            work=work)) for m in near_flat.LANE_MODES]
         if packs == near_flat.PROTO_PACKS:
             variants.insert(0, ("flat_near", "P=4", functools.partial(
                 near_flat.flat_near, *fa, eps2=eps2)))

@@ -15,15 +15,16 @@ count as the script does.
 The table, each row at the script's segment count (4 segments of 1024
 rows at N = 1M; F 8 of 512) unless named: A, B, C and E at unroll 4, A at
 unroll 8, F (sources 8 floats apart), and A with the whole table as one
-segment. Beside them K1 itself (`bh_kernels.near_field`, compute_pot=False,
+segment and in F's 8 segments (which parts F's time into its stride and
+its segments). Beside them K1 itself (`bh_kernels.near_field`, compute_pot=False,
 its work items built beforehand) on the same lists. Every row that
 computes A's function (A, E, unroll 8, F, one segment) is held to K1's
 output within rtol 2e-4 / atol 2e-5, and B and C must be finite.
 
 Each row is timed in --rounds rounds: a round times every row by CUDA
 events (the mean of --iters calls after a warm-up, whose output is the one
-checked; bounds and packed table built beforehand, as the script builds
-its bounds outside the timed call),
+checked; bounds, work items and packed table built beforehand, as the
+script builds its bounds outside the timed call),
 in table order on even rounds and in reverse on odd ones. A row gives the
 median ms and the min and max over the rounds, ns a list entry, pairs/s,
 the bound (the live pairs' FP32 operations and rsqrts, or the bytes, at
@@ -32,7 +33,7 @@ answers the script's question round by round: what A - B costs (the list
 read), what B - C costs (the read of a new row), each as min, median and
 max over the rounds and marked `beyond_spread` only where its median
 exceeds the larger min-max spread of its two rows; and E, unroll 8, F,
-one segment and K1 against A.
+one segment, 8 segments and K1 against A.
 
 Every line is one JSON object carrying the card's name and power limit as
 nvidia-smi gives them (appended to --out). Needs a CUDA device; fails
@@ -67,7 +68,8 @@ VARIANTS = (("A dyn-idx u4", "A", 4, 4, 4),
             ("E tiles-first u4", "E", 4, 4, 4),
             ("A dyn-idx u8", "A", 8, 4, 4),
             ("F 8-comp u4", "A", 4, 8, 8),
-            ("A one-segment u4", "A", 4, 4, 1))
+            ("A one-segment u4", "A", 4, 4, 1),
+            ("A 8-segment u4", "A", 4, 4, 8))
 AS_K1 = ("A", "E")   # the modes that compute K1's function
 
 
@@ -147,11 +149,11 @@ def table(n=N, iters=ITERS, out=None, lists=None, rounds=1):
     calls, recs = {}, {}
     for name, mode, unroll, n_comp, n_seg in VARIANTS:
         rows = n_leaves // n_seg
+        bnd = near_probe.probe_bounds(L["idx"], L["valid"], rows)
         calls[name] = functools.partial(
             near_probe.near_probe, L["tgt_t"], L["table"], L["idx"],
             L["valid"], mode=mode, unroll=unroll, rows_per_seg=rows,
-            n_comp=n_comp, bnd=near_probe.probe_bounds(L["idx"], L["valid"],
-                                                       rows),
+            n_comp=n_comp, bnd=bnd, items=near_probe.probe_items(bnd),
             packed=near_probe.probe_table(L["table"], n_comp))
         recs[name] = {"variant": name, "mode": mode, "unroll": unroll,
                       "n_comp": n_comp, "segments": n_seg,
@@ -190,7 +192,8 @@ def table(n=N, iters=ITERS, out=None, lists=None, rounds=1):
            "k1_ms": k1_ms, "A_ms": a,
            **{f"{v}_over_A": by[v]["ms"] / a
               for v in ("E tiles-first u4", "A dyn-idx u8", "F 8-comp u4",
-                        "A one-segment u4", "K1 near_field")}}
+                        "A one-segment u4", "A 8-segment u4",
+                        "K1 near_field")}}
     for key in ("list_read", "new_row_read"):
         ans[f"{key}_ns_per_entry"] = ans[f"{key}_ms"]["median"] * 1e6 / entries
     emit(ans, out)

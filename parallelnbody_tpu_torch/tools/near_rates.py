@@ -6,9 +6,9 @@ into milliseconds, measured in the same run on the lists the tool built:
     beforehand): the pair terms it executes (live list entries x G x G)
     over its events seconds;
   * K11 "row" (`near_flat.flat_tune2`, K11_PACKS packs a step, with the
-    potential, as flat_kernel_tune2.py ran it): the same lists cut into
-    the flat form (`near_flat.pack_lists`), the live pairs over its events
-    seconds.
+    potential, as flat_kernel_tune2.py ran it, its work items built
+    beforehand): the same lists cut into the flat form
+    (`near_flat.pack_lists`), the live pairs over its events seconds.
 
 Each timed launch's first output is held against the plain version on
 SAMPLE_ROWS target rows spread over the lists (K1 elementwise, K11 to each
@@ -92,9 +92,10 @@ def k11_row_rate(pos_s, mass_s, idx, valid, iters=measure.ITERS):
     tgt_t = torch.cat([tgt, torch.zeros_like(tgt[..., :1])],
                       dim=2).transpose(1, 2).contiguous()
     eps2 = SOFTENING ** 2
+    work = near_flat.lane_items(rows, n_leaves, K11_PACKS)
     got, ms = measure.timed(lambda: near_flat.flat_tune2(
-        rows, tgt_t, src, step_packs=K11_PACKS, mode="row", eps2=eps2),
-        iters)
+        rows, tgt_t, src, step_packs=K11_PACKS, mode="row", eps2=eps2,
+        work=work), iters)
     err = held_rows("K11 flat_tune2 row", got, (rows, tgt_t, src),
                     near_flat.flat_tune2_plain, step_packs=K11_PACKS,
                     mode="row", eps2=eps2)

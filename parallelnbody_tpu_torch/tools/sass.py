@@ -10,8 +10,10 @@ sources (one rsqrt a pair or node-target term); for a tensor-core kernel
 (K5-K7) the one that also holds HMMA is reported too (`tensor_loop`: V4's
 band loop runs on the FP32 pipes alone). Printed, one JSON line per
 kernel: its instructions, rsqrts, instructions per pair (instructions /
-MUFU.RSQ), instructions by opcode, and the registers and static shared
-memory that `ptxas -v` reported in the build log kept beside the library
+MUFU.RSQ), instructions by opcode, the kernel's whole length in
+instructions (`kernel_instructions`: what an unrolled loop costs the
+instruction cache), and the registers and static shared memory that
+`ptxas -v` reported in the build log kept beside the library
 (`<library>.log`). With --dump, each loop's SASS text is written to DIR.
 
 Needs the CUDA toolkit's cuobjdump (beside nvcc), not a GPU. Any built
@@ -71,9 +73,10 @@ def _opcode(text):
 
 def inner_loops(lib_path):
     """{mangled kernel name: {instructions, pairs, per_pair, opcodes,
-    text}} for the innermost loop of each kernel that holds the most
-    MUFU.RSQ (pairs = its MUFU.RSQ count), with `tensor_loop` (the same
-    keys but text) for the one of those with HMMA, where there is one."""
+    text, kernel_instructions}} for the innermost loop of each kernel that
+    holds the most MUFU.RSQ (pairs = its MUFU.RSQ count), with
+    `tensor_loop` (the same keys but text) for the one of those with
+    HMMA, where there is one."""
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True).stdout
@@ -110,7 +113,7 @@ def inner_loops(lib_path):
                                              or mufu > tensor["pairs"]):
                 tensor = rec
         if best:
-            out[name] = dict(best)
+            out[name] = dict(best, kernel_instructions=len(insns))
             if tensor is not None:
                 out[name]["tensor_loop"] = {k: v for k, v in tensor.items()
                                             if k != "text"}

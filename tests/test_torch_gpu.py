@@ -1149,6 +1149,75 @@ def test_near_probe_mode_a_equals_k1(probe_inputs):
     assert not got[:, 3].any()
 
 
+@pytest.fixture(scope="module")
+def long_row_inputs(probe_inputs):
+    """The N = 65536 lists with row 0's list made every leaf (256 entries:
+    8 items of NEAR_CHUNK, 2 in each of 4 segments), and its flat form at
+    each step size (row 0: 128 / 64 / 32 steps, 8 items each)."""
+    from parallelnbody_tpu_torch.ops import near_flat
+
+    L = dict(probe_inputs)
+    n_leaves = L["tgt_t"].shape[0]
+    idx, valid = L["idx"].clone(), L["valid"].clone()
+    if idx.shape[1] < n_leaves:
+        pad = n_leaves - idx.shape[1]
+        idx = torch.cat([idx, idx.new_full((n_leaves, pad), 2**31 - 1)], 1)
+        valid = torch.cat([valid, valid.new_zeros((n_leaves, pad))], 1)
+    idx[0] = torch.arange(n_leaves, dtype=idx.dtype, device=idx.device)
+    valid[0] = True
+    L["idx"], L["valid"] = idx.contiguous(), valid
+    L["flat"] = {p: near_flat.pack_lists(L["table"].transpose(1, 2), idx,
+                                         valid, p)[:2]
+                 for p in near_flat.STEP_PACKS}
+    return L
+
+
+@pytest.mark.parametrize("chunk", [32, 5])
+@pytest.mark.parametrize("mode", ["A", "B", "C", "E"])
+def test_near_probe_row_split_into_many_items(long_row_inputs, mode, chunk):
+    """A row of every leaf in 4 segments, cut into items of 32 entries (2
+    a segment) and of 5 (13 a segment, none aligned with the segment
+    edges of the row's run): the kernel against its plain version, and
+    launched twice the same bits."""
+    from parallelnbody_tpu_torch.ops import near_probe
+
+    L = long_row_inputs
+    rows = L["tgt_t"].shape[0] // 4
+    bnd = near_probe.probe_bounds(L["idx"], L["valid"], rows)
+    items = near_probe.probe_items(bnd, chunk)
+    assert int(items[1].items[:, 0].eq(0).sum()) == -(-rows // chunk)
+    kw = dict(mode=mode, unroll=4, rows_per_seg=rows)
+    args = _probe_args(L)
+    got = near_probe.near_probe(*args, **kw, bnd=bnd, items=items)
+    _close(got, near_probe.near_probe_plain(*args, **kw))
+    assert torch.equal(got, near_probe.near_probe(*args, **kw, bnd=bnd,
+                                                  items=items))
+
+
+@pytest.mark.parametrize("mode", ["step", "row"])
+@pytest.mark.parametrize("packs", [4, 8, 16])
+def test_flat_tune2_row_split_into_many_items(long_row_inputs, packs, mode):
+    """K11 on the flat form with row 0 of every leaf (8 items at the
+    wrapper's chunk), and on items of 3 steps: against its plain version
+    and, launched twice, the same bits."""
+    from parallelnbody_tpu_torch.ops import near_flat
+
+    L = long_row_inputs
+    n_rows = L["tgt_t"].shape[0]
+    rows, src = L["flat"][packs]
+    kw = dict(step_packs=packs, mode=mode, eps2=1e-4)
+    args = (rows, L["tgt_t"], src)
+    want = near_flat.flat_tune2_plain(*args, **kw)
+    starts = near_flat.row_starts(rows, n_rows)
+    for work in (near_flat.lane_items(rows, n_rows, packs),
+                 bh_kernels.near_items(starts[1:] - starts[:-1], 3,
+                                       lo=starts[:-1])):
+        assert int(work.items[:, 0].eq(0).sum()) >= 8
+        got = near_flat.flat_tune2(*args, **kw, work=work)
+        _close(got, want)
+        assert torch.equal(got, near_flat.flat_tune2(*args, **kw, work=work))
+
+
 def _flat_call(kernel, L, packs, variant, compute_pot, eps2=1e-4):
     from parallelnbody_tpu_torch.ops import near_flat
 
