@@ -10,6 +10,12 @@ JAX's jit and lax.scan become plain Python loops over torch operations on
 the run's device. On a CUDA device the force evaluations run the
 hand-written kernels (ops/bh_kernels.py for Barnes-Hut, ops/direct_kernels.py
 for force="direct_pallas"); nothing falls back to the CPU.
+
+The host shell's spans (utils/profiling.span): `api.step` (one make_step
+call), `api.run` (one make_run call), `api.block` (one rebuild block of the
+rebuild-interval run), `integrator` (an integrator call, around its force
+evaluations, each a `force` span), and in set-up `api.prepare` around
+`api.calibrate` and `api.initial_forces`.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from parallelnbody_tpu_torch.ops import energy as energy_ops
 from parallelnbody_tpu_torch.ops.integrators import get_integrator
 from parallelnbody_tpu_torch.state import (SimState, make_state, resolve_device,
                                            torch_dtype)
+from parallelnbody_tpu_torch.utils.profiling import span
 
 
 def _zero_count(device):
@@ -54,8 +61,13 @@ def make_accel_fn(cfg: SimConfig, mass: torch.Tensor,
                 if n % t == 0:
                     tile = t
                     break
-        return lambda pos: direct_accel(pos, mass, g=cfg.g,
-                                        softening=cfg.softening, tile=tile)
+
+        def accel_fn(pos):
+            with span("force"):
+                return direct_accel(pos, mass, g=cfg.g,
+                                    softening=cfg.softening, tile=tile)
+
+        return accel_fn
     if method == "direct_pallas":
         from parallelnbody_tpu_torch.ops.direct_kernels import \
             make_allpairs_accel
@@ -202,17 +214,22 @@ def prepare_simulation(cfg: SimConfig, device="cuda",
     tools/auto_rules.py calib, PERF.md). On the CPU the JAX package's t = 0
     calibration alone."""
     device = resolve_device(device)
-    if state is None:
-        state = init_simulation(cfg, device, compute_forces=False)
-    cal = calibrate_budgets(cfg, state)
-    state = _fill_initial_forces(cal, state)
-    auto = [f for f in AUTO_BUDGET_FIELDS if getattr(cfg, f) == 0]
-    if (device.type == "cuda" and auto
-            and cfg.resolve_force(device) == "barnes_hut"):
-        ahead = calibrate_budgets(cfg, make_step(cal)(state))
-        cal = cal.replace(**{f: max(getattr(cal, f), getattr(ahead, f))
-                             for f in auto})
-    return cal, state
+    with span("api.prepare"):
+        if state is None:
+            state = init_simulation(cfg, device, compute_forces=False)
+        with span("api.calibrate"):
+            cal = calibrate_budgets(cfg, state)
+        with span("api.initial_forces"):
+            state = _fill_initial_forces(cal, state)
+        auto = [f for f in AUTO_BUDGET_FIELDS if getattr(cfg, f) == 0]
+        if (device.type == "cuda" and auto
+                and cfg.resolve_force(device) == "barnes_hut"):
+            ahead = make_step(cal)(state)
+            with span("api.calibrate"):
+                ahead = calibrate_budgets(cfg, ahead)
+            cal = cal.replace(**{f: max(getattr(cal, f), getattr(ahead, f))
+                                 for f in auto})
+        return cal, state
 
 
 # ----------------------------------------------------------------------- step
@@ -225,15 +242,17 @@ def make_step(cfg: SimConfig, report_overflow: bool = False) -> Callable:
     integrator = get_integrator(cfg.integrator)
 
     def step(state: SimState):
-        of_cell = [_zero_count(state.pos.device)]
-        accel_fn = make_accel_fn(cfg, state.mass, overflow_cell=of_cell)
-        dt = torch.as_tensor(cfg.dt, dtype=state.pos.dtype,
-                             device=state.pos.device)
-        pos, vel, acc, pot = integrator(
-            accel_fn, state.pos, state.vel, state.acc, state.pot, dt)
-        out = state._replace(pos=pos, vel=vel, acc=acc, pot=pot,
-                             time=state.time + dt, step=state.step + 1)
-        return (out, of_cell[0]) if report_overflow else out
+        with span("api.step"):
+            of_cell = [_zero_count(state.pos.device)]
+            accel_fn = make_accel_fn(cfg, state.mass, overflow_cell=of_cell)
+            dt = torch.as_tensor(cfg.dt, dtype=state.pos.dtype,
+                                 device=state.pos.device)
+            with span("integrator"):
+                pos, vel, acc, pot = integrator(
+                    accel_fn, state.pos, state.vel, state.acc, state.pot, dt)
+            out = state._replace(pos=pos, vel=vel, acc=acc, pot=pot,
+                                 time=state.time + dt, step=state.step + 1)
+            return (out, of_cell[0]) if report_overflow else out
 
     return step
 
@@ -338,25 +357,28 @@ def _make_run_reuse(cfg: SimConfig, n_steps: int, report_overflow: bool,
         A tail block of t < k live steps masks the rest with dt = 0, an
         exact no-op for pos/vel/time/step."""
         pos, vel, acc, mass, orig, time, step, of = carry
-        pos_s, vel_s, acc_s, mass_s, orig_s = sort_block(pos, vel, acc, mass,
-                                                         orig)
-        lo = torch.amin(pos_s[:n], dim=0)
-        hi = torch.amax(pos_s[:n], dim=0)
-        _, _, sentinel = bh.domain_cube(lo, hi)
-        tree = bh.build_tree(pos_s, mass_s, leaf, sentinel,
-                             multipole_order=cfg.bh_multipole,
-                             max_levels=cfg.bh_max_levels)
+        with span("bh.sort"):
+            pos_s, vel_s, acc_s, mass_s, orig_s = sort_block(pos, vel, acc,
+                                                             mass, orig)
+        with span("bh.tree"):
+            lo = torch.amin(pos_s[:n], dim=0)
+            hi = torch.amax(pos_s[:n], dim=0)
+            _, _, sentinel = bh.domain_cube(lo, hi)
+            tree = bh.build_tree(pos_s, mass_s, leaf, sentinel,
+                                 multipole_order=cfg.bh_multipole,
+                                 max_levels=cfg.bh_max_levels)
         plan = bh.bh_plan_lists(
             tree, theta=cfg.theta, near_budget=cfg.resolve_bh_near_budget(),
             far_budget=cfg.resolve_bh_far_budget(), refine=refine,
             cand_budgets=cands, dtype=pos.dtype, sections=sections)
 
         def accel_fn(p):
-            return bh.bh_eval_lists(
-                p, mass_s, plan, leaf_size=leaf, g=cfg.g,
-                softening=cfg.softening, multipole=cfg.bh_multipole,
-                max_levels=cfg.bh_max_levels, compute_pot=compute_pot,
-                n_live=n, sections=sections)
+            with span("force"):
+                return bh.bh_eval_lists(
+                    p, mass_s, plan, leaf_size=leaf, g=cfg.g,
+                    softening=cfg.softening, multipole=cfg.bh_multipole,
+                    max_levels=cfg.bh_max_levels, compute_pot=compute_pot,
+                    n_live=n, sections=sections)
 
         dt = torch.as_tensor(cfg.dt, dtype=pos.dtype, device=pos.device)
         # pot is a placeholder until the first inner step overwrites it:
@@ -364,8 +386,9 @@ def _make_run_reuse(cfg: SimConfig, n_steps: int, report_overflow: bool,
         ps, vs, as_, pots = pos_s, vel_s, acc_s, torch.zeros_like(mass_s)
         for m in dt_mask:
             dt_eff = dt * m
-            ps, vs, as_, pots = integrator(accel_fn, ps, vs, as_, pots,
-                                           dt_eff)
+            with span("integrator"):
+                ps, vs, as_, pots = integrator(accel_fn, ps, vs, as_, pots,
+                                               dt_eff)
             time = time + dt_eff
             step = step + int(m > 0)
         return (ps, vs, as_, mass_s, orig_s, time, step,
@@ -388,15 +411,17 @@ def _make_run_reuse(cfg: SimConfig, n_steps: int, report_overflow: bool,
             masks.append([1.0] * tail + [0.0] * (k - tail))
         pot = None
         for row in masks:
-            carry, pot = block(carry, row)
+            with span("api.block"):
+                carry, pot = block(carry, row)
         pos, vel, acc, _, orig, time, step, overflow = carry
         # Exit unsort: orig is a permutation of [0, n_pad), so scattering
         # each row back to orig restores the caller's particle order.
-        inv = torch.empty_like(orig, dtype=torch.int64)
-        inv[orig.long()] = torch.arange(n_pad, device=dev)
-        inv = inv[:n]
-        out = state._replace(pos=pos[inv], vel=vel[inv], acc=acc[inv],
-                             pot=pot[inv], time=time, step=step)
+        with span("bh.unsort"):
+            inv = torch.empty_like(orig, dtype=torch.int64)
+            inv[orig.long()] = torch.arange(n_pad, device=dev)
+            inv = inv[:n]
+            out = state._replace(pos=pos[inv], vel=vel[inv], acc=acc[inv],
+                                 pot=pot[inv], time=time, step=step)
         return (out, overflow) if report_overflow else out
 
     return run
@@ -431,10 +456,11 @@ def make_run(cfg: SimConfig, n_steps: int,
         return run
 
     def run_on_state_device(state: SimState):
-        device = state.pos.device
-        if device.type not in built:
-            built[device.type] = build(device)
-        return built[device.type](state)
+        with span("api.run"):
+            device = state.pos.device
+            if device.type not in built:
+                built[device.type] = build(device)
+            return built[device.type](state)
 
     return run_on_state_device
 

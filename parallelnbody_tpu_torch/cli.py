@@ -228,6 +228,12 @@ def recalibrate_on_overflow(cfg, state, auto_fields):
     return (cfg.replace(**grew) if grew else cfg), grew
 
 
+# Set-up's spans (api.prepare_simulation) and the keys of their seconds in
+# the first record that `run --profile-dir` logs.
+SETUP_SPANS = {"api.prepare": "prepare_s", "api.calibrate": "calibrate_s",
+               "api.initial_forces": "initial_forces_s"}
+
+
 def cmd_run(args) -> int:
     return _on_ranks(args, _run_body)
 
@@ -237,12 +243,14 @@ def _run_body(args, cfg, device, group) -> int:
     from parallelnbody_tpu_torch.api import (calibrate_budgets,
                                              init_simulation, make_accel_fn,
                                              make_run, prepare_simulation)
+    from parallelnbody_tpu_torch.kernels.launch import read_counters
     from parallelnbody_tpu_torch.ops import energy as energy_ops
     from parallelnbody_tpu_torch.utils.io import (
         TrajectoryWriter, latest_checkpoint, load_checkpoint, save_checkpoint)
     from parallelnbody_tpu_torch.utils.metrics import MetricsLogger
     from parallelnbody_tpu_torch.utils.profiling import (force_sync,
-                                                         profile_trace)
+                                                         profile_trace,
+                                                         take_spans, tracing)
 
     sharded = group is not None
     lead = not sharded or group.rank == 0
@@ -254,6 +262,7 @@ def _run_body(args, cfg, device, group) -> int:
             sharded_init_accel)
 
     state = None
+    setup_s = {}     # set-up's span seconds, under --profile-dir
     if args.resume:
         ckpt = latest_checkpoint(cfg.checkpoint_dir)
         if ckpt:
@@ -294,8 +303,15 @@ def _run_body(args, cfg, device, group) -> int:
     elif state is None:
         # Auto (0) Barnes-Hut budgets are measured on the actual ICs (on a
         # card also one step on) before the run, as Simulation measures
-        # them (no-op when all are explicit).
-        cal, state = prepare_simulation(cfg, device)
+        # them (no-op when all are explicit). Under --profile-dir set-up
+        # is traced too: its spans' seconds join the first logged record.
+        with tracing(bool(args.profile_dir)):
+            cal, state = prepare_simulation(cfg, device)
+        for sp in take_spans():
+            if sp.name in SETUP_SPANS:
+                key = SETUP_SPANS[sp.name]
+                setup_s[key] = setup_s.get(key, 0.0) + (
+                    sp.end_ns - sp.start_ns) * 1e-9
         if cal != cfg and not quiet:
             print(f"calibrated budgets: near {cal.bh_near_budget} far "
                   f"{cal.bh_far_budget} cand2 {cal.bh_cand2_budget} "
@@ -384,7 +400,7 @@ def _run_body(args, cfg, device, group) -> int:
 
     d0 = diag(state)
     e0 = d0["energy"]
-    metrics.log(d0)
+    metrics.log({**d0, **setup_s})
 
     # Cadence: the host loop advances in segments of the gcd of all the
     # "every K steps" knobs, each segment one make_run(cfg, k) call.
@@ -522,7 +538,14 @@ def _run_body(args, cfg, device, group) -> int:
     t_start = time.perf_counter()
     done = 0
     last_t = t_start
-    with profile_trace(args.profile_dir if lead else None):
+    # --profile-dir: the program's spans join the profiler's trace, and on
+    # one device each logged record gains the segment's interactions a
+    # second (K3 pairs, or K1 pair terms and far terms) and host reads a
+    # step, from the kernel wrappers' counters.
+    prof_dir = args.profile_dir if lead else None
+    counting = bool(prof_dir) and not sharded
+    with profile_trace(prof_dir), \
+            (tracing(True) if prof_dir else contextlib.nullcontext()):
         try:
             while done < cfg.steps:
                 if poll_all():
@@ -535,7 +558,10 @@ def _run_body(args, cfg, device, group) -> int:
                     runs_invalid = False
                     run_k = make_run_k(cfg)
                 k = min(seg, cfg.steps - done)
+                before = read_counters() if counting else None
                 state, seg_ovf = run_k(state, k)
+                after = read_counters() if counting else None
+                take_spans()   # the profiler keeps them; drop the records
                 done += k
                 if seg_ovf:
                     # Mid-run clipping: the t=0 audit cannot catch a state
@@ -563,6 +589,12 @@ def _run_body(args, cfg, device, group) -> int:
                     record = diag(state)
                     record["energy_drift"] = (record["energy"] - e0) / abs(e0 or 1.0)
                     record["steps_per_sec"] = k / (now - last_t)
+                    if counting:
+                        work = sum(after[c] - before[c] for c in
+                                   ("k3.pairs", "k1.pair_terms", "far.terms"))
+                        record["interactions_per_sec"] = work / (now - last_t)
+                        record["host_reads_per_step"] = (
+                            after["host_reads"] - before["host_reads"]) / k
                     if ovf_total:
                         record["bh_overflow"] = ovf_total
                     metrics.log(record)
@@ -807,7 +839,9 @@ def main(argv=None) -> int:
     _add_config_flags(pr)
     pr.add_argument("--metrics", type=str, default=None, help="metrics JSONL path")
     pr.add_argument("--profile-dir", type=str, default=None,
-                    help="torch.profiler Chrome trace dir")
+                    help="torch.profiler Chrome trace dir; also traces the "
+                         "program's phases and logs set-up's split, "
+                         "interactions/s and host reads/step")
     pr.add_argument("--resume", action="store_true",
                     help="resume from latest checkpoint")
     pr.add_argument("--control", type=str, default=None,

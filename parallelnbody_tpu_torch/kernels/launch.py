@@ -1,6 +1,14 @@
 """What every kernel wrapper shares (ops/bh_kernels.py, ops/direct_kernels.py):
 the choice between the kernel and its plain version by device, the checks of
-what a kernel takes, and the launch itself.
+what a kernel takes, the launch itself, and the counters beside each
+module's launch counts (`LAUNCHES`).
+
+Counters (PERF.md names what reads each): a count the host already knows
+(`COUNTERS`, host ints) counts always; a count that needs device work
+(`DEVICE_COUNTERS`) counts only while tracing is on
+(utils/profiling.tracing) and stays a device tensor until
+`read_counters` reads it, so that no step waits on it. Every read of the
+device by the host on the step path goes through `host_read`.
 
 A wrapper runs its plain PyTorch version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises. There is no fallback from one
@@ -12,6 +20,17 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from parallelnbody_tpu_torch.utils.profiling import span
+
+COUNTERS = {
+    "host_reads": 0,      # host_read calls: device-to-host reads
+    "k3.pairs": 0,        # K3's target x source pairs
+    "k1.pair_terms": 0,   # K1's list entries x G^2 (G the leaf size)
+}
+DEVICE_COUNTERS = {
+    "far.terms": 0,       # K2's / K4's node x target terms (0-d tensor)
+}
 
 
 def on_cpu(*tensors) -> bool:
@@ -68,3 +87,23 @@ def launch(counts: dict, name: str, fn: str, *args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({lib.pnb_error_string(err).decode()})")
     counts[name] += 1
+
+
+def count_on_device(name: str, value: torch.Tensor):
+    """Add the 0-d device count `value` to DEVICE_COUNTERS[name], with no
+    host wait; the caller counts only while tracing is on."""
+    DEVICE_COUNTERS[name] = DEVICE_COUNTERS[name] + value
+
+
+def read_counters() -> dict:
+    """Every counter as a host int (one read of each device count)."""
+    return {**COUNTERS, **{name: int(v)
+                           for name, v in DEVICE_COUNTERS.items()}}
+
+
+def host_read(t: torch.Tensor) -> list:
+    """t.tolist(): a read of the device by the host on the step path, in a
+    `host_read` span and counted in COUNTERS["host_reads"]."""
+    with span("host_read"):
+        COUNTERS["host_reads"] += 1
+        return t.tolist()

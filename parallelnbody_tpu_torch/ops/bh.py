@@ -26,6 +26,12 @@ either far field, unsectioned or in target windows:
      after the other, each through the same windowed traversal and lists;
      the results and the overflow count are those of one window over all.
 
+Each phase of a force evaluation is a span (utils/profiling.span):
+`bh.sort` (keys, sort, gather), `bh.tree`, `bh.traverse`, `bh.lists` (the
+lists with K1's work items, and in a plan K2's launch order),
+`bh.refresh` (a frozen-list evaluation's pyramid), `bh.unsort`; the kernel
+wrappers' `bh.near` and `bh.far` (ops/bh_kernels.py).
+
 Integer outputs (keys, sort order, masks, lists, overflow) equal the JAX
 package's on the same inputs; `INT32_MAX` stays the empty-entry sentinel.
 
@@ -44,6 +50,7 @@ import torch
 from parallelnbody_tpu_torch.ops import bh_kernels
 from parallelnbody_tpu_torch.ops.hilbert import hilbert_encode
 from parallelnbody_tpu_torch.ops.morton import morton_encode
+from parallelnbody_tpu_torch.utils.profiling import span
 
 INT32_MAX = 2**31 - 1
 
@@ -708,24 +715,27 @@ def _prepare(pos, mass, *, leaf_size, curve, multipole_order=1, max_levels=12):
     n = pos.shape[0]
     n_leaves, n_pad, _ = plan_tree(n, leaf_size, max_levels)
 
-    lo = torch.amin(pos, dim=0)
-    hi = torch.amax(pos, dim=0)
-    center, half, sentinel = domain_cube(lo, hi)
+    with span("bh.sort"):
+        lo = torch.amin(pos, dim=0)
+        hi = torch.amax(pos, dim=0)
+        center, half, sentinel = domain_cube(lo, hi)
 
-    encode = hilbert_encode if curve == "hilbert" else morton_encode
-    keys = encode(pos, center, half)
-    if n_pad > n:
-        pos_p = torch.cat([pos, sentinel.expand(n_pad - n, 3)], dim=0)
-        mass_p = torch.cat([mass, mass.new_zeros(n_pad - n)], dim=0)
-        keys = torch.cat([keys, keys.new_full((n_pad - n,), INT32_MAX)])
-    else:
-        pos_p, mass_p = pos, mass
+        encode = hilbert_encode if curve == "hilbert" else morton_encode
+        keys = encode(pos, center, half)
+        if n_pad > n:
+            pos_p = torch.cat([pos, sentinel.expand(n_pad - n, 3)], dim=0)
+            mass_p = torch.cat([mass, mass.new_zeros(n_pad - n)], dim=0)
+            keys = torch.cat([keys, keys.new_full((n_pad - n,), INT32_MAX)])
+        else:
+            pos_p, mass_p = pos, mass
 
-    perm = torch.sort(keys, stable=True).indices
-    pos_s = pos_p[perm]
-    mass_s = mass_p[perm]
-    tree = build_tree(pos_s, mass_s, leaf_size, sentinel,
-                      multipole_order=multipole_order, max_levels=max_levels)
+        perm = torch.sort(keys, stable=True).indices
+        pos_s = pos_p[perm]
+        mass_s = mass_p[perm]
+    with span("bh.tree"):
+        tree = build_tree(pos_s, mass_s, leaf_size, sentinel,
+                          multipole_order=multipole_order,
+                          max_levels=max_levels)
     return pos_s, mass_s, perm, tree, n, n_pad
 
 
@@ -752,27 +762,29 @@ def _forces_sorted(pos_s, mass_s, tree, far_masks, rejects, *, start_leaf,
     kw = dict(theta=theta, start_leaf=start_leaf, n_slice=n_slice,
               near_budget=near_budget, dtype=pos_s.dtype)
     fkw = dict(g=g, softening=softening, compute_pot=compute_pot)
-    if refine == "staged":
-        (near_idx, near_valid, far_idx, far_valid, nodes_all,
-         overflow) = build_interaction_lists_staged(
-            tree, far_masks, rejects, far_budget=far0_budget,
-            cand2_budget=cand_budgets[0], cand1_budget=cand_budgets[1],
-            octet_far=far_mode == "octet", **kw)
+    with span("bh.lists"):
+        if refine == "staged":
+            (near_idx, near_valid, far_idx, far_valid, nodes_all,
+             overflow) = build_interaction_lists_staged(
+                tree, far_masks, rejects, far_budget=far0_budget,
+                cand2_budget=cand_budgets[0], cand1_budget=cand_budgets[1],
+                octet_far=far_mode == "octet", **kw)
+        elif far_mode == "octet":
+            (near_idx, near_valid, far_keys, far_valid, nodes8,
+             overflow) = build_interaction_lists_octet(
+                tree, far_masks, rejects, far_budget=far0_budget, **kw)
+        else:
+            (near_idx, near_valid, far0_idx, far0_valid, up_idx, up_valid,
+             nodes_up, leaf_nodes, overflow) = build_interaction_lists(
+                tree, far_masks, rejects, far0_budget=far0_budget, **kw)
         work = bh_kernels.near_work(near_valid)
+    if refine == "staged":
         evaluate = _eval_far_octet if far_mode == "octet" else _eval_far_list
         acc, pot = evaluate(tgt_leaves, nodes_all, far_idx, far_valid, **fkw)
     elif far_mode == "octet":
-        (near_idx, near_valid, far_keys, far_valid, nodes8,
-         overflow) = build_interaction_lists_octet(
-            tree, far_masks, rejects, far_budget=far0_budget, **kw)
-        work = bh_kernels.near_work(near_valid)
         acc, pot = _eval_far_octet(tgt_leaves, nodes8, far_keys, far_valid,
                                    **fkw)
     else:
-        (near_idx, near_valid, far0_idx, far0_valid, up_idx, up_valid,
-         nodes_up, leaf_nodes, overflow) = build_interaction_lists(
-            tree, far_masks, rejects, far0_budget=far0_budget, **kw)
-        work = bh_kernels.near_work(near_valid)
         acc, pot = eval_far_lists(tgt_leaves, nodes_up, up_idx, up_valid,
                                   leaf_nodes, far0_idx, far0_valid, **fkw)
     a, ph = bh_kernels.near_field(pos_s, mass_s, tgt_leaves, near_idx,
@@ -885,8 +897,9 @@ def bh_accel(pos, mass, *, leaf_size=256, theta=0.5, g=1.0, softening=1e-2,
 
     accs, pots, ovfs = [], [], []
     for start, w in _windows(n_leaves, sections):
-        far_masks, rejects = traverse(tree, theta, start_leaf=start,
-                                      n_slice=w, stop_level=stop)
+        with span("bh.traverse"):
+            far_masks, rejects = traverse(tree, theta, start_leaf=start,
+                                          n_slice=w, stop_level=stop)
         acc, pot, of = _forces_sorted(
             pos_s, mass_s, tree, far_masks, rejects,
             start_leaf=start, n_slice=w, leaf_size=leaf_size, theta=theta,
@@ -908,11 +921,12 @@ def _unsort(acc, pot, perm, n):
     """Sorted-order (acc, pot) back to the caller's particle order, the
     first n rows: sorted row i belongs at original row perm[i] (perm is a
     permutation, so the scatter is exact)."""
-    acc_out = torch.empty_like(acc)
-    acc_out[perm] = acc
-    pot_out = torch.empty_like(pot)
-    pot_out[perm] = pot
-    return acc_out[:n], pot_out[:n]
+    with span("bh.unsort"):
+        acc_out = torch.empty_like(acc)
+        acc_out[perm] = acc
+        pot_out = torch.empty_like(pot)
+        pot_out[perm] = pot
+        return acc_out[:n], pot_out[:n]
 
 
 def bh_accel_target_slice(pos_all, mass_all, rank, n_ranks, *, leaf_size,
@@ -993,23 +1007,25 @@ def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
     stop = 1 if refine == "dense" else 2
     parts, works, orders = [], [], []
     for start, w in _windows(n_leaves, sections):
-        far_masks, rejects = traverse(tree, theta, start_leaf=start,
-                                      n_slice=w, stop_level=stop)
-        if refine == "staged":
-            ni, nv, fk, fv, _, of = build_interaction_lists_staged(
-                tree, far_masks, rejects, theta=theta, start_leaf=start,
-                n_slice=w, near_budget=near_budget, far_budget=far_budget,
-                cand2_budget=cand_budgets[0], cand1_budget=cand_budgets[1],
-                dtype=dtype, octet_far=True)
-        else:
-            ni, nv, fk, fv, _, of = build_interaction_lists_octet(
-                tree, far_masks, rejects, theta=theta, start_leaf=start,
-                n_slice=w, near_budget=near_budget, far_budget=far_budget,
-                dtype=dtype)
-        del far_masks, rejects
-        parts.append((ni, nv, fk, fv, of.to(torch.int32)))
-        works.append(bh_kernels.near_work(nv))
-        orders.append(bh_kernels.far_order(fv))
+        with span("bh.traverse"):
+            far_masks, rejects = traverse(tree, theta, start_leaf=start,
+                                          n_slice=w, stop_level=stop)
+        with span("bh.lists"):
+            if refine == "staged":
+                ni, nv, fk, fv, _, of = build_interaction_lists_staged(
+                    tree, far_masks, rejects, theta=theta, start_leaf=start,
+                    n_slice=w, near_budget=near_budget, far_budget=far_budget,
+                    cand2_budget=cand_budgets[0],
+                    cand1_budget=cand_budgets[1], dtype=dtype, octet_far=True)
+            else:
+                ni, nv, fk, fv, _, of = build_interaction_lists_octet(
+                    tree, far_masks, rejects, theta=theta, start_leaf=start,
+                    n_slice=w, near_budget=near_budget, far_budget=far_budget,
+                    dtype=dtype)
+            del far_masks, rejects
+            parts.append((ni, nv, fk, fv, of.to(torch.int32)))
+            works.append(bh_kernels.near_work(nv))
+            orders.append(bh_kernels.far_order(fv))
     ni, nv, fk, fv, ofs = zip(*parts)
     overflow = torch.sum(torch.stack(ofs), dtype=torch.int32)
     return BHListPlan(_join(ni), _join(nv), _join(fk), _join(fv), overflow,
@@ -1021,12 +1037,13 @@ def _refresh_nodes8(pos_s, mass_s, *, leaf_size, multipole, max_levels,
     """The pyramid refresh of a frozen-list evaluation: the multipole
     pyramid of the CURRENT sorted positions as K2's 8-aligned node table
     (pads, rows [n_live:], left out of the domain cube)."""
-    lo = torch.amin(pos_s[:n_live], dim=0)
-    hi = torch.amax(pos_s[:n_live], dim=0)
-    _, _, sentinel = domain_cube(lo, hi)
-    tree = build_tree(pos_s, mass_s, leaf_size, sentinel,
-                      multipole_order=multipole, max_levels=max_levels)
-    return _nodes_all_octet(tree, pos_s.dtype)
+    with span("bh.refresh"):
+        lo = torch.amin(pos_s[:n_live], dim=0)
+        hi = torch.amax(pos_s[:n_live], dim=0)
+        _, _, sentinel = domain_cube(lo, hi)
+        tree = build_tree(pos_s, mass_s, leaf_size, sentinel,
+                          multipole_order=multipole, max_levels=max_levels)
+        return _nodes_all_octet(tree, pos_s.dtype)
 
 
 def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
@@ -1342,19 +1359,21 @@ def make_bh_accel(cfg, mass, overflow_cell=None):
     so multi-eval integrators sum clipping over their evaluations."""
 
     def accel_fn(pos):
-        acc, pot, ovf = bh_accel(
-            pos, mass,
-            leaf_size=cfg.resolve_bh_leaf_size(), theta=cfg.theta, g=cfg.g,
-            softening=cfg.softening, near_budget=cfg.resolve_bh_near_budget(),
-            far0_budget=cfg.resolve_bh_far_budget(), curve=cfg.bh_curve,
-            multipole=cfg.bh_multipole, max_levels=cfg.bh_max_levels,
-            compute_pot=cfg.track_potential,
-            refine=cfg.resolve_bh_refine(),
-            cand_budgets=(cfg.bh_cand2_budget, cfg.bh_cand_budget),
-            far_mode=cfg.bh_far_mode, sections=cfg.bh_sections,
-        )
-        if overflow_cell is not None:
-            overflow_cell[0] = overflow_cell[0] + ovf.to(torch.int32)
-        return acc, pot
+        with span("force"):
+            acc, pot, ovf = bh_accel(
+                pos, mass,
+                leaf_size=cfg.resolve_bh_leaf_size(), theta=cfg.theta,
+                g=cfg.g, softening=cfg.softening,
+                near_budget=cfg.resolve_bh_near_budget(),
+                far0_budget=cfg.resolve_bh_far_budget(), curve=cfg.bh_curve,
+                multipole=cfg.bh_multipole, max_levels=cfg.bh_max_levels,
+                compute_pot=cfg.track_potential,
+                refine=cfg.resolve_bh_refine(),
+                cand_budgets=(cfg.bh_cand2_budget, cfg.bh_cand_budget),
+                far_mode=cfg.bh_far_mode, sections=cfg.bh_sections,
+            )
+            if overflow_cell is not None:
+                overflow_cell[0] = overflow_cell[0] + ovf.to(torch.int32)
+            return acc, pot
 
     return accel_fn

@@ -31,7 +31,13 @@ it runs its plain PyTorch version (`near_field_plain`, `far_octet_plain`,
 `_far_octet_jnp` and the jnp branch of `_eval_far_list` in the JAX
 ops/bh.py); on a CUDA device it launches its kernel or raises. There is no
 fallback from one to the other. `LAUNCHES` counts kernel launches per
-wrapper.
+wrapper. K1's wrapper runs in a `bh.near` span, and it (the card) or
+`near_field_plain` (the CPU) counts the pair terms evaluated
+("k1.pair_terms", live list entries x G^2); K2's and K4's run in a
+`bh.far` span and, while tracing is on, count their node x target terms
+("far.terms", on the device); K1's item sizes reach the host through
+`host_read`
+(kernels/launch.py, utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -40,7 +46,10 @@ import dataclasses
 
 import torch
 
-from parallelnbody_tpu_torch.kernels.launch import check, launch, on_cpu, ptr
+from parallelnbody_tpu_torch.kernels.launch import (COUNTERS, check,
+                                                    count_on_device, host_read,
+                                                    launch, on_cpu, ptr)
+from parallelnbody_tpu_torch.utils.profiling import is_tracing, span
 
 LAUNCHES = {"near_field": 0, "near_field_window": 0, "near_field_table": 0,
             "far_octet": 0, "far_gather": 0}
@@ -87,6 +96,8 @@ class NearWork:
     # zeros): the items of a launch that writes its output. False: rows
     # with no entry have none, for a launch that adds into its output.
     every_row: bool = True
+    # List entries the items cover (K1's pair terms are entries x G^2).
+    entries: int = 0
 
     def __iter__(self):
         return iter((self.items, self.splits, self.n_partial))
@@ -107,6 +118,15 @@ _PLAIN_BLOCK_ELEMS = 1 << 25
 
 
 # ------------------------------------------------------------ plain versions
+def _octet_terms(keys, valid):
+    """() int64: the accepted children of the valid octet keys, the set
+    bits of their child masks (keys & 0xFF), counted on the keys' device."""
+    m = torch.where(valid, keys & 0xFF, 0)
+    m = m - ((m >> 1) & 0x55)
+    m = (m & 0x33) + ((m >> 2) & 0x33)
+    return ((m + (m >> 4)) & 0x0F).sum(dtype=torch.int64)
+
+
 def near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
                      compute_pot=True, leaf_lo=None, src_table=None,
                      out=None):
@@ -143,6 +163,7 @@ def near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
     if leaf_lo is not None or src_table is not None:
         valid = valid & (idx >= off) & (idx < off + n_leaves)
     rows, cols = torch.nonzero(valid, as_tuple=True)
+    COUNTERS["k1.pair_terms"] += rows.shape[0] * leaf_size ** 2
     srcs = idx[rows, cols].long() - off
     chunk = max(1, _PLAIN_BLOCK_ELEMS // (leaf_size * leaf_size))
     for c0 in range(0, rows.shape[0], chunk):
@@ -330,10 +351,10 @@ def _window_sizes(counts, chunks):
 
 
 def _sizes_of(row, k, every_row):
-    """(n_items, n_partial, n_split) of near_items for the k-th chunk of a
-    _window_sizes row read back to the host."""
+    """(n_items, n_partial, n_split, entries) of near_items for the k-th
+    chunk of a _window_sizes row read back to the host."""
     n_items, n_partial, n_split = row[3 + 3 * k:6 + 3 * k]
-    return n_items + (row[2] if every_row else 0), n_partial, n_split
+    return n_items + (row[2] if every_row else 0), n_partial, n_split, row[0]
 
 
 def near_items(counts, chunk, lo=None, sizes=None, r=0, every_row=True):
@@ -354,8 +375,8 @@ def near_items(counts, chunk, lo=None, sizes=None, r=0, every_row=True):
     begin and end are list positions.
 
     Index bookkeeping in a few torch ops on the lists' device; reading the
-    three sizes back waits on the host once (sizes: `_sizes_of`, read back
-    by the caller)."""
+    sizes back waits on the host once (`host_read`; sizes: `_sizes_of`,
+    read back by the caller)."""
     counts = counts.to(torch.int64)
     dev = counts.device
     n_chunks = (counts + chunk - 1) // chunk
@@ -364,9 +385,9 @@ def near_items(counts, chunk, lo=None, sizes=None, r=0, every_row=True):
     split = n_chunks > 1
     split_n = torch.where(split, n_chunks, 0)
     if sizes is None:
-        row = _window_sizes(counts[:, None], (chunk,))[0].tolist()
+        row = host_read(_window_sizes(counts[:, None], (chunk,))[0])
         sizes = _sizes_of(row, 0, every_row)
-    n_items, n_partial, n_split = sizes
+    n_items, n_partial, n_split, entries = sizes
     first_item = torch.cumsum(n_chunks, 0) - n_chunks
     first_slot = torch.cumsum(split_n, 0) - split_n
     rows = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev),
@@ -387,7 +408,7 @@ def near_items(counts, chunk, lo=None, sizes=None, r=0, every_row=True):
                           n_chunks[split_rows]], dim=1)
     return NearWork(items.to(torch.int32).contiguous(),
                     splits.to(torch.int32).contiguous(), n_partial, r=r,
-                    chunk=chunk, every_row=every_row)
+                    chunk=chunk, every_row=every_row, entries=entries)
 
 
 def near_work(valid, idx=None, id_range=None):
@@ -454,7 +475,7 @@ def near_windows(idx, valid, edges, chunk=None, writes=None, leaf_size=None,
     shaped = chunk is None
     chunks = tuple(sorted({c for _, c in WINDOW_SHAPES}, reverse=True)) \
         if shaped else (chunk,)
-    table = _window_sizes(counts, chunks).tolist()
+    table = host_read(_window_sizes(counts, chunks))
     if shaped:
         if leaf_size is None:
             raise ValueError("near_windows: a window's own shape needs "
@@ -498,71 +519,75 @@ def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
     rounded as if written and then added) and return them; rows with no
     entry are not touched, and pot not at all without the potential. The
     ring near field accumulates its passes so."""
-    if src_table is not None:
-        if pos_s is not None or mass_s is not None or leaf_lo is not None:
-            raise ValueError("src_table replaces pos_s, mass_s and leaf_lo")
-        srcs, form = (src_table,), "near_field_table"
-    else:
-        srcs = (pos_s, mass_s)
-        form = "near_field" if leaf_lo is None else "near_field_window"
-    outs = () if out is None else tuple(out)
-    if on_cpu(*srcs, tgt_leaves, idx, valid, *outs):
-        return near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid, g=g,
-                                softening=softening, compute_pot=compute_pot,
-                                leaf_lo=leaf_lo, src_table=src_table,
-                                out=out)
-    n_slice, leaf_size, _ = tgt_leaves.shape
-    n_pad = srcs[0].shape[0]
-    budget = idx.shape[1]
-    if n_pad % leaf_size or not 0 < leaf_size <= 1024:
-        raise ValueError(f"leaf size {leaf_size} must divide {n_pad} and be "
-                         "at most 1024")
-    if src_table is not None:
-        check("src_table", src_table, torch.float32, (n_pad, 4))
-        table = src_table
-    else:
-        check("pos_s", pos_s, torch.float32, (n_pad, 3))
-        check("mass_s", mass_s, torch.float32, (n_pad,))
-        table = torch.cat([pos_s, mass_s[:, None]], dim=1)
-    check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
-    check("idx", idx, torch.int32, (n_slice, budget))
-    check("valid", valid, torch.bool, (n_slice, budget))
-    dev = table.device
-    off = int(leaf_lo or 0)
-    if work is None and form == "near_field_window":
-        work = near_windows(idx, valid, [off, off + n_pad // leaf_size],
-                            writes=() if out is not None else None,
-                            leaf_size=leaf_size)[0]
-    elif work is None:
-        work = near_work(valid, idx, None if form == "near_field" else
-                         (0, n_pad // leaf_size))
-    items, splits, n_partial = work
-    check("work.items", items, torch.int32, (items.shape[0], 4))
-    check("work.splits", splits, torch.int32, (splits.shape[0], 3))
-    if work.r not in (0, 1, 2, 4, 8):
-        raise ValueError(f"work.r {work.r}: targets a thread are 0 (the "
-                         "leaf size's), 1, 2, 4 or 8")
-    partial = torch.empty((n_partial, leaf_size, 4), dtype=torch.float32,
-                          device=dev)
-    if out is None:
-        if not work.every_row:
-            raise ValueError("work items that skip empty rows only add "
-                             "into an output (out=)")
-        acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
-                          device=dev)
-        pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
-                          device=dev)
-    else:
-        acc, pot = out
-        check("out acc", acc, torch.float32, (n_slice * leaf_size, 3))
-        check("out pot", pot, torch.float32, (n_slice * leaf_size,))
-    launch(LAUNCHES, form, "pnb_near_field",
-           ptr(table), ptr(tgt_leaves), ptr(idx), ptr(items), ptr(splits),
-           ptr(acc), ptr(pot), ptr(partial), items.shape[0],
-           splits.shape[0], leaf_size, budget, off, float(g),
-           float(softening) ** 2, int(softening == 0.0),
-           int(bool(compute_pot)), int(out is not None), work.r)
-    return acc, pot
+    with span("bh.near"):
+        if src_table is not None:
+            if pos_s is not None or mass_s is not None or \
+                    leaf_lo is not None:
+                raise ValueError("src_table replaces pos_s, mass_s and "
+                                 "leaf_lo")
+            srcs, form = (src_table,), "near_field_table"
+        else:
+            srcs = (pos_s, mass_s)
+            form = "near_field" if leaf_lo is None else "near_field_window"
+        outs = () if out is None else tuple(out)
+        n_slice, leaf_size, _ = tgt_leaves.shape
+        n_pad = srcs[0].shape[0]
+        if on_cpu(*srcs, tgt_leaves, idx, valid, *outs):
+            return near_field_plain(pos_s, mass_s, tgt_leaves, idx, valid,
+                                    g=g, softening=softening,
+                                    compute_pot=compute_pot, leaf_lo=leaf_lo,
+                                    src_table=src_table, out=out)
+        budget = idx.shape[1]
+        if n_pad % leaf_size or not 0 < leaf_size <= 1024:
+            raise ValueError(f"leaf size {leaf_size} must divide {n_pad} and "
+                             "be at most 1024")
+        if src_table is not None:
+            check("src_table", src_table, torch.float32, (n_pad, 4))
+            table = src_table
+        else:
+            check("pos_s", pos_s, torch.float32, (n_pad, 3))
+            check("mass_s", mass_s, torch.float32, (n_pad,))
+            table = torch.cat([pos_s, mass_s[:, None]], dim=1)
+        check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
+        check("idx", idx, torch.int32, (n_slice, budget))
+        check("valid", valid, torch.bool, (n_slice, budget))
+        dev = table.device
+        off = int(leaf_lo or 0)
+        if work is None and form == "near_field_window":
+            work = near_windows(idx, valid, [off, off + n_pad // leaf_size],
+                                writes=() if out is not None else None,
+                                leaf_size=leaf_size)[0]
+        elif work is None:
+            work = near_work(valid, idx, None if form == "near_field" else
+                             (0, n_pad // leaf_size))
+        items, splits, n_partial = work
+        check("work.items", items, torch.int32, (items.shape[0], 4))
+        check("work.splits", splits, torch.int32, (splits.shape[0], 3))
+        if work.r not in (0, 1, 2, 4, 8):
+            raise ValueError(f"work.r {work.r}: targets a thread are 0 (the "
+                             "leaf size's), 1, 2, 4 or 8")
+        partial = torch.empty((n_partial, leaf_size, 4), dtype=torch.float32,
+                              device=dev)
+        if out is None:
+            if not work.every_row:
+                raise ValueError("work items that skip empty rows only add "
+                                 "into an output (out=)")
+            acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
+                              device=dev)
+            pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
+                              device=dev)
+        else:
+            acc, pot = out
+            check("out acc", acc, torch.float32, (n_slice * leaf_size, 3))
+            check("out pot", pot, torch.float32, (n_slice * leaf_size,))
+        launch(LAUNCHES, form, "pnb_near_field",
+               ptr(table), ptr(tgt_leaves), ptr(idx), ptr(items), ptr(splits),
+               ptr(acc), ptr(pot), ptr(partial), items.shape[0],
+               splits.shape[0], leaf_size, budget, off, float(g),
+               float(softening) ** 2, int(softening == 0.0),
+               int(bool(compute_pot)), int(out is not None), work.r)
+        COUNTERS["k1.pair_terms"] += work.entries * leaf_size ** 2
+        return acc, pot
 
 
 def far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,
@@ -574,37 +599,43 @@ def far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,
     `far_octet_plain`; CUDA tensors launch the kernel (f32 only) on the
     table packed by `far_rows`, target leaves in the launch order `order`
     (`far_order(valid)`, built here when None)."""
-    if on_cpu(tgt_leaves, nodes8, keys, valid):
-        return far_octet_plain(tgt_leaves, nodes8, keys, valid, g=g,
-                               softening=softening, compute_pot=compute_pot)
-    n_slice, leaf_size, _ = tgt_leaves.shape
-    n8, n_comp = nodes8.shape
-    budget = keys.shape[1]
-    if n8 % 8 or n_comp not in (4, 9):
-        raise ValueError(f"nodes8 {tuple(nodes8.shape)}: rows must be a "
-                         "multiple of 8 and columns 4 or 9")
-    if not 0 < leaf_size <= 1024:
-        raise ValueError(f"leaf size {leaf_size} above 1024")
-    check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
-    check("nodes8", nodes8, torch.float32, (n8, n_comp))
-    check("keys", keys, torch.int32, (n_slice, budget))
-    check("valid", valid, torch.bool, (n_slice, budget))
-    rows = far_rows(nodes8)
-    counts = torch.sum(valid, dim=1, dtype=torch.int32)
-    order = heaviest_first(counts) if order is None else order
-    check("order", order, torch.int32, (n_slice,))
-    if order.device != counts.device:
-        raise ValueError(f"order on {order.device}, lists on {counts.device}")
-    acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
-                      device=nodes8.device)
-    pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
-                      device=nodes8.device)
-    launch(LAUNCHES, "far_octet", "pnb_far_octet",
-           ptr(rows), ptr(tgt_leaves), ptr(keys), ptr(counts), ptr(order),
-           ptr(acc), ptr(pot), n_slice, leaf_size, budget, rows.shape[1],
-           float(g), float(softening) ** 2, int(softening == 0.0),
-           int(bool(compute_pot)))
-    return acc, pot
+    with span("bh.far"):
+        if is_tracing():
+            count_on_device("far.terms", _octet_terms(keys, valid) *
+                            tgt_leaves.shape[1])
+        if on_cpu(tgt_leaves, nodes8, keys, valid):
+            return far_octet_plain(tgt_leaves, nodes8, keys, valid, g=g,
+                                   softening=softening,
+                                   compute_pot=compute_pot)
+        n_slice, leaf_size, _ = tgt_leaves.shape
+        n8, n_comp = nodes8.shape
+        budget = keys.shape[1]
+        if n8 % 8 or n_comp not in (4, 9):
+            raise ValueError(f"nodes8 {tuple(nodes8.shape)}: rows must be a "
+                             "multiple of 8 and columns 4 or 9")
+        if not 0 < leaf_size <= 1024:
+            raise ValueError(f"leaf size {leaf_size} above 1024")
+        check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
+        check("nodes8", nodes8, torch.float32, (n8, n_comp))
+        check("keys", keys, torch.int32, (n_slice, budget))
+        check("valid", valid, torch.bool, (n_slice, budget))
+        rows = far_rows(nodes8)
+        counts = torch.sum(valid, dim=1, dtype=torch.int32)
+        order = heaviest_first(counts) if order is None else order
+        check("order", order, torch.int32, (n_slice,))
+        if order.device != counts.device:
+            raise ValueError(f"order on {order.device}, lists on "
+                             f"{counts.device}")
+        acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
+                          device=nodes8.device)
+        pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
+                          device=nodes8.device)
+        launch(LAUNCHES, "far_octet", "pnb_far_octet",
+               ptr(rows), ptr(tgt_leaves), ptr(keys), ptr(counts), ptr(order),
+               ptr(acc), ptr(pot), n_slice, leaf_size, budget, rows.shape[1],
+               float(g), float(softening) ** 2, int(softening == 0.0),
+               int(bool(compute_pot)))
+        return acc, pot
 
 
 def far_gather(tgt_leaves, table, idx, valid, *, g, softening,
@@ -618,35 +649,41 @@ def far_gather(tgt_leaves, table, idx, valid, *, g, softening,
     `far_gather_plain`; CUDA tensors launch the kernel (f32 only) on the
     table packed by `far_rows`, target leaves in the launch order `order`
     (`heaviest_first` of the valid counts, built here when None)."""
-    if on_cpu(tgt_leaves, table, idx, valid):
-        return far_gather_plain(tgt_leaves, table, idx, valid, g=g,
-                                softening=softening, compute_pot=compute_pot)
-    n_slice, leaf_size, _ = tgt_leaves.shape
-    n_nodes, n_comp = table.shape
-    budget = idx.shape[1]
-    if n_comp not in (4, 9):
-        raise ValueError(f"table {tuple(table.shape)}: columns must be 4 "
-                         "or 9")
-    if not 0 < leaf_size <= 1024:
-        raise ValueError(f"leaf size {leaf_size} above 1024")
-    check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
-    check("table", table, torch.float32, (n_nodes, n_comp))
-    check("idx", idx, torch.int32, (n_slice, budget))
-    check("valid", valid, torch.bool, (n_slice, budget))
-    rows = far_rows(table)
-    counts = torch.sum(valid, dim=1, dtype=torch.int32)
-    order = heaviest_first(counts) if order is None else order
-    check("order", order, torch.int32, (n_slice,))
-    if order.device != counts.device:
-        raise ValueError(f"order on {order.device}, lists on {counts.device}")
-    acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
-                      device=table.device)
-    pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
-                      device=table.device)
-    launch(LAUNCHES, "far_gather", "pnb_far_gather",
-           ptr(rows), ptr(tgt_leaves), ptr(idx), ptr(valid), ptr(counts),
-           ptr(order), ptr(acc), ptr(pot), n_slice, leaf_size, budget,
-           rows.shape[1],
-           float(g), float(softening) ** 2, int(softening == 0.0),
-           int(bool(compute_pot)), int(not front_packed))
-    return acc, pot
+    with span("bh.far"):
+        if is_tracing():
+            count_on_device("far.terms", valid.sum(dtype=torch.int64) *
+                            tgt_leaves.shape[1])
+        if on_cpu(tgt_leaves, table, idx, valid):
+            return far_gather_plain(tgt_leaves, table, idx, valid, g=g,
+                                    softening=softening,
+                                    compute_pot=compute_pot)
+        n_slice, leaf_size, _ = tgt_leaves.shape
+        n_nodes, n_comp = table.shape
+        budget = idx.shape[1]
+        if n_comp not in (4, 9):
+            raise ValueError(f"table {tuple(table.shape)}: columns must be 4 "
+                             "or 9")
+        if not 0 < leaf_size <= 1024:
+            raise ValueError(f"leaf size {leaf_size} above 1024")
+        check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))
+        check("table", table, torch.float32, (n_nodes, n_comp))
+        check("idx", idx, torch.int32, (n_slice, budget))
+        check("valid", valid, torch.bool, (n_slice, budget))
+        rows = far_rows(table)
+        counts = torch.sum(valid, dim=1, dtype=torch.int32)
+        order = heaviest_first(counts) if order is None else order
+        check("order", order, torch.int32, (n_slice,))
+        if order.device != counts.device:
+            raise ValueError(f"order on {order.device}, lists on "
+                             f"{counts.device}")
+        acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
+                          device=table.device)
+        pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
+                          device=table.device)
+        launch(LAUNCHES, "far_gather", "pnb_far_gather",
+               ptr(rows), ptr(tgt_leaves), ptr(idx), ptr(valid), ptr(counts),
+               ptr(order), ptr(acc), ptr(pot), n_slice, leaf_size, budget,
+               rows.shape[1],
+               float(g), float(softening) ** 2, int(softening == 0.0),
+               int(bool(compute_pot)), int(not front_packed))
+        return acc, pot

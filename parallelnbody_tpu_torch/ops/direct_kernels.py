@@ -27,8 +27,9 @@ from __future__ import annotations
 
 import torch
 
-from parallelnbody_tpu_torch.kernels.launch import (check, launch, on_cpu, ptr,
-                                                    query)
+from parallelnbody_tpu_torch.kernels.launch import (COUNTERS, check, launch,
+                                                    on_cpu, ptr, query)
+from parallelnbody_tpu_torch.utils.profiling import span
 
 LAUNCHES = {"allpairs": 0}
 
@@ -72,24 +73,26 @@ def allpairs(pos_i, pos_j, mass_j, *, softening, compute_pot=True):
     [x, y, z, m] source table built here, with the sources cut into the
     ranges of `pnb_allpairs_splits` and their partial sums added in range
     order (csrc/allpairs.cu)."""
-    if on_cpu(pos_i, pos_j, mass_j):
-        return allpairs_plain(pos_i, pos_j, mass_j, softening=softening,
-                              compute_pot=compute_pot)
-    n_i, n_j = pos_i.shape[0], pos_j.shape[0]
-    check("pos_i", pos_i, torch.float32, (n_i, 3))
-    check("pos_j", pos_j, torch.float32, (n_j, 3))
-    check("mass_j", mass_j, torch.float32, (n_j,))
-    dev = pos_i.device
-    table = torch.cat([pos_j, mass_j[:, None]], dim=1)
-    out = torch.empty((n_i, 4), dtype=torch.float32, device=dev)
-    n_split = query("pnb_allpairs_splits", n_i, n_j) if n_i else 1
-    partial = torch.empty((n_split if n_split > 1 else 0, n_i, 4),
-                          dtype=torch.float32, device=dev)
-    launch(LAUNCHES, "allpairs", "pnb_allpairs",
-           ptr(pos_i), ptr(table), ptr(out), ptr(partial), n_i, n_j, n_split,
-           float(softening) ** 2, int(softening == 0.0),
-           int(bool(compute_pot)))
-    return out
+    with span("k3"):
+        COUNTERS["k3.pairs"] += pos_i.shape[0] * pos_j.shape[0]
+        if on_cpu(pos_i, pos_j, mass_j):
+            return allpairs_plain(pos_i, pos_j, mass_j, softening=softening,
+                                  compute_pot=compute_pot)
+        n_i, n_j = pos_i.shape[0], pos_j.shape[0]
+        check("pos_i", pos_i, torch.float32, (n_i, 3))
+        check("pos_j", pos_j, torch.float32, (n_j, 3))
+        check("mass_j", mass_j, torch.float32, (n_j,))
+        dev = pos_i.device
+        table = torch.cat([pos_j, mass_j[:, None]], dim=1)
+        out = torch.empty((n_i, 4), dtype=torch.float32, device=dev)
+        n_split = query("pnb_allpairs_splits", n_i, n_j) if n_i else 1
+        partial = torch.empty((n_split if n_split > 1 else 0, n_i, 4),
+                              dtype=torch.float32, device=dev)
+        launch(LAUNCHES, "allpairs", "pnb_allpairs",
+               ptr(pos_i), ptr(table), ptr(out), ptr(partial), n_i, n_j,
+               n_split, float(softening) ** 2, int(softening == 0.0),
+               int(bool(compute_pot)))
+        return out
 
 
 def allpairs_accel_tile(pos_i, pos_j, mass_j, *, g, softening,
@@ -108,9 +111,10 @@ def make_allpairs_accel(cfg, mass):
     compute_pot = cfg.track_potential
 
     def accel_fn(pos):
-        return allpairs_accel_tile(pos, pos, mass, g=cfg.g,
-                                   softening=cfg.softening,
-                                   compute_pot=compute_pot)
+        with span("force"):
+            return allpairs_accel_tile(pos, pos, mass, g=cfg.g,
+                                       softening=cfg.softening,
+                                       compute_pot=compute_pot)
 
     return accel_fn
 

@@ -12,7 +12,7 @@ from parallelnbody_tpu_torch.utils.io import (
     TrajectoryWriter,
 )
 from parallelnbody_tpu_torch.utils.metrics import MetricsLogger
-from parallelnbody_tpu_torch.utils.profiling import profile_trace, StepTimer
+from parallelnbody_tpu_torch.utils.profiling import profile_trace
 
 __all__ = [
     "save_snapshot",
@@ -23,5 +23,4 @@ __all__ = [
     "TrajectoryWriter",
     "MetricsLogger",
     "profile_trace",
-    "StepTimer",
 ]

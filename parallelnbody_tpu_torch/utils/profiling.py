@@ -1,16 +1,32 @@
-"""Profiling and timing helpers. Counterpart of
+"""Profiling, timing and tracing helpers. Counterpart of
 `parallelnbody_tpu/utils/profiling.py`.
 
 `profile_trace(dir)` records a torch.profiler trace (CPU and, where there
 is one, CUDA activity) of a region and writes it into `dir` as a Chrome
 trace (`trace.json`), viewable in ui.perfetto.dev or chrome://tracing.
+
+Tracing: `span(name)` marks one phase of the program at a layer boundary
+(the step shell, the integrator, a force evaluation, a kernel wrapper, a
+Barnes-Hut phase; PERF.md names each span and what reads it). While
+tracing is off, the default, it returns one shared context that does
+nothing: one test of a module-level bool, no allocation, no torch call.
+`tracing(True)` switches it on. Each span then keeps a record in memory
+(`Span`: name, id, the enclosing span's id, the id of its call, start and
+end on `time.perf_counter_ns()`); a span opened while none is open starts
+a call, and every span inside it shares that call's id. While a torch
+profiler runs, a span is also a `torch.profiler.record_function` range, so
+the profiler's trace shows the phase on the device records' clock, with the
+kernels and copies it launched tied to it. `take_spans()` hands over the
+records kept so far and forgets them; `self_times` reduces them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -69,23 +85,115 @@ def force_sync(tree) -> float:
     return float(t.reshape(-1)[0])
 
 
-class StepTimer:
-    """Wall-clock steps/sec over a sliding window, with a true device sync."""
+# ------------------------------------------------------------------ tracing
+class Span(NamedTuple):
+    """One finished span; times in host nanoseconds."""
 
-    def __init__(self):
-        self.reset()
+    name: str
+    id: int
+    parent: int     # id of the enclosing span, -1 for the first of a call
+    call: int       # id of its call: the outermost span's id
+    start_ns: int
+    end_ns: int
 
-    def reset(self):
-        self._t0 = None
-        self._steps0 = 0
 
-    def rate(self, state, steps_done: int) -> float | None:
-        force_sync(state.time)
-        now = time.perf_counter()
-        if self._t0 is None:
-            self._t0, self._steps0 = now, steps_done
-            return None
-        dt = now - self._t0
-        ds = steps_done - self._steps0
-        self._t0, self._steps0 = now, steps_done
-        return ds / dt if dt > 0 else None
+_tracing = False
+_spans: list[Span] = []
+_open: list = []        # the open spans, innermost last
+_ids = itertools.count()
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _OpenSpan:
+    __slots__ = ("name", "id", "parent", "call", "start", "mirror")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        outer = _open[-1] if _open else None
+        self.id = next(_ids)
+        self.parent = -1 if outer is None else outer.id
+        self.call = self.id if outer is None else outer.call
+        self.mirror = None
+        if torch.autograd._profiler_enabled():
+            self.mirror = torch.profiler.record_function(self.name)
+            self.mirror.__enter__()
+        _open.append(self)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        _open.pop()
+        if self.mirror is not None:
+            self.mirror.__exit__(*exc)
+        _spans.append(Span(self.name, self.id, self.parent, self.call,
+                           self.start, end))
+        return False
+
+
+def span(name: str):
+    """A context marking the phase `name`: nothing while tracing is off, a
+    kept record (and, under a running profiler, a record_function range)
+    while it is on."""
+    if not _tracing:
+        return _NO_SPAN
+    return _OpenSpan(name)
+
+
+class tracing:
+    """Switch tracing on (True) or off. Used as a context, the setting it
+    found comes back on exit: `with tracing(True): ...`."""
+
+    def __init__(self, on: bool = True):
+        global _tracing
+        self._was = _tracing
+        _tracing = bool(on)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        global _tracing
+        _tracing = self._was
+        return False
+
+
+def is_tracing() -> bool:
+    return _tracing
+
+
+def take_spans() -> list[Span]:
+    """The spans finished since the last call, in the order they ended;
+    they are forgotten here."""
+    out = list(_spans)
+    _spans.clear()
+    return out
+
+
+def self_times(spans) -> dict:
+    """{name: seconds} of each span name's self time: a span's duration
+    less its child spans' (spans nest on the one host thread). A child
+    whose parent is not in `spans` counts for no one."""
+    total: dict = {}
+    by_id = {s.id: s for s in spans}
+    for s in spans:
+        length = (s.end_ns - s.start_ns) * 1e-9
+        total[s.name] = total.get(s.name, 0.0) + length
+        parent = by_id.get(s.parent)
+        if parent is not None:
+            total[parent.name] = total.get(parent.name, 0.0) - length
+    return total

@@ -1588,3 +1588,142 @@ def test_mac_and_aniso_probes_on_the_card(cuda, cpu_tree):
         assert abs(g["rms"] - w["rms"]) < 2e-5
         assert sorted(g["max_abs_err_plain"]) == ["allpairs", "far_gather",
                                                   "near_field"]
+
+
+# ------------------------------------------------------------------ tracing
+# The span each hand kernel's wrapper opens, by source file.
+_WRAPPER_SPAN = {"allpairs.cu": "k3", "near_field.cu": "bh.near",
+                 "far_octet.cu": "bh.far", "far_gather.cu": "bh.far"}
+
+
+def _kernel_spans():
+    """{__global__ kernel name: the span its wrapper opens}."""
+    import re
+    from pathlib import Path
+
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                     r"\s*)?(\w+)\s*\(")
+    csrc = Path(direct_kernels.__file__).resolve().parent.parent / "csrc"
+    return {name: span for src, span in _WRAPPER_SPAN.items()
+            for name in pat.findall((csrc / src).read_text())}
+
+
+def _traced_call(call, state, path):
+    """(call(state)'s output, the counters' growth, the Chrome trace's
+    events) of one call under torch.profiler (CPU and CUDA) with the
+    program's tracing on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from parallelnbody_tpu_torch.kernels import launch
+    from parallelnbody_tpu_torch.utils import profiling
+
+    before = launch.read_counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof, profiling.tracing(True):
+        out = call(state)
+        torch.cuda.synchronize()
+    after = launch.read_counters()
+    profiling.take_spans()
+    prof.export_chrome_trace(str(path))
+    import json
+
+    events = json.loads(path.read_text())["traceEvents"]
+    return out, {k: after[k] - before[k] for k in after}, events
+
+
+def _launches_in_spans(events):
+    """Every hand-kernel launch and device-to-host copy whose runtime call
+    lies inside an `api.step` / `api.run` span: {span it must lie in:
+    count}, asserting that it lies in that span (on the host's clock of
+    the profiler, which the device records share)."""
+    import collections
+    import re
+
+    ranges = collections.defaultdict(list)
+    calls = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            ranges[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
+        elif e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            calls[e.get("args", {}).get("correlation")] = e
+
+    def inside(call, name):
+        t0, t1 = call["ts"], call["ts"] + call.get("dur", 0)
+        return any(s <= t0 and t1 <= t for s, t in ranges[name])
+
+    kernels = _kernel_spans()
+    found = collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            want = [span for name, span in kernels.items()
+                    if re.search(rf"\b{name}\b", e["name"])]
+            if not want:
+                continue
+            want = want[0]
+        elif e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]:
+            want = "host_read"
+        else:
+            continue
+        call = calls[e["args"]["correlation"]]
+        if not (inside(call, "api.step") or inside(call, "api.run")):
+            continue
+        assert inside(call, want), (e["name"], call["name"], want)
+        found[want] += 1
+    return found
+
+
+@pytest.mark.parametrize("case", ["direct", "bh_step", "bh_run2"])
+def test_spans_hold_their_launches_and_host_reads(cuda, tmp_path, case):
+    """One direct step and one Barnes-Hut step at N = 262144 (and a
+    rebuild-2 run of 2 steps): every hand-kernel launch and every
+    device-to-host copy made inside the call lies inside the span that
+    made it (k3, bh.near, bh.far, host_read); k3.pairs is N^2, k1's pair
+    terms are the near lists' entries x G^2 and the far terms the far
+    lists' accepted children x G, counted from the plan's masks; host
+    reads: none a direct step, one a Barnes-Hut list build."""
+    from parallelnbody_tpu_torch import api
+
+    n = 262144
+    if case == "direct":
+        cfg = SimConfig(n=n, force="direct_pallas", seed=5)
+    else:
+        cfg = SimConfig(n=n, force="barnes_hut", seed=5, theta=0.72,
+                        bh_multipole=2, bh_rebuild_every=2)
+    cfg, state = api.prepare_simulation(cfg, cuda)
+    call = (api.make_run(cfg, 2, report_overflow=True) if case == "bh_run2"
+            else api.make_step(cfg, report_overflow=True))
+    state, _ = call(state)                    # warm-up
+    torch.cuda.synchronize()
+    (out, overflow), grew, events = _traced_call(call, state,
+                                                 tmp_path / "trace.json")
+    assert int(overflow) == 0
+    found = _launches_in_spans(events)
+    if case == "direct":
+        assert grew["k3.pairs"] == n * n
+        assert grew["host_reads"] == 0
+        assert found["k3"] >= 1 and found["host_read"] == 0
+        return
+    # The lists the evaluations ran on: at the output's positions for a
+    # step, at the input's for the run's one block.
+    at = out if case == "bh_step" else state
+    leaf = cfg.resolve_bh_leaf_size()
+    _, _, _, tree, _, _ = bh._prepare(
+        at.pos, at.mass, leaf_size=leaf, curve=cfg.bh_curve,
+        multipole_order=cfg.bh_multipole, max_levels=cfg.bh_max_levels)
+    refine, cands = bh.resolve_refine(
+        cfg.resolve_bh_refine(), (cfg.bh_cand2_budget, cfg.bh_cand_budget),
+        tree.n_levels, cfg.resolve_bh_near_budget(),
+        cfg.resolve_bh_far_budget())
+    plan = bh.bh_plan_lists(
+        tree, theta=cfg.theta, near_budget=cfg.resolve_bh_near_budget(),
+        far_budget=cfg.resolve_bh_far_budget(), refine=refine,
+        cand_budgets=cands, dtype=at.pos.dtype)
+    evals = 1 if case == "bh_step" else 2
+    entries = int(plan.near_valid.sum())
+    assert grew["k1.pair_terms"] == evals * entries * leaf * leaf
+    masks = torch.where(plan.far_valid, plan.far_keys & 0xFF, 0)
+    children = sum(int(((masks >> b) & 1).sum()) for b in range(8))
+    assert grew["far.terms"] == evals * children * leaf
+    assert grew["host_reads"] == 1
+    assert found["host_read"] == 1
+    assert found["bh.near"] >= evals and found["bh.far"] >= evals

@@ -18,8 +18,7 @@ from parallelnbody_tpu_torch.utils.debug import (StateValidationError,
                                                  validate_state)
 from parallelnbody_tpu_torch.utils.io import TrajectoryWriter
 from parallelnbody_tpu_torch.utils.metrics import MetricsLogger
-from parallelnbody_tpu_torch.utils.profiling import (StepTimer, force_sync,
-                                                     profile_trace)
+from parallelnbody_tpu_torch.utils.profiling import force_sync, profile_trace
 from parallelnbody_tpu_torch.utils.render import (export_ply, render_ppm,
                                                   render_trajectory)
 
@@ -125,13 +124,9 @@ def test_metrics_logger(tmp_path):
     assert lines[1]["energy"] == pytest.approx(-0.26)
 
 
-def test_force_sync_and_step_timer(state):
+def test_force_sync(state):
     assert force_sync(state.time) == 0.0
     assert force_sync(torch.tensor([3.5, 1.0])) == 3.5
-    timer = StepTimer()
-    assert timer.rate(state, 0) is None
-    rate = timer.rate(state, 10)
-    assert rate is None or rate > 0
 
 
 def test_profile_trace_writes_chrome_trace(tmp_path, state):
