@@ -25,7 +25,10 @@ Phases, each of which exits non-zero on failure:
        potential settings; K1 and K2 timed);
        K3 (all-pairs) in full at N = 262144 (examples/allpairs_262k.json)
        and at N = 65536, on 4096 sampled targets with the potential, and
-       at an odd N = 1000;
+       at an odd N = 1000; its self-gravity form (allpairs_self) timed
+       beside the cross form at N = 262144, 65536 and the points of the
+       N_SYM sweep (N_SYM lowered so that it runs at each), each held to
+       the plain version on sampled targets;
        K4 (gather far field) at the N = 1M gather lists (upper and leaf
        list), in full at N = 65536 and at N = 262144 with leaf 128, and on
        a scattered (front_packed=False) list;
@@ -411,13 +414,20 @@ KERNELS = {
 }
 # Each kernel's instantiation on the main path (compute_pot=False, softened;
 # leaf 256: K1 with 8 targets a thread writing its output, K2 and K4 with 4
-# and quadrupoles, K4 front-packed), as its mangled name spells it.
+# and quadrupoles, K4 front-packed; K3 in its self-gravity form, whose
+# instructions a pair are an unordered pair's, two ordered pairs), as its
+# mangled name spells it (K3's two forms differ in their parameters).
 MAIN_INSTANCE = {
     "near_field": "near_field_kernelILi8ELb0ELb0ELb0E",
     "far_octet": "far_octet_kernelILi4ELb1ELb0ELb0E",
-    "allpairs": "allpairs_kernelILb0ELb0E",
+    "allpairs": "allpairs_kernelILb0ELb0EEEvPKfS2_",
     "far_gather": "far_gather_kernelILi4ELb1ELb0ELb0ELb0E",
 }
+# K3's cross form (targets against other sources: the ring, the tools).
+K3_CROSS_INSTANCE = "allpairs_kernelILb0ELb0EEEvPKfPK6float4"
+# K3's self-gravity form against the cross form (ms each) at these N.
+SYM_SWEEP_N = (4096, 16384, 32768, 40960, 49152, 65536, 131072, 196608,
+               262144)
 # K8's and K11's instantiations on their tools' headline rows: K8 mode A,
 # unroll 4, stride 4, 8 targets a thread (leaf 256); K11 at 8 packs with
 # the potential, 8 targets a thread, "row" and "step".
@@ -548,6 +558,16 @@ def phase_build():
             f"instructions, {rec['pairs']} MUFU.RSQ, {rec['per_pair']:.3f} a "
             f"pair; {regs} registers, {smem} bytes static shared; "
             f"{json.dumps(rec['opcodes'])}")
+    found = [m for m in loops if K3_CROSS_INSTANCE in m]
+    if len(found) != 1:
+        raise AssertionError(f"allpairs: {len(found)} kernels match "
+                             f"{K3_CROSS_INSTANCE} in the SASS")
+    rec = loops[found[0]]
+    per_pair["allpairs"]["sass_per_pair_cross"] = rec["per_pair"]
+    log(f"SASS allpairs, cross form ({K3_CROSS_INSTANCE}): inner loop "
+        f"{rec['instructions']} instructions, {rec['pairs']} MUFU.RSQ, "
+        f"{rec['per_pair']:.3f} a pair; self-gravity form "
+        f"{per_pair['allpairs']['sass_per_pair'] / 2:.3f} an ordered pair")
     for (name, label), instance in EXP_INSTANCE.items():
         found = [m for m in loops if instance in m]
         if len(found) != 1:
@@ -576,9 +596,10 @@ def phase_build():
         regs, smem = usage.get(found[0], (None, None))
         log(f"SASS {name} precision {p} ({instance}): tensor-core loop "
             f"{rec['instructions']} instructions, {rec['pairs']} MUFU.RSQ, "
-            f"{rec['per_pair']:.3f} a pair (K3: "
-            f"{per_pair['allpairs']['sass_per_pair']:.3f}); {regs} registers, "
-            f"{smem} bytes static shared; {json.dumps(rec['opcodes'])}")
+            f"{rec['per_pair']:.3f} a pair (K3's cross form: "
+            f"{per_pair['allpairs']['sass_per_pair_cross']:.3f}); {regs} "
+            f"registers, {smem} bytes static shared; "
+            f"{json.dumps(rec['opcodes'])}")
     return per_pair
 
 
@@ -960,7 +981,56 @@ def phase_allpairs_parity(cfg_json):
     for compute_pot in (True, False):
         held(f"N={PARITY_N} full", PARITY_N, compute_pot)
         held(f"N={ODD_N} full", ODD_N, compute_pot)
+    rec["self_gravity"] = sym_sweep(cfg, sample)
     return rec
+
+
+def sym_sweep(cfg, sample):
+    """K3's self-gravity form (allpairs_self with N_SYM lowered to 1)
+    beside its cross form (allpairs(pos, pos, mass)) at SYM_SWEEP_N,
+    compute_pot=False, in turns (cross, self, self, cross; the least of
+    each), each held to the plain version on sampled targets: {N: {"ms",
+    "cross_ms", "chunks", "slots_bytes", "max_abs_err"}}; at the main
+    path's N also its share of the bound."""
+    dev = torch.device(DEVICE)
+    kw = dict(softening=cfg.softening, compute_pot=False)
+    out = {}
+    n_sym = direct_kernels.N_SYM
+    direct_kernels.N_SYM = 1
+    try:
+        for n in SYM_SWEEP_N:
+            state = init_simulation(cfg.replace(n=n), dev,
+                                    compute_forces=False)
+            pos, mass = state.pos, state.mass
+            sym = lambda: direct_kernels.allpairs_self(pos, mass, **kw)
+            cross = lambda: direct_kernels.allpairs(pos, pos, mass, **kw)
+            rows = sample(n)
+            err = max_err(f"allpairs_self N={n}", (sym()[rows],),
+                          (direct_kernels.allpairs_plain(
+                              pos[rows], pos, mass, **kw),))
+            cross()
+            reps = max(KERNEL_REPS, int(2e10 / (n * n)))
+            times = {"cross": [], "self": []}
+            for name in ("cross", "self", "self", "cross"):
+                times[name].append(cuda_ms(sym if name == "self" else cross,
+                                           reps)[1])
+            chunks = direct_kernels.sym_chunks(
+                n, torch.cuda.get_device_properties(0).multi_processor_count)
+            row = {"ms": min(times["self"]), "cross_ms": min(times["cross"]),
+                   "chunks": chunks, "slots_bytes": (
+                       chunks + direct_kernels.sym_tiles(n) // 2) * n * 16,
+                   "max_abs_err": err}
+            if n == cfg.n:
+                with_share(row, bound(n * n, FLOPS_MONOPOLE, n * 28))
+            out[n] = row
+            log(f"allpairs_self at N={n}: self-gravity {row['ms']:.3f} ms, "
+                f"cross {row['cross_ms']:.3f} ms (ratio "
+                f"{row['ms'] / row['cross_ms']:.3f}), {chunks} chunks, "
+                f"slots {row['slots_bytes'] / 1e6:.1f} MB, max abs err "
+                f"{err:.3e} on {len(rows)} targets")
+    finally:
+        direct_kernels.N_SYM = n_sym
+    return out
 
 
 def phase_mma():

@@ -41,6 +41,39 @@
 // fastest (R = 2 pays an LDS every second pair, R = 8 loses occupancy to
 // registers); a longer tile halves the __syncthreads a pair, and a ring of
 // 3 beat 2.
+//
+// Self-gravity (targets are the sources: direct_kernels.allpairs_self).
+// Newton's third law halves the rsqrts and cuts the FP32 instructions a
+// pair from 12 to 8 (terms.cuh mutual_term): each unordered pair is
+// evaluated once and added to both particles. The N particles are cut into
+// nb tiles of SYM_TILE = 2048 (a block of 256 threads, 8 particles a
+// thread in registers with their sums). Row I of tiles takes the diagonal
+// (I, I), by the cross form's broadcast sweep (the self pair adds exactly 0
+// force and m_i / eps to the potential), and the tiles J = I + k mod nb for
+// k = 1 .. nb / 2, the middle offset of an even nb only in rows I < nb / 2:
+// every unordered tile pair once, every row the same work. A row's items
+// (the diagonal, then the offsets) are cut into `chunks` contiguous runs,
+// one block each, so that the SMs' shares of tile pairs come out even
+// (direct_kernels.sym_chunks).
+// Inside a tile pair, tile J's particles and sums sit in shared memory;
+// warp w owns J's sub-tile (w + p) mod 8 in phase p, with a __syncthreads
+// between phases, and in step s lane l updates the 8 particles of J's group
+// (l + s) mod 32, so no two threads add to one sum at once; a group is
+// laid out as every 32nd particle, so a warp's 32 lanes read and write 32
+// consecutive float4 (no bank conflicts). The j side costs an LDS, an LDS
+// and an STS a particle for 8 pairs.
+//
+// Slots, no float atomics: block (I, b) writes its particles' own sums to
+// slot b, and the j-side sums of tile J at offset k go to slot chunks + k -
+// 1, each written once (rows I >= nb / 2 write the zeros of the even nb's
+// middle slot); allpairs_combine_kernel adds the chunks + nb / 2 slots in
+// slot order, so the output is bit-equal from run to run. Scratch is
+// (chunks + nb / 2) N float4: 289 MB at N = 262144 on the H100 (chunks 5).
+// The wrapper runs this form from N_SYM = 36864, from where it ran faster
+// than the cross form at every N of the card's sweep (23.55 against 32.93
+// ms at 262144), up to N_SYM_MAX = 524288 (1.10 GB of slots); above that
+// the scratch grows as N^2 / 256 bytes and the cross form runs instead
+// (direct_kernels.py; PERF.md §6 has both measurements).
 
 #include <cuda_runtime.h>
 
@@ -109,6 +142,126 @@ __global__ void allpairs_combine_kernel(const float4* __restrict__ partial,
 
 int tiles_of(int nj) { return (nj + TILE - 1) / TILE; }
 
+// ------------------------------------------------------- self-gravity form
+constexpr int SYM_THREADS = 256;
+constexpr int A = 8;                           // particles a thread
+constexpr int SYM_TILE = SYM_THREADS * A;      // 2048 particles a tile
+constexpr int WARPS = SYM_THREADS / 32;
+constexpr int SUB = SYM_TILE / WARPS;          // a warp's sub-tile: 32 x A
+constexpr size_t SYM_SMEM = 2 * SYM_TILE * sizeof(float4);  // 64 KB
+
+// Adds every pair of the block's particles t (masses m) with the tile in
+// jp (shared: [x, y, z, m]) to both sides: t.s and the tile's sums js
+// (shared), in the warp-rotation order of the header note.
+template <bool GUARD_ZERO, bool COMPUTE_POT>
+__device__ __forceinline__ void mutual_tile(const float4* jp, float4* js,
+                                            float eps2, pnb::Targets<A>& t,
+                                            const float (&m)[A]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int p = 0; p < WARPS; ++p) {
+    const int sub = ((warp + p) % WARPS) * SUB;
+    for (int s = 0; s < 32; ++s) {
+      const int g = sub + ((lane + s) & 31);
+#pragma unroll
+      for (int q = 0; q < A; ++q) {
+        const float4 pj = jp[g + 32 * q];
+        float4 sj = js[g + 32 * q];
+#pragma unroll
+        for (int r = 0; r < A; ++r)
+          pnb::mutual_term<GUARD_ZERO, COMPUTE_POT>(
+              t.x[r], t.y[r], t.z[r], m[r], t.s[r], pj, eps2, sj);
+        js[g + 32 * q] = sj;
+      }
+      __syncwarp();  // the group a lane takes next was its neighbour's
+    }
+    __syncthreads();  // the sub-tiles change hands
+  }
+}
+
+// Block (I, b) of the self-gravity form: row I's items [first, last) of
+// its half + 1 (the diagonal, then offsets 1 .. half), with the slots of
+// the header note (slots: (chunks + half) x n float4).
+template <bool GUARD_ZERO, bool COMPUTE_POT>
+__global__ void __launch_bounds__(SYM_THREADS, 2)
+    allpairs_kernel(const float* __restrict__ pos,
+                    const float* __restrict__ mass,
+                    float4* __restrict__ slots, int n, int chunks,
+                    float eps2) {
+  extern __shared__ float4 smem[];
+  float4* jp = smem;             // tile J: [x, y, z, m], zero past n
+  float4* js = smem + SYM_TILE;  // tile J's sums
+  const int nb = (n + SYM_TILE - 1) / SYM_TILE;
+  const int half = nb / 2;
+  const int row = blockIdx.x;
+  const int first = blockIdx.y * (half + 1) / chunks;
+  const int last = (blockIdx.y + 1) * (half + 1) / chunks;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const long long base = (long long)row * SYM_TILE + threadIdx.x;
+  pnb::Targets<A> t;
+  float m[A];
+#pragma unroll
+  for (int r = 0; r < A; ++r) {
+    const long long i = base + r * SYM_THREADS;
+    const bool live = i < n;  // past n: massless at 0, inert
+    t.x[r] = live ? pos[i * 3 + 0] : 0.f;
+    t.y[r] = live ? pos[i * 3 + 1] : 0.f;
+    t.z[r] = live ? pos[i * 3 + 2] : 0.f;
+    m[r] = live ? mass[i] : 0.f;
+    t.s[r] = zero;
+  }
+  for (int k = first; k < last; ++k) {
+    const int col = (row + k) % nb;
+    const int live = min(SYM_TILE, n - col * SYM_TILE);
+    float4* dst = slots + (long long)(chunks + k - 1) * n +
+                  (long long)col * SYM_TILE;
+    if (k > 0 && 2 * k == nb && row >= half) {  // row - half's pair
+      for (int q = threadIdx.x; q < live; q += SYM_THREADS) dst[q] = zero;
+      continue;
+    }
+    for (int q = threadIdx.x; q < SYM_TILE; q += SYM_THREADS) {
+      const long long j = (long long)col * SYM_TILE + q;
+      jp[q] = q < live ? make_float4(pos[j * 3 + 0], pos[j * 3 + 1],
+                                     pos[j * 3 + 2], mass[j])
+                       : zero;
+      js[q] = zero;
+    }
+    __syncthreads();
+    if (k == 0)
+      pnb::sweep<A, GUARD_ZERO, COMPUTE_POT>(jp, SYM_TILE, eps2, t);
+    else
+      mutual_tile<GUARD_ZERO, COMPUTE_POT>(jp, js, eps2, t, m);
+    __syncthreads();  // jp is free for the next tile
+    if (k > 0)  // each thread reads back the sums it zeroed
+      for (int q = threadIdx.x; q < live; q += SYM_THREADS) dst[q] = js[q];
+  }
+  float4* own = slots + (long long)blockIdx.y * n;
+#pragma unroll
+  for (int r = 0; r < A; ++r) {
+    const long long i = base + r * SYM_THREADS;
+    if (i < n) own[i] = t.s[r];
+  }
+}
+
+template <bool GUARD_ZERO, bool COMPUTE_POT>
+cudaError_t launch_self(const float* pos, const float* mass, float4* out,
+                        float4* slots, int n, int chunks, float eps2,
+                        cudaStream_t stream) {
+  void (*kernel)(const float*, const float*, float4*, int, int, float) =
+      allpairs_kernel<GUARD_ZERO, COMPUTE_POT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SYM_SMEM);
+  if (err != cudaSuccess) return err;
+  const int nb = (n + SYM_TILE - 1) / SYM_TILE;
+  const int n_slots = chunks + nb / 2;
+  kernel<<<dim3(nb, chunks), SYM_THREADS, SYM_SMEM, stream>>>(
+      pos, mass, n_slots > 1 ? slots : out, n, chunks, eps2);
+  if (n_slots > 1)
+    allpairs_combine_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+        slots, out, n, n_slots);
+  return cudaGetLastError();
+}
+
 template <bool GUARD_ZERO, bool COMPUTE_POT>
 cudaError_t launch(const float* pos_i, const float4* src, float4* out,
                    float4* partial, int ni, int nj, int n_split, float eps2,
@@ -135,7 +288,10 @@ extern "C" int pnb_allpairs_splits(int ni, int nj) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, allpairs_kernel<false, false>, THREADS, 0);
+        &per_sm,
+        static_cast<void (*)(const float*, const float4*, float4*, int, int,
+                             int, float)>(allpairs_kernel<false, false>),
+        THREADS, 0);
   if (err != cudaSuccess) return -(int)err;
   const int blocks = (ni + THREADS * R - 1) / (THREADS * R);
   const int tiles = tiles_of(nj);
@@ -162,4 +318,27 @@ extern "C" int pnb_allpairs(const void* pos_i, const void* src, void* out,
   if (guard_zero)
     return compute_pot ? go(launch<true, true>) : go(launch<true, false>);
   return compute_pot ? go(launch<false, true>) : go(launch<false, false>);
+}
+
+// Self-gravity: out (n, 4) of the n particles pos (n, 3), mass (n,)
+// against each other; slots ((chunks + nb / 2), n, 4), unused when that is
+// 1.
+extern "C" int pnb_allpairs_self(const void* pos, const void* mass,
+                                 void* out, void* slots, int n, int chunks,
+                                 float eps2, int guard_zero, int compute_pot,
+                                 void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  auto p = static_cast<const float*>(pos);
+  auto m = static_cast<const float*>(mass);
+  auto o = static_cast<float4*>(out);
+  auto sl = static_cast<float4*>(slots);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto fn) {
+    return (int)fn(p, m, o, sl, n, chunks, eps2, st);
+  };
+  if (guard_zero)
+    return compute_pot ? go(launch_self<true, true>)
+                       : go(launch_self<true, false>);
+  return compute_pot ? go(launch_self<false, true>)
+                     : go(launch_self<false, false>);
 }

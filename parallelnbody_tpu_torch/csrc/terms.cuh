@@ -56,6 +56,40 @@ __device__ __forceinline__ float monopole_term(float dx, float dy, float dz,
   return u;
 }
 
+// Adds the pair (i, j) of one self-gravity sum to both of its particles
+// (Newton's third law): with d = x_j - x_i and u = rsqrt(|d|^2 + eps^2),
+//     s_i += m_j u^3 d,  s_j -= m_i u^3 d  (pot: s_i += m_j u, s_j += m_i u)
+// from one d, one r^2 and one rsqrt: 3 FADD, 3 FFMA, 2 FMUL for u^3, 2
+// FMUL for the two weights and 6 FFMA (the negation is an operand
+// modifier), 16 FP32 instructions and one MUFU.RSQ for two ordered pairs
+// against monopole_term's 2 x 12. Each side adds monopole_term's term but
+// for the rounding of m u^3 (m (u^2 u) here, (m u) u^2 there); the pair's
+// two forces come from one d and one u^3.
+template <bool GUARD_ZERO, bool COMPUTE_POT>
+__device__ __forceinline__ void mutual_term(float xi, float yi, float zi,
+                                            float mi, float4& si, float4 pj,
+                                            float eps2, float4& sj) {
+  const float dx = pj.x - xi;
+  const float dy = pj.y - yi;
+  const float dz = pj.z - zi;
+  const float r2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, eps2)));
+  float u = rsqrt_ftz(r2);
+  if (GUARD_ZERO) u = r2 > 0.f ? u : 0.f;
+  const float u3 = (u * u) * u;
+  const float wi = pj.w * u3;
+  const float wj = mi * u3;
+  si.x = fmaf(wi, dx, si.x);
+  si.y = fmaf(wi, dy, si.y);
+  si.z = fmaf(wi, dz, si.z);
+  sj.x = fmaf(-wj, dx, sj.x);
+  sj.y = fmaf(-wj, dy, sj.y);
+  sj.z = fmaf(-wj, dz, sj.z);
+  if (COMPUTE_POT) {
+    si.w = fmaf(pj.w, u, si.w);
+    sj.w = fmaf(mi, u, sj.w);
+  }
+}
+
 // Adds the monopole + traceless quadrupole term of the node row
 // p = [x, y, z, m], qa = [Qxx, Qyy, Qxy, Qxz], qb = [Qyz, Qzz, -, -].
 // With m u^3 = u^5 (m r^2) (r^2 = |d|^2 + eps^2 = u^-2) the acceleration is

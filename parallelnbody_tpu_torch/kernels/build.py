@@ -38,6 +38,7 @@ _SIGNATURES = (
     ("pnb_allpairs",
      [_VP] * 4 + [_I, _I, _I, _F, _I, _I, _VP], _I),
     ("pnb_allpairs_splits", [_I, _I], _I),
+    ("pnb_allpairs_self", [_VP] * 4 + [_I, _I, _F, _I, _I, _VP], _I),
     ("pnb_allpairs_mma",
      [_VP] * 4 + [_I, _I, _F, _I, _I, _I, _I, _I, _VP], _I),
     ("pnb_allpairs_mma_splits", [_I, _I, _I], _I),

@@ -26,6 +26,7 @@ from parallelnbody_tpu_torch.utils.profiling import span
 COUNTERS = {
     "host_reads": 0,      # host_read calls: device-to-host reads
     "k3.pairs": 0,        # K3's target x source pairs
+    "k3.sym_pairs": 0,    # K3's self-gravity pair evaluations (sym_pairs)
     "k1.pair_terms": 0,   # K1's list entries x G^2 (G the leaf size)
 }
 DEVICE_COUNTERS = {

@@ -5,8 +5,14 @@ Counterpart of `parallelnbody_tpu/ops/pallas_direct.py`:
   * `allpairs` replaces `_allpairs_kernel` (pallas_direct.py:38, called
     through `allpairs_raw` :79), source csrc/allpairs.cu; `allpairs_plain`
     is its plain PyTorch version;
+  * `allpairs_self` is the same sum where the targets are the sources
+    (self-gravity): from N_SYM particles on the card it evaluates each
+    unordered pair once and adds it to both particles (csrc/allpairs.cu's
+    self-gravity form), below N_SYM and above N_SYM_MAX it runs the cross
+    form that `allpairs` runs;
   * `allpairs_accel_tile` is `pallas_accel_tile` (:122);
-  * `make_allpairs_accel` is `make_pallas_accel` (:149);
+  * `make_allpairs_accel` is `make_pallas_accel` (:149), through
+    `allpairs_self`;
   * `make_allpairs_tile_fn` is `make_pallas_tile_fn` (:167), the tile
     function of the multi-device ring (parallel/ring.py).
 
@@ -32,6 +38,22 @@ from parallelnbody_tpu_torch.kernels.launch import (COUNTERS, check, launch,
 from parallelnbody_tpu_torch.utils.profiling import span
 
 LAUNCHES = {"allpairs": 0}
+
+# The self-gravity form's tile of particles (csrc/allpairs.cu SYM_TILE).
+SYM_TILE = 2048
+# The least N at which allpairs_self runs the self-gravity form: on the
+# H100 (700 W) it ran faster than the cross form at every tile count from
+# 18 (36864) to 40 and at 48-256 tiles, by 3-38%, but slower at 16 and 17
+# (its time steps by whole tile pairs an SM: 0.75 against 0.52 ms at
+# 32768); PERF.md §6 has the sweep.
+N_SYM = 36864
+# The most: its slots grow as N^2 / 256 bytes (1.10 GB at 524288, where
+# it ran 93.2 against the cross form's 131.7 ms); above it the cross form
+# runs, whose scratch grows as N.
+N_SYM_MAX = 524288
+# The most chunks a row of tiles is cut into (sym_chunks); each adds N
+# float4 of slots.
+MAX_CHUNKS = 8
 
 
 def reset_launch_counts():
@@ -66,6 +88,25 @@ def allpairs_plain(pos_i, pos_j, mass_j, *, softening, compute_pot=True):
     return out
 
 
+def _cross(pos_i, pos_j, mass_j, softening, compute_pot):
+    """The cross form's launch on CUDA tensors (see `allpairs`)."""
+    n_i, n_j = pos_i.shape[0], pos_j.shape[0]
+    check("pos_i", pos_i, torch.float32, (n_i, 3))
+    check("pos_j", pos_j, torch.float32, (n_j, 3))
+    check("mass_j", mass_j, torch.float32, (n_j,))
+    dev = pos_i.device
+    table = torch.cat([pos_j, mass_j[:, None]], dim=1)
+    out = torch.empty((n_i, 4), dtype=torch.float32, device=dev)
+    n_split = query("pnb_allpairs_splits", n_i, n_j) if n_i else 1
+    partial = torch.empty((n_split if n_split > 1 else 0, n_i, 4),
+                          dtype=torch.float32, device=dev)
+    launch(LAUNCHES, "allpairs", "pnb_allpairs",
+           ptr(pos_i), ptr(table), ptr(out), ptr(partial), n_i, n_j,
+           n_split, float(softening) ** 2, int(softening == 0.0),
+           int(bool(compute_pot)))
+    return out
+
+
 def allpairs(pos_i, pos_j, mass_j, *, softening, compute_pot=True):
     """K3: raw all-pairs sums (Ni, 4) of targets pos_i (Ni, 3) against
     sources pos_j (Nj, 3), mass_j (Nj,). CPU tensors run `allpairs_plain`;
@@ -78,19 +119,67 @@ def allpairs(pos_i, pos_j, mass_j, *, softening, compute_pot=True):
         if on_cpu(pos_i, pos_j, mass_j):
             return allpairs_plain(pos_i, pos_j, mass_j, softening=softening,
                                   compute_pot=compute_pot)
-        n_i, n_j = pos_i.shape[0], pos_j.shape[0]
-        check("pos_i", pos_i, torch.float32, (n_i, 3))
-        check("pos_j", pos_j, torch.float32, (n_j, 3))
-        check("mass_j", mass_j, torch.float32, (n_j,))
-        dev = pos_i.device
-        table = torch.cat([pos_j, mass_j[:, None]], dim=1)
-        out = torch.empty((n_i, 4), dtype=torch.float32, device=dev)
-        n_split = query("pnb_allpairs_splits", n_i, n_j) if n_i else 1
-        partial = torch.empty((n_split if n_split > 1 else 0, n_i, 4),
-                              dtype=torch.float32, device=dev)
-        launch(LAUNCHES, "allpairs", "pnb_allpairs",
-               ptr(pos_i), ptr(table), ptr(out), ptr(partial), n_i, n_j,
-               n_split, float(softening) ** 2, int(softening == 0.0),
+        return _cross(pos_i, pos_j, mass_j, softening, compute_pot)
+
+
+def sym_tiles(n):
+    """The self-gravity form's tiles of SYM_TILE particles for n."""
+    return -(-n // SYM_TILE)
+
+
+def sym_pairs(n):
+    """The pair evaluations (one rsqrt each) the self-gravity form makes
+    for n particles, padding included: SYM_TILE^2 for each of the nb
+    diagonal tiles (ordered pairs, self pair included) and each of the
+    nb (nb - 1) / 2 unordered pairs of distinct tiles (both orders)."""
+    nb = sym_tiles(n)
+    return SYM_TILE * SYM_TILE * (nb * (nb + 1) // 2)
+
+
+def sym_chunks(n, sms):
+    """The chunks (blocks) a row of the self-gravity form's tiles is cut
+    into, for n particles on a card of `sms` SMs. Blocks run in no fixed
+    order: of nb * chunks blocks an SM runs about ceil(nb chunks / sms), of
+    ceil((nb // 2 + 1) / chunks) tile pairs each, one after another or two
+    at once (one block an SM and two ran 2.67 and 2.74 tile pairs a ms on
+    the H100 at N = 262144). The chunks minimise that product, the larger
+    on a tie, at most MAX_CHUNKS (PERF.md §6: 2 and 3 chunks at N = 196608
+    ran 17.9 ms where 4 ran 13.4)."""
+    nb = sym_tiles(n)
+    items = nb // 2 + 1
+    return min(range(1, min(items, MAX_CHUNKS) + 1),
+               key=lambda c: (-(-nb * c // sms) * -(-items // c), -c))
+
+
+def allpairs_self(pos, mass, *, softening, compute_pot=True):
+    """K3 for self-gravity: the raw sums (N, 4) of `allpairs(pos, pos,
+    mass)`. CPU tensors run `allpairs_plain(pos, pos, mass)`. On CUDA
+    tensors N alone picks the form: from N_SYM to N_SYM_MAX the
+    self-gravity form (one launch of csrc/allpairs.cu's self-gravity
+    `allpairs_kernel` on pos and mass as they are, and its combine: each
+    unordered pair once, added to both particles, the sums kept in
+    `sym_chunks` + nb / 2 slots of N float4 and added in slot order),
+    else the cross form."""
+    with span("k3"):
+        n = pos.shape[0]
+        COUNTERS["k3.pairs"] += n * n
+        if on_cpu(pos, mass):
+            return allpairs_plain(pos, pos, mass, softening=softening,
+                                  compute_pot=compute_pot)
+        if not N_SYM <= n <= N_SYM_MAX:
+            return _cross(pos, pos, mass, softening, compute_pot)
+        check("pos", pos, torch.float32, (n, 3))
+        check("mass", mass, torch.float32, (n,))
+        COUNTERS["k3.sym_pairs"] += sym_pairs(n)
+        out = torch.empty((n, 4), dtype=torch.float32, device=pos.device)
+        chunks = sym_chunks(n, torch.cuda.get_device_properties(
+            pos.device).multi_processor_count)
+        n_slots = chunks + sym_tiles(n) // 2
+        slots = torch.empty((n_slots if n_slots > 1 else 0, n, 4),
+                            dtype=torch.float32, device=pos.device)
+        launch(LAUNCHES, "allpairs", "pnb_allpairs_self", ptr(pos),
+               ptr(mass), ptr(out), ptr(slots), n, chunks,
+               float(softening) ** 2, int(softening == 0.0),
                int(bool(compute_pot)))
         return out
 
@@ -105,16 +194,16 @@ def allpairs_accel_tile(pos_i, pos_j, mass_j, *, g, softening,
 
 
 def make_allpairs_accel(cfg, mass):
-    """accel_fn(pos) -> (acc, pot): self-gravity through K3. With
-    cfg.track_potential=False the potential is skipped (zeros);
-    diagnostics recompute it on demand."""
+    """accel_fn(pos) -> (acc, pot): self-gravity through K3
+    (`allpairs_self`). With cfg.track_potential=False the potential is
+    skipped (zeros); diagnostics recompute it on demand."""
     compute_pot = cfg.track_potential
 
     def accel_fn(pos):
         with span("force"):
-            return allpairs_accel_tile(pos, pos, mass, g=cfg.g,
-                                       softening=cfg.softening,
-                                       compute_pot=compute_pot)
+            out = allpairs_self(pos, mass, softening=cfg.softening,
+                                compute_pot=compute_pot)
+            return cfg.g * out[:, :3], -cfg.g * out[:, 3]
 
     return accel_fn
 

@@ -128,6 +128,90 @@ def test_plain_streams_row_blocks(monkeypatch):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("compute_pot", [True, False])
+@pytest.mark.parametrize("softening", [0.0, 0.02])
+@pytest.mark.parametrize("n", [1, 2, 130, 300])
+def test_allpairs_self_on_cpu_is_the_plain_version(n, softening, compute_pot):
+    """allpairs_self on CPU tensors runs allpairs_plain(pos, pos, mass):
+    the same bits, whatever N; it launches nothing."""
+    pos, mass = (torch.from_numpy(a) for a in _rand(n, seed=n))
+    mass[::3] = 0.0
+    direct_kernels.reset_launch_counts()
+    kw = dict(softening=softening, compute_pot=compute_pot)
+    got = direct_kernels.allpairs_self(pos, mass, **kw)
+    assert torch.equal(got, direct_kernels.allpairs_plain(pos, pos, mass,
+                                                          **kw))
+    assert direct_kernels.LAUNCHES == {"allpairs": 0}
+
+
+def test_allpairs_accel_routes_through_allpairs_self(monkeypatch):
+    """make_allpairs_accel (the force of force="direct_pallas") evaluates
+    through allpairs_self, once an evaluation, and scales as
+    allpairs_accel_tile does; the ring's tile function keeps allpairs."""
+    pos, mass = (torch.from_numpy(a) for a in _rand(96, seed=6))
+    cfg = SimConfig(g=1.5, softening=0.02)
+    calls = []
+    real = direct_kernels.allpairs_self
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(direct_kernels, "allpairs_self", spy)
+    acc, pot = direct_kernels.make_allpairs_accel(cfg, mass)(pos)
+    assert calls == [dict(softening=0.02, compute_pot=True)]
+    want = direct_kernels.allpairs_accel_tile(pos, pos, mass, g=1.5,
+                                              softening=0.02)
+    assert torch.equal(acc, want[0]) and torch.equal(pot, want[1])
+    direct_kernels.make_allpairs_tile_fn(cfg)(pos, pos, mass)
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("n,tiles", [(1, 1), (2048, 1), (2049, 2),
+                                     (6149, 4), (262144, 128)])
+def test_self_gravity_plan_counts(n, tiles):
+    """The self-gravity form's tiles and pair evaluations: each of the
+    nb (nb + 1) / 2 tile pairs (the diagonal included) of SYM_TILE^2."""
+    assert direct_kernels.sym_tiles(n) == tiles
+    assert direct_kernels.sym_pairs(n) == (direct_kernels.SYM_TILE ** 2
+                                           * tiles * (tiles + 1) // 2)
+    assert direct_kernels.N_SYM <= 262144 <= direct_kernels.N_SYM_MAX
+
+
+@pytest.mark.parametrize("n,chunks", [(2048, 1), (4096, 2), (65536, 4),
+                                      (131072, 2), (196608, 4), (262144, 5)])
+def test_self_gravity_chunks(n, chunks):
+    """sym_chunks on the H100's 132 SMs: the chunk counts its sweep ran
+    (4 at 196608, where 2 and 3 left SMs with twice the tile pairs), each
+    leaving every block at least one item."""
+    assert direct_kernels.sym_chunks(n, 132) == chunks
+    items = direct_kernels.sym_tiles(n) // 2 + 1
+    assert 1 <= chunks <= min(items, direct_kernels.MAX_CHUNKS)
+
+
+def test_self_gravity_span_and_counters_on_cpu():
+    """allpairs_self opens one k3 span (under force when make_allpairs_accel
+    calls it) and counts N^2 in k3.pairs; on the CPU the plain version
+    runs, so k3.sym_pairs does not move. Tracing off records no span."""
+    from parallelnbody_tpu_torch.kernels import launch
+    from parallelnbody_tpu_torch.utils import profiling
+
+    pos, mass = (torch.from_numpy(a) for a in _rand(200, seed=8))
+    accel = direct_kernels.make_allpairs_accel(SimConfig(softening=0.02),
+                                               mass)
+    profiling.take_spans()
+    before = launch.read_counters()
+    with profiling.tracing(True):
+        accel(pos)
+    grew = {k: v - before[k] for k, v in launch.read_counters().items()}
+    spans = profiling.take_spans()
+    assert [s.name for s in spans] == ["k3", "force"]  # in order of end
+    assert spans[0].parent == spans[1].id
+    assert grew["k3.pairs"] == 200 * 200 and grew["k3.sym_pairs"] == 0
+    accel(pos)
+    assert profiling.take_spans() == []
+
+
 KW = dict(n=1024, ic="plummer", force="direct_pallas", dt=1e-3,
           softening=0.01, track_potential=False)
 

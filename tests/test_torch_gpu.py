@@ -149,6 +149,114 @@ def test_allpairs_kernel_matches_plain(lists, softening, compute_pot, n_i,
     assert bool(torch.any(out[:, 3] != 0)) == compute_pot
 
 
+def _sym_n():
+    """The N of the self-gravity form's card tests: one and two particles,
+    under one tile, one tile less one and exactly, three tiles and 5,
+    an odd and an even tile count around N_SYM (each 3 short of full),
+    and the main path's 262144."""
+    t = direct_kernels.N_SYM // direct_kernels.SYM_TILE
+    odd, even = (t, t + 1) if t % 2 else (t + 1, t)
+    return [1, 2, 1000, 2047, 2048, 2048 * 3 + 5,
+            odd * direct_kernels.SYM_TILE - 3,
+            even * direct_kernels.SYM_TILE - 3, 262144]
+
+
+@pytest.mark.parametrize("softening", [0.02, 0.0], ids=["soft", "guard0"])
+@pytest.mark.parametrize("compute_pot", [True, False])
+@pytest.mark.parametrize("n", _sym_n())
+def test_allpairs_self_matches_plain_and_cross(cuda, monkeypatch, n,
+                                              softening, compute_pot):
+    """K3's self-gravity form (allpairs_self with N_SYM lowered to 1, so
+    that it runs at every N) against the float64 plain version (at N =
+    262144 on 2048 sampled targets) and against the cross form
+    allpairs(pos, pos, mass), with every 7th particle from the 4th
+    massless; one
+    launch a call; a lone particle's potential is its own m / eps."""
+    monkeypatch.setattr(direct_kernels, "N_SYM", 1)
+    state = init_simulation(SimConfig(n=max(n, 2), ic="plummer", seed=n),
+                            "cpu", compute_forces=False)
+    pos = state.pos[:n].contiguous().to(cuda)
+    mass = state.mass[:n].clone()
+    mass[3::7] = 0.0
+    mass = mass.to(cuda)
+    kw = dict(softening=softening, compute_pot=compute_pot)
+    before = direct_kernels.LAUNCHES["allpairs"]
+    got = direct_kernels.allpairs_self(pos, mass, **kw)
+    assert direct_kernels.LAUNCHES["allpairs"] == before + 1
+    _close(got, direct_kernels.allpairs(pos, pos, mass, **kw))
+    rows = (torch.linspace(0, n - 1, 2048, device=cuda).long()
+            if n > 65536 else torch.arange(n, device=cuda))
+    want = direct_kernels.allpairs_plain(pos[rows].double(), pos.double(),
+                                         mass.double(), **kw)
+    _close(got[rows], want.float())
+    assert bool(torch.isfinite(got).all())
+    if n == 1:
+        pot = float(mass[0]) / softening if compute_pot and softening else 0
+        np.testing.assert_allclose(got.cpu().numpy(), [[0, 0, 0, pot]],
+                                   rtol=1e-6)
+
+
+def test_allpairs_self_one_launch_two_kernels(cuda):
+    """At N = 262144 allpairs_self runs the self-gravity form: one counted
+    launch, k3.pairs N^2 and k3.sym_pairs the plan's evaluations, and a
+    whole profiler reading of the call holds one allpairs_kernel record,
+    one allpairs_combine_kernel and no other device record (up to three
+    readings, as tools/measure.busy_ms takes them)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from parallelnbody_tpu_torch.kernels import launch
+
+    n = 262144
+    state = init_simulation(SimConfig(n=n, ic="plummer", seed=9), cuda,
+                            compute_forces=False)
+    kw = dict(softening=0.01, compute_pot=False)
+    direct_kernels.allpairs_self(state.pos, state.mass, **kw)  # warm-up
+    torch.cuda.synchronize()
+    for _ in range(3):
+        before, counted = launch.read_counters(), dict(direct_kernels.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            direct_kernels.allpairs_self(state.pos, state.mass, **kw)
+            torch.cuda.synchronize()
+        after = launch.read_counters()
+        assert direct_kernels.LAUNCHES["allpairs"] == counted["allpairs"] + 1
+        assert after["k3.pairs"] - before["k3.pairs"] == n * n
+        assert (after["k3.sym_pairs"] - before["k3.sym_pairs"]
+                == direct_kernels.sym_pairs(n))
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any(re.search(r"\ballpairs_kernel\b", x) for x in names):
+            break
+    assert sum(bool(re.search(r"\ballpairs_kernel\b", x))
+               for x in names) == 1, names
+    assert sum("allpairs_combine_kernel" in x for x in names) == 1, names
+    assert len(names) == 2, names
+    below = direct_kernels.N_SYM - 1
+    small = init_simulation(SimConfig(n=below, ic="plummer", seed=9), cuda,
+                            compute_forces=False)
+    before = launch.read_counters()["k3.sym_pairs"]
+    direct_kernels.allpairs_self(small.pos, small.mass, **kw)
+    assert launch.read_counters()["k3.sym_pairs"] == before
+
+
+def test_allpairs_self_momentum_no_worse_than_cross(cuda):
+    """The self-gravity form adds each pair's two forces from one d and
+    one u^3: at the main path's N = 262144, |sum m_i a_i| (float64 over its
+    float32 output) is no larger than the cross form's on the same Plummer
+    sphere (1.2e-9-3.3e-9 against 3.0e-8-1.3e-7 on five seeds)."""
+    n = 262144
+    state = init_simulation(SimConfig(n=n, ic="plummer", seed=11), cuda,
+                            compute_forces=False)
+    kw = dict(softening=0.01, compute_pot=False)
+    m = state.mass.double()[:, None]
+    sym = direct_kernels.allpairs_self(state.pos, state.mass, **kw)
+    cross = direct_kernels.allpairs(state.pos, state.pos, state.mass, **kw)
+    p_sym = (m * sym[:, :3].double()).sum(0).norm().item()
+    p_cross = (m * cross[:, :3].double()).sum(0).norm().item()
+    assert p_sym <= p_cross, (p_sym, p_cross)
+
+
 @pytest.fixture(scope="module")
 def uneven_lists(lists):
     """A synthetic near list over the N = 8192 particles (128 source
@@ -216,11 +324,12 @@ def test_near_field_kernel_leaf_sizes(cuda, leaf, compute_pot):
 
 @pytest.mark.parametrize("softening", [0.02, 0.0], ids=["soft", "guard0"])
 @pytest.mark.parametrize("kernel", ["near_field", "allpairs", "far_octet",
-                                    "far_gather"])
+                                    "far_gather", "allpairs_self"])
 def test_pair_kernels_repeat_bit_equal(lists, uneven_lists, gather_lists,
-                                       kernel, softening):
+                                       monkeypatch, kernel, softening):
     """K1-K4 take no float atomics: two launches on the same inputs give the
-    same bits."""
+    same bits (K3 in its cross and its self-gravity form, the latter at N =
+    8192 below N_SYM by lowering N_SYM)."""
     kw = dict(g=1.0, softening=softening)
     if kernel == "near_field":
         def run():
@@ -231,6 +340,13 @@ def test_pair_kernels_repeat_bit_equal(lists, uneven_lists, gather_lists,
         def run():
             return (direct_kernels.allpairs(pos, pos, mass,
                                             softening=softening),)
+    elif kernel == "allpairs_self":
+        pos, mass = lists["pos_s"], lists["mass_s"]
+        monkeypatch.setattr(direct_kernels, "N_SYM", 1)
+
+        def run():
+            return (direct_kernels.allpairs_self(pos, mass,
+                                                 softening=softening),)
     elif kernel == "far_octet":
         L = lists
 
