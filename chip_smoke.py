@@ -179,6 +179,15 @@ Phases, each of which exits non-zero on failure:
      K1's window or table form and K2 launched on rank 0 of every run;
      tools/let_halo_probe.py and tools/let_granularity_probe.py. A busy
      reading that is not whole in 3 tries is printed as not measured.
+ 21. Budget heal (alone: this script with --budget-heal): the seven
+     Plummer spheres of the benchmark's sampler at N = 1M on which budgets
+     calibrated at t = 0 and one step on used to clip (HEAL_SEEDS),
+     through Simulation with every budget auto, HEAL_CALLS calls of
+     step(8) and of step(1): overflow 0 on every call and the state bit
+     for bit that of the same calls at budgets of full width. One JSON
+     line a seed and k: the list rebuilds (bh.heals) each call took (the
+     rounds of its heal), the calibrated budgets, and the ms of the calls
+     that healed beside the median call.
 
 Before each path every launch count is set to 0 and after it the counts
 are read (for a multi-device run, each rank's own counts, from
@@ -360,6 +369,16 @@ PRODUCTION_N = 262144       # dist_production_probe's N, 16 steps, k = 8
 EXCHANGE_N = 16384          # exchange_volume_probe's N
 EXCHANGE_STEPS = 120        # exchange_volume_probe's steps a case
 STAT_TOOLS_ARG = "--stat-tools"           # phase 20 alone (a child process)
+BUDGET_HEAL_ARG = "--budget-heal"         # phase 21 alone
+# The benchmark's 1M spheres on which calibrated budgets clipped within a
+# few calls before the step callables healed them (PERF.md §7.1), and the
+# calls of step(k) each is driven through.
+HEAL_SEEDS = (3000000104, 3000000402, 3000000501, 2147600002, 2147600005,
+              2147600006, 2147600007)
+HEAL_N = 1 << 20
+HEAL_CALLS = {8: 4, 1: 24}
+HEAL_FULL_WIDTH = {"bh_near_budget": 1 << 20, "bh_far_budget": 1 << 20,
+                   "bh_cand2_budget": 1 << 20, "bh_cand_budget": 1 << 20}
 STAT_TOOLS_LOG = os.path.join(ROOT, "build", "chip_smoke_stat_tools.jsonl")
 # Phase 20 runs the six tools at their defaults (the scripts'), timed
 # phases at STAT_ITERS calls; no other cut.
@@ -3016,6 +3035,49 @@ def stat_tools():
     return runs
 
 
+def phase_budget_heal():
+    from benchmark.inputs import plummer
+    from parallelnbody_tpu_torch.kernels.launch import COUNTERS
+    from parallelnbody_tpu_torch.state import make_state
+
+    with open(CONFIG) as f:
+        cfg = SimConfig.from_json(f.read()).replace(n=HEAL_N, bh_leaf_size=0)
+    for seed in HEAL_SEEDS:
+        pos, vel, mass = plummer.sphere(cfg.n, seed)
+        state = make_state(pos, vel, mass, seed=seed, device=DEVICE,
+                           dtype=cfg.dtype)
+        for k, calls in HEAL_CALLS.items():
+            sim = Simulation(cfg, DEVICE, state=state)
+            wide = Simulation(cfg.replace(**HEAL_FULL_WIDTH), DEVICE,
+                              state=state)
+            heals, ms = [], []
+            for _ in range(calls):
+                before = COUNTERS["bh.heals"]
+                _, t = cuda_ms(lambda: sim.step(k))
+                heals.append(COUNTERS["bh.heals"] - before)
+                ms.append(t)
+                if int(sim.overflow):
+                    raise AssertionError(f"budget heal: seed {seed} step({k})"
+                                         f" call {len(ms)} clipped")
+                wide.step(k)
+            if int(wide.overflow):
+                raise AssertionError(f"budget heal: seed {seed}: the full "
+                                     "width run clipped")
+            for f in ("pos", "vel", "acc"):
+                if not torch.equal(getattr(sim.state, f),
+                                   getattr(wide.state, f)):
+                    raise AssertionError(f"budget heal: seed {seed} step({k})"
+                                         f" {f} differs from full width")
+            log(json.dumps({
+                "budget_heal": seed, "k": k, "heals_per_call": heals,
+                "calibrated": {f: getattr(sim.cfg, f)
+                               for f in HEAL_FULL_WIDTH},
+                "ms_healed": [round(t, 3) for t, h in zip(ms, heals) if h],
+                "ms_median": round(sorted(ms)[len(ms) // 2], 3)}))
+            del sim, wide
+        del state
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_environment()
@@ -3123,5 +3185,9 @@ if __name__ == "__main__":
         build.load_library()
         with open(sys.argv[2], "w") as f:
             json.dump(stat_tools(), f)
+    elif sys.argv[1:2] == [BUDGET_HEAL_ARG]:
+        phase_environment()
+        build.load_library()
+        phase_budget_heal()
     else:
         main()

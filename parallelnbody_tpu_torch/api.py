@@ -34,18 +34,20 @@ from parallelnbody_tpu_torch.utils.profiling import span
 
 
 def _zero_count(device):
-    return torch.zeros((), dtype=torch.int32, device=device)
+    """A zero of the list-overflow counter's dtype (ops/bh.py's int64)."""
+    return torch.zeros((), dtype=torch.int64, device=device)
 
 
 # --------------------------------------------------------------------- forces
 def make_accel_fn(cfg: SimConfig, mass: torch.Tensor,
-                  overflow_cell: list | None = None) -> Callable:
+                  overflow_cell: list | None = None, heal=None) -> Callable:
     """Return accel_fn(pos) -> (acc, pot) for the configured force method.
 
     overflow_cell: optional one-element list accumulating the Barnes-Hut
     list-budget overflow counter of every evaluation. The direct method has
     no budgets and leaves it unchanged. The auto leaf size resolves on
-    mass's device (SimConfig.with_resolved_leaf)."""
+    mass's device (SimConfig.with_resolved_leaf). heal: the caller's
+    Barnes-Hut ListHeal (ops/bh.py; make_step's, or Simulation's shared one)."""
     cfg = cfg.with_resolved_leaf(mass.device)
     method = cfg.resolve_force(mass.device)
     if method == "direct":
@@ -76,7 +78,8 @@ def make_accel_fn(cfg: SimConfig, mass: torch.Tensor,
     if method == "barnes_hut":
         from parallelnbody_tpu_torch.ops.bh import make_bh_accel
 
-        return make_bh_accel(cfg, mass, overflow_cell=overflow_cell)
+        return make_bh_accel(cfg, mass, overflow_cell=overflow_cell,
+                             heal=heal)
     raise ValueError(f"unknown force method {method!r}")
 
 
@@ -138,13 +141,16 @@ def calibrate_budgets(cfg: SimConfig, state: SimState,
     always overflow-free full neighbour width.
 
     Returns cfg with concrete budgets (unchanged for non-Barnes-Hut
-    forces), and on a CUDA device the auto leaf size resolved for it
+    forces), the list budgets it chose named in cfg.calibrated_budgets
+    (the ones a clipped list build may grow, ops/bh.py ListHeal), and on a
+    CUDA device the auto leaf size resolved for it
     (SimConfig.with_resolved_leaf), the leaf the budgets were measured
     at."""
     cfg = cfg.with_resolved_leaf(state.pos.device)
     if cfg.resolve_force(state.pos.device) != "barnes_hut":
         return cfg
-    from parallelnbody_tpu_torch.ops.bh import measure_budget_requirements
+    from parallelnbody_tpu_torch.ops.bh import (BUDGET_LANES, pad_budget,
+                                                measure_budget_requirements)
 
     want_near = cfg.bh_near_budget == 0
     want_far = cfg.bh_far_budget == 0
@@ -157,27 +163,26 @@ def calibrate_budgets(cfg: SimConfig, state: SimState,
     if not (want_lists or want_imp):
         return cfg
 
-    def pad(x, mult):
+    def pad(x, kind):
         # Relative headroom AND one full lane of absolute slack, rounded up
         # to a multiple (the JAX package's rule).
-        target = max(int(x * headroom), int(x) + mult)
-        return max(mult, -(-target // mult) * mult)
+        return pad_budget(x, BUDGET_LANES[kind], headroom)
 
     kw = {}
     if want_lists:
         req = measure_budget_requirements(state.pos, state.mass, cfg)
         if want_near:
-            kw["bh_near_budget"] = min(pad(req["near_max"], 128),
+            kw["bh_near_budget"] = min(pad(req["near_max"], "near"),
                                        req["n_leaves"])
         if want_far:
-            kw["bh_far_budget"] = pad(req["far_max"], 128)
+            kw["bh_far_budget"] = pad(req["far_max"], "far")
         # Only where the measurement ran the staged pipeline (resolve_refine
         # falls back to dense on shallow trees).
         if req["refine"] == "staged":
             if want_c2:
-                kw["bh_cand2_budget"] = pad(req["cand2_max"], 64)
+                kw["bh_cand2_budget"] = pad(req["cand2_max"], "cand2")
             if want_c1:
-                kw["bh_cand_budget"] = pad(req["cand1_max"], 64)
+                kw["bh_cand_budget"] = pad(req["cand1_max"], "cand1")
     if want_imp:
         from parallelnbody_tpu_torch.ops.bh import measure_import_requirement
         from parallelnbody_tpu_torch.parallel.distributed import _plan_cfg
@@ -188,8 +193,9 @@ def calibrate_budgets(cfg: SimConfig, state: SimState,
         _, _, n_leaf_loc = _plan_cfg(cfg, n_local, n_ranks,
                                      cfg.resolve_bh_leaf_size())
         scaled = -(-imp["import_max"] * n_leaf_loc) // imp["n_leaf_loc_proxy"]
-        kw["bh_import_budget"] = min(pad(scaled, 8), n_leaf_loc)
-    return cfg.replace(**kw)
+        return cfg.calibrated(**kw).replace(
+            bh_import_budget=min(pad_budget(scaled, 8, headroom), n_leaf_loc))
+    return cfg.calibrated(**kw)
 
 
 # The list budgets that 0 leaves to calibrate_budgets.
@@ -221,30 +227,49 @@ def prepare_simulation(cfg: SimConfig, device="cuda",
             cal = calibrate_budgets(cfg, state)
         with span("api.initial_forces"):
             state = _fill_initial_forces(cal, state)
-        auto = [f for f in AUTO_BUDGET_FIELDS if getattr(cfg, f) == 0]
+        auto = cal.calibrated_budgets
         if (device.type == "cuda" and auto
                 and cfg.resolve_force(device) == "barnes_hut"):
             ahead = make_step(cal)(state)
             with span("api.calibrate"):
                 ahead = calibrate_budgets(cfg, ahead)
-            cal = cal.replace(**{f: max(getattr(cal, f), getattr(ahead, f))
-                                 for f in auto})
+            cal = cal.calibrated(**{f: max(getattr(cal, f), getattr(ahead, f))
+                                    for f in auto})
         return cal, state
 
 
 # ----------------------------------------------------------------------- step
-def make_step(cfg: SimConfig, report_overflow: bool = False) -> Callable:
+def _list_heal(cfg: SimConfig):
+    """A new ListHeal (ops/bh.py) of the budgets that calibration chose in
+    cfg, for the callables that share it; None where it chose none."""
+    if not cfg.calibrated_budgets:
+        return None
+    from parallelnbody_tpu_torch.ops.bh import ListHeal
+
+    return ListHeal.of(cfg)
+
+
+def make_step(cfg: SimConfig, report_overflow: bool = False,
+              heal=None) -> Callable:
     """One integration step: force + integrate.
 
     report_overflow=True: step(state) -> (state, overflow), overflow the
-    int32 Barnes-Hut budget-clip counter summed over this step's force
-    evaluations (zero for the direct method)."""
+    int64 Barnes-Hut budget-clip counter summed over this step's force
+    evaluations (zero for the direct method).
+
+    Budgets that calibration chose (cfg.calibrated_budgets) grow where an
+    evaluation's lists clip them, and the lists are built again before
+    any force is taken from them (ops/bh.py ListHeal); the grown budgets
+    stay for the later steps. heal: a ListHeal shared with other
+    callables (Simulation's); by default the step keeps its own."""
     integrator = get_integrator(cfg.integrator)
+    heal = heal or _list_heal(cfg)
 
     def step(state: SimState):
         with span("api.step"):
             of_cell = [_zero_count(state.pos.device)]
-            accel_fn = make_accel_fn(cfg, state.mass, overflow_cell=of_cell)
+            accel_fn = make_accel_fn(cfg, state.mass, overflow_cell=of_cell,
+                                     heal=heal)
             dt = torch.as_tensor(cfg.dt, dtype=state.pos.dtype,
                                  device=state.pos.device)
             with span("integrator"):
@@ -315,14 +340,17 @@ def _reuse_eligible(cfg: SimConfig, n_steps: int, device="cpu") -> bool:
 
 
 def _make_run_reuse(cfg: SimConfig, n_steps: int, report_overflow: bool,
-                    device="cpu") -> Callable:
+                    device="cpu", heal=None) -> Callable:
     """Run with a tree-rebuild interval (cfg.bh_rebuild_every = k): the
     state is carried in Hilbert-sorted order; each block of k steps pays
     ONE sort + ONE traversal/list build, then k evaluations that refresh
     only the multipole pyramid against the frozen lists (ops/bh.py
     bh_plan_lists/bh_eval_lists). The original particle order is restored
     at the end through a carried original-index column. The block size
-    follows `device`'s plan/eval ratio (_REUSE_PLAN_RATIO)."""
+    follows `device`'s plan/eval ratio (_REUSE_PLAN_RATIO). A block whose
+    lists clip a budget that calibration chose builds them again at grown
+    budgets, kept for the later blocks (ops/bh.py ListHeal; heal as
+    make_step's)."""
     from parallelnbody_tpu_torch.ops import bh
     from parallelnbody_tpu_torch.ops.hilbert import hilbert_encode
     from parallelnbody_tpu_torch.ops.morton import morton_encode
@@ -339,6 +367,7 @@ def _make_run_reuse(cfg: SimConfig, n_steps: int, report_overflow: bool,
     k = _reuse_block_size(cfg.bh_rebuild_every, n_steps, _plan_ratio(device))
     n_blocks, tail = divmod(n_steps, k)
     compute_pot = cfg.track_potential
+    heal = heal or _list_heal(cfg)
 
     def sort_block(pos, vel, acc, mass, orig):
         """Re-sort every column into current Hilbert order (pad rows,
@@ -370,7 +399,7 @@ def _make_run_reuse(cfg: SimConfig, n_steps: int, report_overflow: bool,
         plan = bh.bh_plan_lists(
             tree, theta=cfg.theta, near_budget=cfg.resolve_bh_near_budget(),
             far_budget=cfg.resolve_bh_far_budget(), refine=refine,
-            cand_budgets=cands, dtype=pos.dtype, sections=sections)
+            cand_budgets=cands, dtype=pos.dtype, sections=sections, heal=heal)
 
         def accel_fn(p):
             with span("force"):
@@ -428,11 +457,12 @@ def _make_run_reuse(cfg: SimConfig, n_steps: int, report_overflow: bool,
 
 
 def make_run(cfg: SimConfig, n_steps: int,
-             report_overflow: bool = False) -> Callable:
+             report_overflow: bool = False, heal=None) -> Callable:
     """n_steps steps in one call.
 
     report_overflow=True: run(state) -> (state, overflow), overflow summed
-    over all steps. cfg.bh_rebuild_every > 1 routes eligible Barnes-Hut
+    over all steps. heal: as make_step's. cfg.bh_rebuild_every > 1 routes
+    eligible Barnes-Hut
     configurations to the tree-rebuild-interval run (_make_run_reuse).
     Which program runs depends on the run's device (force="auto" and the
     plan/eval ratio, the auto leaf size), so it is chosen at the first
@@ -443,8 +473,9 @@ def make_run(cfg: SimConfig, n_steps: int,
     def build(device) -> Callable:
         cfg_d = cfg.with_resolved_leaf(device)
         if _reuse_eligible(cfg_d, n_steps, device):
-            return _make_run_reuse(cfg_d, n_steps, report_overflow, device)
-        step = make_step(cfg_d, report_overflow=True)
+            return _make_run_reuse(cfg_d, n_steps, report_overflow, device,
+                                   heal=heal)
+        step = make_step(cfg_d, report_overflow=True, heal=heal)
 
         def run(state: SimState):
             overflow = _zero_count(state.pos.device)
@@ -470,15 +501,25 @@ class Simulation:
     """Host-side shell: owns cfg + state on one device and drives steps.
 
     `overflow` accumulates the Barnes-Hut list-budget clip counter over
-    every step taken (a device tensor; 0 means nothing was clipped)."""
+    every step taken (a device tensor; 0 means nothing was clipped). Auto
+    budgets that a list build clips are grown before any force is taken
+    from the lists (ops/bh.py ListHeal), so only budgets the caller set can
+    clip. One heal serves step(1), every step(n) and diagnostics(): a
+    budget grown in one is grown in all.
 
-    def __init__(self, cfg: SimConfig, device="cuda"):
+    state: initial conditions on `device` in place of the config's own
+    (prepare_simulation's state)."""
+
+    def __init__(self, cfg: SimConfig, device="cuda",
+                 state: SimState | None = None):
         self.device = resolve_device(device)
         # prepare_simulation calibrates any auto (0) Barnes-Hut budgets
         # against the actual ICs before the first force evaluation; the
         # calibrated cfg is what every step function is built from.
-        self.cfg, self.state = prepare_simulation(cfg, self.device)
-        self._step = make_step(self.cfg, report_overflow=True)
+        self.cfg, self.state = prepare_simulation(cfg, self.device, state)
+        self._heal = _list_heal(self.cfg)
+        self._step = make_step(self.cfg, report_overflow=True,
+                               heal=self._heal)
         self._runs: dict[int, Callable] = {}
         self.overflow = _zero_count(self.device)
 
@@ -487,7 +528,8 @@ class Simulation:
             self.state, of = self._step(self.state)
         else:
             if n not in self._runs:
-                self._runs[n] = make_run(self.cfg, n, report_overflow=True)
+                self._runs[n] = make_run(self.cfg, n, report_overflow=True,
+                                         heal=self._heal)
             self.state, of = self._runs[n](self.state)
         self.overflow = self.overflow + of
         return self.state
@@ -504,7 +546,7 @@ class Simulation:
         if not self.cfg.track_potential:
             # Hot steps skipped the potential; recompute it for diagnostics.
             accel_fn = make_accel_fn(self.cfg.replace(track_potential=True),
-                                     state.mass)
+                                     state.mass, heal=self._heal)
             _, pot = accel_fn(state.pos)
             state = state._replace(pot=pot)
         vals = energy_ops.diagnostics(state)

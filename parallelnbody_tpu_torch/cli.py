@@ -218,14 +218,17 @@ def recalibrate_on_overflow(cfg, state, auto_fields):
 
     The clipped segment itself is not recomputed: a clip costs one segment
     of degraded force for the affected particles (bounded, warned); the
-    heal is for the rest of the run."""
+    heal is for the rest of the run. The step programs already grow a
+    calibrated budget that clips (api.make_step / make_run), so on one
+    device this finds nothing to grow unless the budgets were calibrated
+    elsewhere; the grown fields stay calibrated."""
     from parallelnbody_tpu_torch.api import calibrate_budgets
 
     fresh = calibrate_budgets(cfg.replace(**{f: 0 for f in auto_fields}),
                               state)
     grew = {f: getattr(fresh, f) for f in auto_fields
             if getattr(fresh, f) > getattr(cfg, f)}
-    return (cfg.replace(**grew) if grew else cfg), grew
+    return (cfg.calibrated(**grew) if grew else cfg), grew
 
 
 # Set-up's spans (api.prepare_simulation) and the keys of their seconds in
@@ -540,8 +543,9 @@ def _run_body(args, cfg, device, group) -> int:
     last_t = t_start
     # --profile-dir: the program's spans join the profiler's trace, and on
     # one device each logged record gains the segment's interactions a
-    # second (K3 pairs, or K1 pair terms and far terms) and host reads a
-    # step, from the kernel wrappers' counters.
+    # second (K3 pairs, or K1 pair terms and far terms), host reads a step
+    # and list rebuilds after a calibrated budget clipped (`bh_heals`),
+    # from the kernel wrappers' counters.
     prof_dir = args.profile_dir if lead else None
     counting = bool(prof_dir) and not sharded
     with profile_trace(prof_dir), \
@@ -595,6 +599,8 @@ def _run_body(args, cfg, device, group) -> int:
                         record["interactions_per_sec"] = work / (now - last_t)
                         record["host_reads_per_step"] = (
                             after["host_reads"] - before["host_reads"]) / k
+                        record["bh_heals"] = (after["bh.heals"]
+                                              - before["bh.heals"])
                     if ovf_total:
                         record["bh_overflow"] = ovf_total
                     metrics.log(record)

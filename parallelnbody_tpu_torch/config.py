@@ -169,7 +169,30 @@ class SimConfig:
 
     # ------------------------------------------------------------------ utils
     def replace(self, **kw) -> "SimConfig":
-        return dataclasses.replace(self, **kw)
+        """This config with the fields kw set. A budget set here is the
+        caller's own: it leaves `calibrated_budgets`."""
+        out = dataclasses.replace(self, **kw)
+        kept = self.calibrated_budgets - frozenset(kw)
+        if kept:
+            object.__setattr__(out, "_calibrated", kept)
+        return out
+
+    @property
+    def calibrated_budgets(self) -> frozenset:
+        """The list-budget fields whose values budget calibration chose
+        (api.calibrate_budgets), not the caller: the ones a clipped list
+        build may grow (ops/bh.py ListHeal). No dataclass field, so that
+        the schema stays the JAX package's; equality, hashing and to_json
+        leave it out, so a checkpoint stores the budgets as set."""
+        return self.__dict__.get("_calibrated", frozenset())
+
+    def calibrated(self, **budgets) -> "SimConfig":
+        """This config with the list budgets `budgets` set by calibration
+        (named in calibrated_budgets beside the ones already there)."""
+        out = dataclasses.replace(self, **budgets)
+        object.__setattr__(out, "_calibrated",
+                           self.calibrated_budgets | frozenset(budgets))
+        return out
 
     # Barnes-Hut / all-pairs crossover N, by device. On the CPU the JAX
     # package's value, so that CPU runs resolve as it does. On a CUDA

@@ -28,6 +28,8 @@ COUNTERS = {
     "k3.pairs": 0,        # K3's target x source pairs
     "k3.sym_pairs": 0,    # K3's self-gravity pair evaluations (sym_pairs)
     "k1.pair_terms": 0,   # K1's list entries x G^2 (G the leaf size)
+    "bh.heals": 0,        # list rebuilds after a calibrated budget clipped
+                          # (ops/bh.py ListHeal)
 }
 DEVICE_COUNTERS = {
     "far.terms": 0,       # K2's / K4's node x target terms (0-d tensor)

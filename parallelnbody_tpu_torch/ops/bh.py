@@ -47,6 +47,7 @@ from typing import NamedTuple
 
 import torch
 
+from parallelnbody_tpu_torch.kernels.launch import COUNTERS, host_read
 from parallelnbody_tpu_torch.ops import bh_kernels
 from parallelnbody_tpu_torch.ops.hilbert import hilbert_encode
 from parallelnbody_tpu_torch.ops.morton import morton_encode
@@ -230,28 +231,35 @@ def _iota(n_rows, n_cols, device):
                         device=device)[None, :].expand(n_rows, n_cols)
 
 
-def _keys_compact(keys, budget):
+def _keys_compact(keys, budget, need=None, kind=None):
     """Front-pack the finite (!= INT32_MAX) int32 keys of each row into a
     padded ascending (n_rows, budget) list by one row sort. Returns
-    (idx, valid, overflow)."""
+    (idx, valid, overflow). The counts and the overflow are int64, the
+    dtype of K1's item sizes, in whose read a clip is seen
+    (bh_kernels.near_items): summed into that dtype from the mask, they
+    need no cast of their own. need: a dict that gains, under `kind` (a key
+    of BUDGET_FIELDS), each row's count of keys before the clip (list_needs
+    reads it); no device work of its own."""
     n_rows, n_cols = keys.shape
     budget = min(budget, n_cols)
-    counts = torch.sum(keys != INT32_MAX, dim=1, dtype=torch.int32)
+    counts = torch.sum(keys != INT32_MAX, dim=1, dtype=torch.int64)
+    if need is not None:
+        need.setdefault(kind, []).append(counts)
     overflow = torch.sum(torch.clamp(counts - budget, min=0),
-                         dtype=torch.int32)
+                         dtype=torch.int64)
     idx = torch.sort(keys, dim=1).values[:, :budget]
     valid = _iota(n_rows, budget, keys.device) < counts[:, None]
     idx = torch.where(valid, idx, torch.zeros_like(idx))
     return idx, valid, overflow
 
 
-def _row_compact(mask, fill_idx, budget):
+def _row_compact(mask, fill_idx, budget, need=None, kind=None):
     """Front-pack the True column-values of `fill_idx` per row into a padded
     (n_rows, budget) list. Returns (idx, valid, overflow); ascending when
-    fill_idx rows are."""
+    fill_idx rows are. need, kind: as _keys_compact's."""
     return _keys_compact(
         torch.where(mask, fill_idx, torch.full_like(fill_idx, INT32_MAX)),
-        budget)
+        budget, need, kind)
 
 
 def _dense_leaf_masks(tree: BHTree, rejects_l1, theta, start_leaf, n_slice):
@@ -286,17 +294,19 @@ def _dense_leaf_masks(tree: BHTree, rejects_l1, theta, start_leaf, n_slice):
 
 def leaf_interactions(tree: BHTree, rejects_l1, theta: float, *,
                       start_leaf, n_slice, near_budget: int,
-                      far0_budget: int):
+                      far0_budget: int, need=None):
     """Refine rejected level-1 nodes to leaf granularity for the target-leaf
     slice [start_leaf, start_leaf + n_slice) through the dense leaf plane:
     front-packed lists of exact near leaves and of accepted leaf monopoles
     (far0). Returns (near_idx, near_valid, far0_idx, far0_valid,
-    overflow)."""
+    overflow). need: as _keys_compact's (kinds "near" and "far")."""
     near_mask, far_mask = _dense_leaf_masks(tree, rejects_l1, theta,
                                             start_leaf, n_slice)
     cols = _iota(n_slice, tree.com[0].shape[0], near_mask.device)
-    near_idx, near_valid, of_n = _row_compact(near_mask, cols, near_budget)
-    far0_idx, far0_valid, of_f = _row_compact(far_mask, cols, far0_budget)
+    near_idx, near_valid, of_n = _row_compact(near_mask, cols, near_budget,
+                                              need, "near")
+    far0_idx, far0_valid, of_f = _row_compact(far_mask, cols, far0_budget,
+                                              need, "far")
     return near_idx, near_valid, far0_idx, far0_valid, of_n + of_f
 
 
@@ -365,7 +375,7 @@ def _octet_upper_keys(far_masks, offs8, n_levels, lo_level=2):
 
 def build_interaction_lists_octet(tree, far_masks, rejects_l1, *, theta,
                                   start_leaf, n_slice, near_budget,
-                                  far_budget, dtype):
+                                  far_budget, dtype, need=None):
     """Dense-refinement lists in octet-masked far form: ONE far list of
     (octet_id << 8) | child_mask keys covering every far class (upper
     accepted nodes, levels >= 1, and leaf-MAC-accepted candidates) over the
@@ -373,14 +383,16 @@ def build_interaction_lists_octet(tree, far_masks, rejects_l1, *, theta,
     far_budget counts octet entries.
 
     Returns (near_idx, near_valid, far_keys, far_valid, nodes8, overflow);
-    overflow counts near clips plus 8x clipped far octets."""
+    overflow counts near clips plus 8x clipped far octets. need: as
+    _keys_compact's (kinds "near" and "far")."""
     near_mask, far_mask = _dense_leaf_masks(tree, rejects_l1, theta,
                                             start_leaf, n_slice)
     n_leaves = tree.com[0].shape[0]
     offs8, n_oct = _octet_offsets([c.shape[0] for c in tree.com])
 
     cols = _iota(n_slice, n_leaves, near_mask.device)
-    near_idx, near_valid, of_n = _row_compact(near_mask, cols, near_budget)
+    near_idx, near_valid, of_n = _row_compact(near_mask, cols, near_budget,
+                                              need, "near")
 
     # Phantom (zero-mass) targets: the leaf masks already exclude them; the
     # upper masks are blanked the same way.
@@ -389,9 +401,9 @@ def build_interaction_lists_octet(tree, far_masks, rejects_l1, *, theta,
     upk = torch.where((tgt_m > 0)[:, None], upk,
                       torch.full_like(upk, INT32_MAX))
     far_keys = torch.cat([_octet_keys_dense(far_mask, offs8[0]), upk], dim=1)
-    far_keys, far_valid, of_f = _keys_compact(far_keys,
-                                              min(far_budget, n_oct))
-    overflow = (of_n + 8 * of_f).to(torch.int32)
+    far_keys, far_valid, of_f = _keys_compact(
+        far_keys, min(far_budget, n_oct), need, "far")
+    overflow = of_n + 8 * of_f
     return (near_idx, near_valid, far_keys, far_valid,
             _nodes_all_octet(tree, dtype), overflow)
 
@@ -545,7 +557,8 @@ def _refine_stage(pack, b, cand_idx, cand_valid, tgt_com, tgt_r, theta):
 def build_interaction_lists_staged(tree: BHTree, far_masks, rejects_l2, *,
                                    theta, start_leaf, n_slice, near_budget,
                                    far_budget, cand2_budget, cand1_budget,
-                                   dtype, row_block=0, octet_far=False):
+                                   dtype, row_block=0, octet_far=False,
+                                   need=None):
     """Hierarchical candidate refinement: the staged replacement for the
     dense (n_slice, n_leaves) leaf plane, O(n_slice * budget) instead of
     O(n_slice * n_leaves), so n_leaves can grow past ~8-16k.
@@ -581,7 +594,10 @@ def build_interaction_lists_staged(tree: BHTree, far_masks, rejects_l2, *,
     (octet_id << 8) | child_mask over the 8-aligned combined table
     (_nodes_all_octet, returned in place of _nodes_all); far_budget counts
     octet entries, and a clipped far entry counts 8 into the overflow. The
-    stage masks are per-parent child masks, so emission is a bit-pack."""
+    stage masks are per-parent child masks, so emission is a bit-pack.
+
+    need: as _keys_compact's, for the four kinds of BUDGET_FIELDS. A
+    clipped candidate list under-counts the stages after it."""
     n_levels = tree.n_levels
     widths = [c.shape[0] for c in tree.com]
     if n_levels < 3:
@@ -611,17 +627,20 @@ def build_interaction_lists_staged(tree: BHTree, far_masks, rejects_l2, *,
         rej2 = rej2 & (t_m > 0)[:, None]
         upk = torch.where((t_m > 0)[:, None], upk, INT32_MAX)
         cols2 = _iota(*rej2.shape, rej2.device)
-        c2_idx, c2_valid, of2 = _row_compact(rej2, cols2, cand2_budget)
+        c2_idx, c2_valid, of2 = _row_compact(rej2, cols2, cand2_budget,
+                                             need, "cand2")
 
         acc1, rej1, gid1 = _refine_stage(pack2, b2, c2_idx, c2_valid,
                                          t_com, t_r, theta)
         c1_idx, c1_valid, of1 = _keys_compact(
-            torch.where(rej1, gid1, INT32_MAX).reshape(r, -1), cand1_budget)
+            torch.where(rej1, gid1, INT32_MAX).reshape(r, -1), cand1_budget,
+            need, "cand1")
 
         acc0, near0, gid0 = _refine_stage(pack1, b1, c1_idx, c1_valid,
                                           t_com, t_r, theta)
         near_keys = torch.where(near0, gid0, INT32_MAX).reshape(r, -1)
-        near_idx, near_valid, of_n = _keys_compact(near_keys, near_budget)
+        near_idx, near_valid, of_n = _keys_compact(near_keys, near_budget,
+                                                   need, "near")
 
         if octet_far:
             far1_keys = _octet_keys_children(acc1, c2_idx, offs8[1], b2)
@@ -631,11 +650,11 @@ def build_interaction_lists_staged(tree: BHTree, far_masks, rejects_l2, *,
             far0_keys = torch.where(acc0, gid0, INT32_MAX)
         far_idx, far_valid, of_f = _keys_compact(
             torch.cat([far0_keys.reshape(r, -1), far1_keys.reshape(r, -1),
-                       upk], dim=1), far_budget)
+                       upk], dim=1), far_budget, need, "far")
         if octet_far:
             of_f = of_f * 8  # a clipped octet hides up to 8 nodes
         # A clipped candidate hides up to b children from BOTH classes.
-        of = (of2 * (b2 * b1) + of1 * b1 + of_n + of_f).to(torch.int32)
+        of = of2 * (b2 * b1) + of1 * b1 + of_n + of_f
         return near_idx, near_valid, far_idx, far_valid, of
 
     if row_block <= 0:
@@ -644,7 +663,7 @@ def build_interaction_lists_staged(tree: BHTree, far_masks, rejects_l2, *,
     near_idx, near_valid, far_idx, far_valid, of = _map_row_blocks(
         block_fn, (rejects_l2, up_keys, tgt_com, tgt_r, tgt_m), n_slice,
         row_block)
-    overflow = torch.sum(of, dtype=torch.int32)
+    overflow = torch.sum(of, dtype=torch.int64)
     nodes = (_nodes_all_octet(tree, dtype) if octet_far
              else _nodes_all(tree, dtype))
     return near_idx, near_valid, far_idx, far_valid, nodes, overflow
@@ -652,7 +671,8 @@ def build_interaction_lists_staged(tree: BHTree, far_masks, rejects_l2, *,
 
 # ------------------------------------------------------ gather far lists
 def build_interaction_lists(tree, far_masks, rejects_l1, *, theta, start_leaf,
-                            n_slice, near_budget, far0_budget, dtype):
+                            n_slice, near_budget, far0_budget, dtype,
+                            need=None):
     """Dense-refinement lists in gather form for one target window: the near
     list, the far0 list of accepted leaves over the leaf node table, and
     the list of accepted upper nodes (levels >= 1) over their stacked node
@@ -660,10 +680,10 @@ def build_interaction_lists(tree, far_masks, rejects_l1, *, theta, start_leaf,
     width and cannot clip; far0_budget counts leaf entries.
 
     Returns (near_idx, near_valid, far0_idx, far0_valid, up_idx, up_valid,
-    nodes_up, leaf_nodes, overflow)."""
+    nodes_up, leaf_nodes, overflow). need: as leaf_interactions'."""
     near_idx, near_valid, far0_idx, far0_valid, overflow = leaf_interactions(
         tree, rejects_l1, theta, start_leaf=start_leaf, n_slice=n_slice,
-        near_budget=near_budget, far0_budget=far0_budget)
+        near_budget=near_budget, far0_budget=far0_budget, need=need)
     up_idx, up_valid, nodes_up, leaf_nodes = _upper_list(tree, far_masks,
                                                          dtype)
     return (near_idx, near_valid, far0_idx, far0_valid, up_idx, up_valid,
@@ -706,6 +726,113 @@ def eval_far_lists(tgt_leaves, nodes_up, up_idx, up_valid, leaf_nodes,
     return acc + a, pot + ph
 
 
+# -------------------------------------------------------------- budget heal
+# The list budgets by the kind of list they size, as a list build records
+# its needs: the near list, the far list (octet entries, or node rows in
+# the gather form), the staged level-2 and level-1 candidate lists.
+BUDGET_FIELDS = {"near": "bh_near_budget", "far": "bh_far_budget",
+                 "cand2": "bh_cand2_budget", "cand1": "bh_cand_budget"}
+# Calibration's rule (api.calibrate_budgets): the measured need, +25% and
+# at least one lane more, rounded up to the kind's lane.
+BUDGET_LANES = {"near": 128, "far": 128, "cand2": 64, "cand1": 64}
+BUDGET_HEADROOM = 1.25
+# Rebuilds by calibration's rule before a budget that still clips takes
+# twice calibration's budget for its need (at most its full width). A
+# clipped candidate list under-counts the stages after it, so a staged
+# build can need one round a stage: cand2's need is exact at once (it
+# comes from the traversal), cand1's once cand2 holds, near's and far's
+# once cand1 holds, so 3 rounds at most and the doubling is a guard.
+HEAL_ROUNDS = 4
+
+
+def pad_budget(need, mult, headroom=BUDGET_HEADROOM):
+    """The budget that holds `need` entries by calibration's rule:
+    `headroom` over it and one lane `mult` of slack at least, rounded up to
+    a multiple of the lane."""
+    target = max(int(need * headroom), int(need) + mult)
+    return max(mult, -(-target // mult) * mult)
+
+
+def list_needs(need) -> dict:
+    """{kind: the most entries any target's list of that kind needed}, from
+    the row counts a list build recorded in `need` (_keys_compact), in one
+    read: a counted wait on the device (launch.host_read) for CUDA counts."""
+    kinds = sorted(need)
+    maxima = torch.stack([torch.max(torch.cat(need[k])) for k in kinds])
+    read = host_read if maxima.device.type == "cuda" else torch.Tensor.tolist
+    return dict(zip(kinds, read(maxima)))
+
+
+def _full_widths(tree: BHTree) -> dict:
+    """A budget of each kind at which no list of `tree` clips: the
+    list functions clamp each to its list's width."""
+    widths = [c.shape[0] for c in tree.com]
+    return {"near": widths[0], "far": sum(widths), "cand1": widths[1],
+            "cand2": widths[2] if len(widths) > 2 else widths[1]}
+
+
+def _clip_count(work, overflow) -> int:
+    """A list build's clip counter on the host: read with K1's item sizes
+    on the card (NearWork.overflow), from the CPU tensor on the CPU."""
+    return work.overflow if work is not None else int(overflow)
+
+
+class ListHeal:
+    """The list budgets that calibration chose for the Barnes-Hut callables
+    that share this heal (api.make_step's step, api._make_run_reuse's run,
+    api.Simulation's diagnostics), grown where a list build clips one.
+
+    build() runs a list build; where it clipped, the needs it measured are
+    read (list_needs), each clipped budget of `kinds` grows by
+    calibration's rule (pad_budget; after HEAL_ROUNDS rounds to twice
+    that) up to its full width and the lists are built again, in a
+    `bh.heal` span and counted in COUNTERS["bh.heals"], until no budget of
+    `kinds` clips. The grown budgets stay for every later build of the
+    callables that share the heal (`grown`; api.Simulation shares one
+    between its step, runs and diagnostics). Budgets the caller set are
+    never grown: their clips stay in the overflow."""
+
+    def __init__(self, kinds):
+        self.kinds = frozenset(kinds)
+        self.grown = {}     # kind -> budget, for every later build
+
+    @classmethod
+    def of(cls, cfg) -> "ListHeal | None":
+        """The heal of cfg's calibrated budgets (SimConfig.
+        calibrated_budgets); None where calibration chose none."""
+        kinds = [k for k, f in BUDGET_FIELDS.items()
+                 if f in cfg.calibrated_budgets]
+        return cls(kinds) if kinds else None
+
+    def build(self, build, budgets: dict, full: dict):
+        """The lists of build(budgets, need) -> (lists, clip count on the
+        host), built at `budgets` (a dict by kind) with the grown ones in
+        place, and again while a budget of `kinds` clips. `full`: each
+        kind's full width (_full_widths)."""
+        budgets = {**budgets, **self.grown}
+        need = {}
+        lists, clipped = build(budgets, need)
+        rounds = 0
+        while clipped:
+            needs = list_needs(need)
+            times = 2 if rounds >= HEAL_ROUNDS else 1
+            grown = {k: min(times * pad_budget(needs[k], BUDGET_LANES[k]),
+                            full[k])
+                     for k in self.kinds
+                     if needs.get(k, 0) > budgets[k] and budgets[k] < full[k]}
+            if not grown:
+                break
+            rounds += 1
+            COUNTERS["bh.heals"] += 1
+            self.grown.update(grown)
+            budgets.update(grown)
+            lists = None            # the clipped lists go before the rebuild
+            with span("bh.heal"):
+                need = {}
+                lists, clipped = build(budgets, need)
+        return lists
+
+
 # ------------------------------------------------------------------- assembly
 def _prepare(pos, mass, *, leaf_size, curve, multipole_order=1, max_levels=12):
     """Pad, curve-sort, and build the multipole pyramid. Returns
@@ -742,7 +869,7 @@ def _prepare(pos, mass, *, leaf_size, curve, multipole_order=1, max_levels=12):
 def _forces_sorted(pos_s, mass_s, tree, far_masks, rejects, *, start_leaf,
                    n_slice, leaf_size, theta, g, softening, near_budget,
                    far0_budget, compute_pot=True, refine="dense",
-                   cand_budgets=(0, 0), far_mode="octet"):
+                   cand_budgets=(0, 0), far_mode="octet", heal=None):
     """Far+near forces for target leaves [start_leaf, start_leaf + n_slice),
     in sorted order. Returns (acc (n_slice*G, 3), pot (n_slice*G,),
     overflow).
@@ -755,36 +882,50 @@ def _forces_sorted(pos_s, mass_s, tree, far_masks, rejects, *, start_leaf,
     traverse(stop_level=2)) with cand_budgets = (cand2, cand1); one far list
     covers every far class, octet keys for K2 or node rows of _nodes_all for
     K4, and far0_budget counts its entries. The near list goes to K1 with
-    its work items either way."""
+    its work items either way.
+
+    heal: a ListHeal, which builds the lists at its grown budgets and
+    builds them again where they clip a budget calibration chose; the
+    clip count rides on the read of K1's item sizes."""
     n_leaves = pos_s.shape[0] // leaf_size
     p_leaves = pos_s.reshape(n_leaves, leaf_size, 3)
     tgt_leaves = p_leaves[start_leaf:start_leaf + n_slice]
-    kw = dict(theta=theta, start_leaf=start_leaf, n_slice=n_slice,
-              near_budget=near_budget, dtype=pos_s.dtype)
     fkw = dict(g=g, softening=softening, compute_pot=compute_pot)
-    with span("bh.lists"):
-        if refine == "staged":
-            (near_idx, near_valid, far_idx, far_valid, nodes_all,
-             overflow) = build_interaction_lists_staged(
-                tree, far_masks, rejects, far_budget=far0_budget,
-                cand2_budget=cand_budgets[0], cand1_budget=cand_budgets[1],
-                octet_far=far_mode == "octet", **kw)
-        elif far_mode == "octet":
-            (near_idx, near_valid, far_keys, far_valid, nodes8,
-             overflow) = build_interaction_lists_octet(
-                tree, far_masks, rejects, far_budget=far0_budget, **kw)
-        else:
-            (near_idx, near_valid, far0_idx, far0_valid, up_idx, up_valid,
-             nodes_up, leaf_nodes, overflow) = build_interaction_lists(
-                tree, far_masks, rejects, far0_budget=far0_budget, **kw)
-        work = bh_kernels.near_work(near_valid)
-    if refine == "staged":
+
+    def build(budgets, need):
+        kw = dict(theta=theta, start_leaf=start_leaf, n_slice=n_slice,
+                  near_budget=budgets["near"], dtype=pos_s.dtype, need=need)
+        with span("bh.lists"):
+            if refine == "staged":
+                lists = build_interaction_lists_staged(
+                    tree, far_masks, rejects, far_budget=budgets["far"],
+                    cand2_budget=budgets["cand2"],
+                    cand1_budget=budgets["cand1"],
+                    octet_far=far_mode == "octet", **kw)
+            elif far_mode == "octet":
+                lists = build_interaction_lists_octet(
+                    tree, far_masks, rejects, far_budget=budgets["far"],
+                    **kw)
+            else:
+                lists = build_interaction_lists(
+                    tree, far_masks, rejects, far0_budget=budgets["far"],
+                    **kw)
+            overflow = lists[-1]
+            work = bh_kernels.near_work(lists[1], overflow=overflow)
+            return (lists, work), _clip_count(work, overflow)
+
+    budgets = {"near": near_budget, "far": far0_budget,
+               "cand2": cand_budgets[0], "cand1": cand_budgets[1]}
+    lists, work = (build(budgets, {})[0] if heal is None
+                   else heal.build(build, budgets, _full_widths(tree)))
+    near_idx, near_valid, overflow = lists[0], lists[1], lists[-1]
+    if refine == "staged" or far_mode == "octet":
         evaluate = _eval_far_octet if far_mode == "octet" else _eval_far_list
-        acc, pot = evaluate(tgt_leaves, nodes_all, far_idx, far_valid, **fkw)
-    elif far_mode == "octet":
-        acc, pot = _eval_far_octet(tgt_leaves, nodes8, far_keys, far_valid,
-                                   **fkw)
+        far_idx, far_valid, nodes = lists[2:5]
+        acc, pot = evaluate(tgt_leaves, nodes, far_idx, far_valid, **fkw)
     else:
+        far0_idx, far0_valid, up_idx, up_valid, nodes_up, leaf_nodes = \
+            lists[2:8]
         acc, pot = eval_far_lists(tgt_leaves, nodes_up, up_idx, up_valid,
                                   leaf_nodes, far0_idx, far0_valid, **fkw)
     a, ph = bh_kernels.near_field(pos_s, mass_s, tgt_leaves, near_idx,
@@ -865,7 +1006,7 @@ def _join(parts):
 def bh_accel(pos, mass, *, leaf_size=256, theta=0.5, g=1.0, softening=1e-2,
              near_budget=64, far0_budget=2048, curve="hilbert", multipole=1,
              max_levels=12, compute_pot=True, refine="dense",
-             cand_budgets=(0, 0), far_mode="auto", sections=0):
+             cand_budgets=(0, 0), far_mode="auto", sections=0, heal=None):
     """Barnes-Hut accelerations/potentials in original particle order.
 
     Returns (acc (N,3), pot (N,), overflow ()): overflow > 0 means the
@@ -884,6 +1025,11 @@ def bh_accel(pos, mass, *, leaf_size=256, theta=0.5, g=1.0, softening=1e-2,
     the traversal planes, the staged lists and their sort buffers are sized
     by n_leaves / sections. 0 = auto (resolve_sections). The physics, lists
     and overflow count are those of the unsectioned evaluation.
+
+    heal: the caller's ListHeal. Its grown budgets replace the ones given,
+    and a window whose lists clip a budget calibration chose builds them
+    again at grown budgets before any force is taken from them; the
+    overflow is that of the lists evaluated.
     """
     pos_s, mass_s, perm, tree, n, n_pad = _prepare(
         pos, mass, leaf_size=leaf_size, curve=curve, multipole_order=multipole,
@@ -905,13 +1051,13 @@ def bh_accel(pos, mass, *, leaf_size=256, theta=0.5, g=1.0, softening=1e-2,
             start_leaf=start, n_slice=w, leaf_size=leaf_size, theta=theta,
             g=g, softening=softening, near_budget=near_budget,
             far0_budget=far0_budget, compute_pot=compute_pot, refine=refine,
-            cand_budgets=cand_budgets, far_mode=far_mode)
+            cand_budgets=cand_budgets, far_mode=far_mode, heal=heal)
         del far_masks, rejects
         accs.append(acc)
         pots.append(pot)
         ovfs.append(of)
     acc, pot = _join(accs), _join(pots)
-    overflow = torch.sum(torch.stack(ovfs), dtype=torch.int32)
+    overflow = torch.sum(torch.stack(ovfs), dtype=torch.int64)
 
     acc, pot = _unsort(acc, pot, perm, n)
     return acc, pot, overflow
@@ -985,13 +1131,14 @@ class BHListPlan(NamedTuple):
     near_valid: torch.Tensor  # (n_leaves, near_budget) bool
     far_keys: torch.Tensor    # (n_leaves, far_budget) (octet_id<<8)|child_mask
     far_valid: torch.Tensor   # (n_leaves, far_budget) bool
-    overflow: torch.Tensor    # () int32
+    overflow: torch.Tensor    # () int64
     near_work: tuple | None = None
     far_order: tuple | None = None
 
 
 def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
-                  refine, cand_budgets, dtype, sections=1) -> BHListPlan:
+                  refine, cand_budgets, dtype, sections=1,
+                  heal=None) -> BHListPlan:
     """Traverse + build the octet-far interaction lists for ALL target
     leaves of `tree`: the geometry half of bh_accel, used by the
     rebuild-interval runs (api._make_run_reuse). refine/cand_budgets must
@@ -1002,34 +1149,56 @@ def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
     plan is full width: the list functions emit global source ids, so the
     windows' lists concatenate into the plan the unsectioned build makes.
     K1's work items and K2's launch order are built per window, here, once
-    per list build."""
+    per list build.
+
+    heal: the caller's ListHeal. Its grown budgets replace the ones given;
+    where a build clips a budget calibration chose, every window is built
+    again at grown budgets, from the traversal already made where there is
+    one window (it does not depend on the budgets). The clip count rides
+    on each window's read of K1's item sizes; the plan's overflow is that
+    of the lists it holds."""
     n_leaves = tree.com[0].shape[0]
     stop = 1 if refine == "dense" else 2
-    parts, works, orders = [], [], []
-    for start, w in _windows(n_leaves, sections):
+    windows = _windows(n_leaves, sections)
+
+    def walk(start, w):
         with span("bh.traverse"):
-            far_masks, rejects = traverse(tree, theta, start_leaf=start,
-                                          n_slice=w, stop_level=stop)
-        with span("bh.lists"):
-            if refine == "staged":
-                ni, nv, fk, fv, _, of = build_interaction_lists_staged(
-                    tree, far_masks, rejects, theta=theta, start_leaf=start,
-                    n_slice=w, near_budget=near_budget, far_budget=far_budget,
-                    cand2_budget=cand_budgets[0],
-                    cand1_budget=cand_budgets[1], dtype=dtype, octet_far=True)
-            else:
-                ni, nv, fk, fv, _, of = build_interaction_lists_octet(
-                    tree, far_masks, rejects, theta=theta, start_leaf=start,
-                    n_slice=w, near_budget=near_budget, far_budget=far_budget,
-                    dtype=dtype)
-            del far_masks, rejects
-            parts.append((ni, nv, fk, fv, of.to(torch.int32)))
-            works.append(bh_kernels.near_work(nv))
-            orders.append(bh_kernels.far_order(fv))
-    ni, nv, fk, fv, ofs = zip(*parts)
-    overflow = torch.sum(torch.stack(ofs), dtype=torch.int32)
-    return BHListPlan(_join(ni), _join(nv), _join(fk), _join(fv), overflow,
-                      tuple(works), tuple(orders))
+            return traverse(tree, theta, start_leaf=start, n_slice=w,
+                            stop_level=stop)
+
+    kept = walk(*windows[0]) if len(windows) == 1 else None
+
+    def build(budgets, need):
+        kw = dict(theta=theta, near_budget=budgets["near"],
+                  far_budget=budgets["far"], dtype=dtype, need=need)
+        parts, works, orders, clipped = [], [], [], 0
+        for start, w in windows:
+            far_masks, rejects = kept if kept is not None else walk(start, w)
+            with span("bh.lists"):
+                if refine == "staged":
+                    ni, nv, fk, fv, _, of = build_interaction_lists_staged(
+                        tree, far_masks, rejects, start_leaf=start, n_slice=w,
+                        cand2_budget=budgets["cand2"],
+                        cand1_budget=budgets["cand1"], octet_far=True, **kw)
+                else:
+                    ni, nv, fk, fv, _, of = build_interaction_lists_octet(
+                        tree, far_masks, rejects, start_leaf=start, n_slice=w,
+                        **kw)
+                del far_masks, rejects
+                parts.append((ni, nv, fk, fv, of))
+                works.append(bh_kernels.near_work(nv, overflow=of))
+                clipped += _clip_count(works[-1], of)
+                orders.append(bh_kernels.far_order(fv))
+        ni, nv, fk, fv, ofs = zip(*parts)
+        overflow = torch.sum(torch.stack(ofs), dtype=torch.int64)
+        return BHListPlan(_join(ni), _join(nv), _join(fk), _join(fv),
+                          overflow, tuple(works), tuple(orders)), clipped
+
+    budgets = {"near": near_budget, "far": far_budget,
+               "cand2": cand_budgets[0], "cand1": cand_budgets[1]}
+    if heal is None:
+        return build(budgets, {})[0]
+    return heal.build(build, budgets, _full_widths(tree))
 
 
 def _refresh_nodes8(pos_s, mass_s, *, leaf_size, multipole, max_levels,
@@ -1351,12 +1520,15 @@ def measure_import_requirement(pos, mass, cfg, n_ranks: int) -> dict:
             "n_leaves": n_leaves}
 
 
-def make_bh_accel(cfg, mass, overflow_cell=None):
+def make_bh_accel(cfg, mass, overflow_cell=None, heal=None):
     """accel_fn(pos) -> (acc, pot) with the configured BH parameters.
 
     overflow_cell: optional one-element list; each evaluation's budget
     overflow counter (a device tensor, no host sync) is ACCUMULATED into it,
-    so multi-eval integrators sum clipping over their evaluations."""
+    so multi-eval integrators sum clipping over their evaluations.
+
+    heal: the caller's ListHeal (bh_accel's heal), kept across the
+    evaluations of every accel_fn it is given to."""
 
     def accel_fn(pos):
         with span("force"):
@@ -1371,9 +1543,10 @@ def make_bh_accel(cfg, mass, overflow_cell=None):
                 refine=cfg.resolve_bh_refine(),
                 cand_budgets=(cfg.bh_cand2_budget, cfg.bh_cand_budget),
                 far_mode=cfg.bh_far_mode, sections=cfg.bh_sections,
+                heal=heal,
             )
             if overflow_cell is not None:
-                overflow_cell[0] = overflow_cell[0] + ovf.to(torch.int32)
+                overflow_cell[0] = overflow_cell[0] + ovf
             return acc, pot
 
     return accel_fn

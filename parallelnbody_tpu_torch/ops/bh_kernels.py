@@ -98,6 +98,9 @@ class NearWork:
     every_row: bool = True
     # List entries the items cover (K1's pair terms are entries x G^2).
     entries: int = 0
+    # The list build's clip counter, read with the item sizes
+    # (near_work(overflow=)); None where none was asked for.
+    overflow: int | None = None
 
     def __iter__(self):
         return iter((self.items, self.splits, self.n_partial))
@@ -337,17 +340,18 @@ def far_order(valid):
     return heaviest_first(torch.sum(valid, dim=1, dtype=torch.int32))
 
 
-def _window_sizes(counts, chunks):
+def _window_sizes(counts, chunks, extra=()):
     """Per column of counts (L, P) int64, one (P, 3 + 3 len(chunks)) tensor
     on its device: entries, the longest row and the rows with none; then
     for each chunk, near_items(..., every_row=False)'s items, partial slots
-    and split rows."""
+    and split rows; then the (P,) int64 columns `extra`, in the same
+    stack."""
     cols = [counts.sum(0), counts.max(0).values, (counts == 0).sum(0)]
     for chunk in chunks:
         n = (counts + chunk - 1) // chunk
         split = n > 1
         cols += [n.sum(0), torch.where(split, n, 0).sum(0), split.sum(0)]
-    return torch.stack(cols, 1)
+    return torch.stack(cols + list(extra), 1)
 
 
 def _sizes_of(row, k, every_row):
@@ -357,7 +361,8 @@ def _sizes_of(row, k, every_row):
     return n_items + (row[2] if every_row else 0), n_partial, n_split, row[0]
 
 
-def near_items(counts, chunk, lo=None, sizes=None, r=0, every_row=True):
+def near_items(counts, chunk, lo=None, sizes=None, r=0, every_row=True,
+               overflow=None):
     """K1's work items from the live length counts (L,) of front-packed
     near lists: every row is cut into ceil(count / chunk) items of at most
     `chunk` entries (with every_row an empty row into one empty item, which
@@ -376,7 +381,9 @@ def near_items(counts, chunk, lo=None, sizes=None, r=0, every_row=True):
 
     Index bookkeeping in a few torch ops on the lists' device; reading the
     sizes back waits on the host once (`host_read`; sizes: `_sizes_of`,
-    read back by the caller)."""
+    read back by the caller). overflow: a 0-d int64 tensor (a list build's
+    clip counter) read in the same read, into NearWork.overflow; only
+    where the sizes are read here."""
     counts = counts.to(torch.int64)
     dev = counts.device
     n_chunks = (counts + chunk - 1) // chunk
@@ -385,8 +392,11 @@ def near_items(counts, chunk, lo=None, sizes=None, r=0, every_row=True):
     split = n_chunks > 1
     split_n = torch.where(split, n_chunks, 0)
     if sizes is None:
-        row = host_read(_window_sizes(counts[:, None], (chunk,))[0])
+        extra = () if overflow is None else (overflow.reshape(1),)
+        row = host_read(_window_sizes(counts[:, None], (chunk,), extra)[0])
         sizes = _sizes_of(row, 0, every_row)
+        if overflow is not None:
+            overflow = row[-1]
     n_items, n_partial, n_split, entries = sizes
     first_item = torch.cumsum(n_chunks, 0) - n_chunks
     first_slot = torch.cumsum(split_n, 0) - split_n
@@ -408,10 +418,11 @@ def near_items(counts, chunk, lo=None, sizes=None, r=0, every_row=True):
                           n_chunks[split_rows]], dim=1)
     return NearWork(items.to(torch.int32).contiguous(),
                     splits.to(torch.int32).contiguous(), n_partial, r=r,
-                    chunk=chunk, every_row=every_row, entries=entries)
+                    chunk=chunk, every_row=every_row, entries=entries,
+                    overflow=overflow)
 
 
-def near_work(valid, idx=None, id_range=None):
+def near_work(valid, idx=None, id_range=None, overflow=None):
     """K1's work items (`near_items`, NEAR_CHUNK entries at most) for the
     front-packed near lists whose mask is valid (L, B), where a row's valid
     count is its live length. id_range = (id_lo, id_hi) keeps each row's
@@ -419,11 +430,16 @@ def near_work(valid, idx=None, id_range=None):
     (a shard's leaves) and the table form ([0, n_rows)). Built once per
     list build, next to the list builder, so that lists evaluated several
     times (the rebuild-interval runs) wait on the host once, not once a
-    step. None for CPU lists: `near_field_plain` needs no items."""
+    step. None for CPU lists: `near_field_plain` needs no items.
+
+    overflow: the list build's 0-d int64 clip counter, read with the item
+    sizes into NearWork.overflow (no read of its own); unwindowed lists
+    only."""
     if valid.device.type == "cpu":
         return None
     if id_range is None:
-        return near_items(torch.sum(valid, dim=1), NEAR_CHUNK)
+        return near_items(torch.sum(valid, dim=1), NEAR_CHUNK,
+                          overflow=overflow)
     return near_windows(idx, valid, id_range, chunk=NEAR_CHUNK)[0]
 
 

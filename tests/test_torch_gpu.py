@@ -1843,3 +1843,101 @@ def test_spans_hold_their_launches_and_host_reads(cuda, tmp_path, case):
     assert grew["host_reads"] == 1
     assert found["host_read"] == 1
     assert found["bh.near"] >= evals and found["bh.far"] >= evals
+
+
+# The benchmark's 1M spheres on which budgets calibrated at t = 0 and one
+# step on clipped within a few calls before the step callables healed them
+# (PERF.md §7.1).
+HEAL_SEEDS = (3000000104, 3000000402, 3000000501, 2147600002, 2147600005,
+              2147600006, 2147600007)
+# Budgets at which no list of these spheres clips: the list functions clamp
+# each to its list's full width.
+FULL_WIDTH = {"bh_near_budget": 1 << 20, "bh_far_budget": 1 << 20,
+              "bh_cand2_budget": 1 << 20, "bh_cand_budget": 1 << 20}
+
+
+def _sphere_1m(seed, device):
+    from benchmark.inputs import plummer
+    from parallelnbody_tpu_torch.state import make_state
+
+    pos, vel, mass = plummer.sphere(1 << 20, seed)
+    return make_state(pos, vel, mass, seed=seed, device=device,
+                      dtype="float32")
+
+
+@pytest.mark.parametrize("k,calls", [(8, 4), (1, 24)])
+def test_calibrated_budgets_heal_on_the_card(cuda, k, calls):
+    """The seven spheres at 1M, auto budgets, Simulation.step(k): overflow
+    0 on every call, and the state bit-equal to the same calls at budgets
+    of full width. The heals each call took are printed (one line a
+    seed)."""
+    import json
+
+    from parallelnbody_tpu_torch.kernels.launch import COUNTERS
+
+    base = dict(n=1 << 20, force="barnes_hut", theta=0.72, bh_multipole=2,
+                track_potential=False, dt=1e-4, softening=0.01,
+                bh_rebuild_every=8)
+    for seed in HEAL_SEEDS:
+        state = _sphere_1m(seed, cuda)
+        sim = Simulation(SimConfig(**base), cuda, state=state)
+        wide = Simulation(SimConfig(**base, **FULL_WIDTH), cuda, state=state)
+        assert torch.equal(sim.state.acc, wide.state.acc)
+        heals = []
+        for _ in range(calls):
+            before = COUNTERS["bh.heals"]
+            sim.step(k)
+            heals.append(COUNTERS["bh.heals"] - before)
+            assert int(sim.overflow) == 0, (seed, len(heals))
+            wide.step(k)
+        assert int(wide.overflow) == 0
+        for f in ("pos", "vel", "acc"):
+            assert torch.equal(getattr(sim.state, f),
+                               getattr(wide.state, f)), (seed, f)
+        print(json.dumps({"seed": seed, "k": k, "heals_per_call": heals,
+                          "calibrated": {f: getattr(sim.cfg, f)
+                                         for f in FULL_WIDTH}}))
+
+
+def _launch_calls(call, state):
+    """(runtime calls that put work on the device, host reads) of one call
+    under torch.profiler (the benchmark's launches_per_step count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from parallelnbody_tpu_torch.kernels.launch import COUNTERS
+
+    device_calls = {"cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+                    "cudaMemsetAsync"}
+    reads = COUNTERS["host_reads"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call(state)
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.name in device_calls)
+    return n, COUNTERS["host_reads"] - reads
+
+
+@pytest.mark.parametrize("k", [8, 1])
+def test_heal_adds_no_launch_or_read_to_a_run_that_never_clips(cuda, k):
+    """At 1M on the program's own Plummer ICs (nothing clips), the step
+    callable with the heal (calibrated budgets) makes the same device
+    calls and host reads as the same budgets set by the caller (no heal),
+    and gives the same state."""
+    from parallelnbody_tpu_torch import api
+
+    cfg = SimConfig(n=1 << 20, force="barnes_hut", theta=0.72,
+                    bh_multipole=2, track_potential=False, dt=1e-4, seed=3)
+    cal, state = api.prepare_simulation(cfg, cuda)
+    plain = cal.replace(**{f: getattr(cal, f)
+                           for f in cal.calibrated_budgets})
+    got = []
+    for c in (cal, plain):
+        call = (api.make_step(c, report_overflow=True) if k == 1
+                else api.make_run(c, k, report_overflow=True))
+        out, of = call(state)                # warm-up
+        assert int(of) == 0
+        got.append((_launch_calls(call, state), call(state)[0]))
+    assert got[0][0] == got[1][0]
+    assert got[0][0][1] == 1       # one read a list build: K1's item sizes
+    for f in ("pos", "vel", "acc"):
+        assert torch.equal(getattr(got[0][1], f), getattr(got[1][1], f))

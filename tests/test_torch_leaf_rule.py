@@ -85,11 +85,11 @@ def test_plan_and_evaluation_read_one_leaf(device, monkeypatch):
     want = cfg.resolve_bh_leaf_size(device)
     seen = {}
 
-    def fake_bh_accel(c, mass, overflow_cell=None):
+    def fake_bh_accel(c, mass, overflow_cell=None, heal=None):
         seen["accel"] = c.resolve_bh_leaf_size()
         return lambda pos: None
 
-    def fake_reuse(c, n_steps, report_overflow, dev):
+    def fake_reuse(c, n_steps, report_overflow, dev, heal=None):
         seen["reuse"] = c.resolve_bh_leaf_size()
         seen["refine"] = c.resolve_bh_refine()
         return lambda state: None

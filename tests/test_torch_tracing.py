@@ -224,6 +224,7 @@ def test_cli_profile_dir_logs_interactions_and_host_reads(tmp_path, capsys):
     for r in logged:
         assert r["interactions_per_sec"] > 0
         assert r["host_reads_per_step"] == 0
+        assert r["bh_heals"] == 0
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
     assert {"api.run", "bh.near", "bh.far"} <= names
