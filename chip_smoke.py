@@ -188,6 +188,15 @@ Phases, each of which exits non-zero on failure:
      line a seed and k: the list rebuilds (bh.heals) each call took (the
      rounds of its heal), the calibrated budgets, and the ms of the calls
      that healed beside the median call.
+ 22. K1's mutual form (also alone: this script with --k1-pairs, after the
+     build): on the 1M lists and on the 8M staged lists at leaf 128 (the
+     benchmark cell's) and 256, K1 on the mutual items the paths build
+     (each mutual leaf pair once) and on the one-way items, each timed in
+     alternating rounds against the FP32 bound of the pair terms served,
+     held to each other in full and to the plain version on sampled
+     target leaves, launched twice for the same bits; the share of the
+     entries in mutual pairs, the partial slots and both work items'
+     build time. One JSON line.
 
 Before each path every launch count is set to 0 and after it the counts
 are read (for a multi-device run, each rank's own counts, from
@@ -321,6 +330,9 @@ FP32_FLOPS = 67e12          # H100 SXM, FP32 outside the tensor cores, 700 W
 MUFU_RATE = FP32_FLOPS / 16  # rsqrt/s: 16 a clock per SM against 256 FP32 flops
 HBM_BYTES = 3.35e12         # B/s
 FLOPS_MONOPOLE = 18         # d 3, r^2 6, w 3, sums 6 (terms.cuh); + 1 rsqrt
+# FP32 operations of one mutual pair term, both ordered pairs (csrc/terms.cuh
+# mutual_term: 3 FADD, 3 FFMA, 4 FMUL, 6 FFMA; an FMA as two).
+FLOPS_MUTUAL = 25
 # The quadrupole term K2 and K4 evaluate (terms.cuh quad_term): d 3, r^2 6,
 # qd 15, qq 5, u^2 and u^5 3, m r^2 and qq u^2 2, the coefficient 2, the
 # sums 12; + 1 rsqrt. The former term (Qzz and u^7 formed per target) took
@@ -370,6 +382,13 @@ EXCHANGE_N = 16384          # exchange_volume_probe's N
 EXCHANGE_STEPS = 120        # exchange_volume_probe's steps a case
 STAT_TOOLS_ARG = "--stat-tools"           # phase 20 alone (a child process)
 BUDGET_HEAL_ARG = "--budget-heal"         # phase 21 alone
+K1_PAIRS_ARG = "--k1-pairs"               # phase 22 alone
+# Phase 22's list sets: (label, config, leaf size (None: the config's),
+# staged refinement), and the rounds of alternating timed forms.
+K1_PAIR_LISTS = (("1M", CONFIG, None, False),
+                 ("8M staged leaf 128", STAGED_CONFIG, 128, True),
+                 ("8M staged leaf 256", STAGED_CONFIG, None, True))
+K1_PAIR_ROUNDS = 2
 # The benchmark's 1M spheres on which calibrated budgets clipped within a
 # few calls before the step callables healed them (PERF.md §7.1), and the
 # calls of step(k) each is driven through.
@@ -442,6 +461,10 @@ MAIN_INSTANCE = {
     "allpairs": "allpairs_kernelILb0ELb0EEEvPKfS2_",
     "far_gather": "far_gather_kernelILi4ELb1ELb0ELb0ELb0E",
 }
+# K1's mutual form at the benchmark cell's leaf 128 (4 targets a thread,
+# softened, no potential): its pair loop is the inner loop with MUFU.RSQ
+# and STS (the source-side sums), its one-way loop the one without.
+K1_MUTUAL_INSTANCE = "near_field_kernelILi4ELb0ELb0EEEvPK6float4PKiS"
 # K3's cross form (targets against other sources: the ring, the tools).
 K3_CROSS_INSTANCE = "allpairs_kernelILb0ELb0EEEvPKfPK6float4"
 # K3's self-gravity form against the cross form (ms each) at these N.
@@ -576,6 +599,19 @@ def phase_build():
         log(f"SASS {name} ({instance}): inner loop {rec['instructions']} "
             f"instructions, {rec['pairs']} MUFU.RSQ, {rec['per_pair']:.3f} a "
             f"pair; {regs} registers, {smem} bytes static shared; "
+            f"{json.dumps(rec['opcodes'])}")
+    found = [m for m in loops if K1_MUTUAL_INSTANCE in m]
+    if len(found) != 1:
+        raise AssertionError(f"near_field mutual: {len(found)} kernels "
+                             f"match {K1_MUTUAL_INSTANCE} in the SASS")
+    regs, smem = usage.get(found[0], (None, None))
+    for rec in loops[found[0]]["loops"]:
+        kind = "mutual" if "STS" in rec["opcodes"] else "one-way"
+        per_pair["near_field"][f"sass_per_pair_{kind}_r4"] = rec["per_pair"]
+        log(f"SASS near_field mutual form, {kind} loop "
+            f"({K1_MUTUAL_INSTANCE}): {rec['instructions']} instructions, "
+            f"{rec['pairs']} MUFU.RSQ, {rec['per_pair']:.3f} a pair term "
+            f"(mutual: an unordered pair); {regs} registers; "
             f"{json.dumps(rec['opcodes'])}")
     found = [m for m in loops if K3_CROSS_INSTANCE in m]
     if len(found) != 1:
@@ -3078,6 +3114,133 @@ def phase_budget_heal():
         del state
 
 
+# ------------------------------------------ K1's mutual form (phase 22)
+def k1_pair_lists(cfg, state, staged):
+    """Sorted particles and the whole-set near lists of cfg (calibrated
+    budgets) at state, dense or staged, with both forms' work items: the
+    one-way items (`near_work(nv)`) and the mutual ones the paths build
+    (`near_work(nv, ni, sources=)`)."""
+    leaf = cfg.resolve_bh_leaf_size()
+    pos_s, mass_s, _, tree, _, n_pad = bh._prepare(
+        state.pos, state.mass, leaf_size=leaf, curve=cfg.bh_curve,
+        multipole_order=cfg.bh_multipole, max_levels=cfg.bh_max_levels)
+    n_leaves = n_pad // leaf
+    kw = dict(theta=cfg.theta, start_leaf=0, n_slice=n_leaves,
+              near_budget=cfg.bh_near_budget, dtype=torch.float32)
+    if staged:
+        far, rej = bh.traverse(tree, cfg.theta, stop_level=2)
+        ni, nv, *_, of = bh.build_interaction_lists_staged(
+            tree, far, rej, far_budget=cfg.bh_far_budget,
+            cand2_budget=cfg.bh_cand2_budget,
+            cand1_budget=cfg.bh_cand_budget, octet_far=True, **kw)
+    else:
+        far, rej = bh.traverse(tree, cfg.theta)
+        ni, nv, *_, of = bh.build_interaction_lists_octet(
+            tree, far, rej, far_budget=cfg.bh_far_budget, **kw)
+    if int(of) != 0:
+        raise AssertionError(f"list overflow {int(of)} at calibrated budgets")
+    del far, rej, tree
+    return dict(pos_s=pos_s, mass_s=mass_s,
+                tgt=pos_s.reshape(n_leaves, leaf, 3), ni=ni, nv=nv,
+                one_way=bh_kernels.near_work(nv),
+                mutual=bh_kernels.near_work(nv, ni,
+                                            sources=(n_leaves, leaf)))
+
+
+def phase_k1_pairs():
+    """K1's mutual form (each mutual leaf pair once) against its one-way
+    form on the 1M lists and the 8M staged lists (leaf 128, the benchmark
+    cell's, and 256): each form timed in K1_PAIR_ROUNDS rounds of
+    alternating KERNEL_REPS launches, against the FP32 bound of the
+    ordered pair terms served (both forms serve the same: a served-term
+    rate), and the mutual form against the FP32 bound of the work it does
+    (its mutual terms at FLOPS_MUTUAL, the one-way terms at 18); the forms
+    held to each other in full and to the plain version on sampled rows; the
+    mutual share 2 sym / entries; the work items' build time (host wait
+    included) and the mutual form's partial slots. Returns one record a
+    list set."""
+    dev = torch.device(DEVICE)
+    out = {}
+    for label, path, leaf, staged in K1_PAIR_LISTS:
+        with open(path) as f:
+            cfg = SimConfig.from_json(f.read())
+        if leaf is not None:
+            cfg = cfg.replace(bh_leaf_size=leaf)
+        if staged:
+            cfg = cfg.replace(bh_refine="staged")
+        t0 = time.perf_counter()
+        state = init_simulation(cfg, dev, compute_forces=False)
+        cfg = calibrate_budgets(cfg, state)
+        L = k1_pair_lists(cfg, state, staged)
+        del state
+        torch.cuda.synchronize()
+        n_leaves, G, _ = L["tgt"].shape
+        one, mut = L["one_way"], L["mutual"]
+        kw = dict(g=cfg.g, softening=cfg.softening, compute_pot=False)
+        full = near_args(L)
+        forms = {"one_way": lambda: bh_kernels.near_field(*full, work=one,
+                                                          **kw),
+                 "mutual": lambda: bh_kernels.near_field(*full, work=mut,
+                                                         **kw)}
+        got = {name: fn() for name, fn in forms.items()}
+        err = max_err(f"K1 mutual against one-way, {label}", got["mutual"],
+                      got["one_way"])
+        rows = torch.linspace(0, n_leaves - 1, STAGED_SAMPLE_ROWS,
+                              device=dev).long()
+        want = bh_kernels.near_field_plain(*near_args(L, rows), **kw)
+        rows_g = (rows[:, None] * G + torch.arange(G, device=dev)).reshape(-1)
+        err = max(err, max_err(f"K1 mutual against plain, {label}",
+                               tuple(t[rows_g] for t in got["mutual"]),
+                               want))
+        del got, want
+        repeat_equal(f"K1 mutual {label}", forms["mutual"])
+        times = {name: [] for name in forms}
+        for _ in range(K1_PAIR_ROUNDS):
+            for name in ("one_way", "mutual", "mutual", "one_way"):
+                forms[name]()                                    # warm-up
+                times[name].append(cuda_ms(forms[name], KERNEL_REPS)[1])
+        work = list_work("near_field", L)
+        rec = {"leaves": n_leaves, "leaf": G, "entries": one.entries,
+               "sym_entries": mut.sym_entries,
+               "paired": 2 * mut.sym_entries / one.entries,
+               "n_partial": mut.n_partial,
+               "slot_bytes": mut.n_partial * G * 16,
+               "items": [one.items.shape[0], mut.items.shape[0],
+                         mut.pairs.shape[0]],
+               "max_abs_err": err, "bound_ms": work["bound_ms"]}
+        for name, ms in times.items():
+            rec[f"{name}_ms"] = ms
+            rec[f"{name}_share"] = [work["bound_ms"] / m for m in ms]
+        rec["mutual_work_bound_ms"] = G * G * (
+            (one.entries - 2 * mut.sym_entries) * FLOPS_MONOPOLE +
+            mut.sym_entries * FLOPS_MUTUAL) / FP32_FLOPS * 1e3
+        rec["mutual_work_share"] = [rec["mutual_work_bound_ms"] / m
+                                    for m in rec["mutual_ms"]]
+        for name, fn in (("one_way", lambda: bh_kernels.near_work(L["nv"])),
+                         ("mutual", lambda: bh_kernels.near_work(
+                             L["nv"], L["ni"], sources=(n_leaves, G)))):
+            fn()                                                  # warm-up
+            rec[f"{name}_work_ms"] = cuda_ms(fn, KERNEL_REPS)[1]
+        log(f"K1 forms on the {label} lists ({n_leaves} leaves of {G}, "
+            f"near budget {cfg.bh_near_budget}, {one.entries} entries, "
+            f"share in mutual pairs {rec['paired']:.4f}; "
+            f"{time.perf_counter() - t0:.1f} s): one-way "
+            f"{rec['one_way_ms']} ms (share {rec['one_way_share']}), mutual "
+            f"{rec['mutual_ms']} ms (served-term rate "
+            f"{rec['mutual_share']}; {rec['mutual_work_share']} of its "
+            f"work's bound, {rec['mutual_work_bound_ms']:.3f} ms), bound "
+            f"{rec['bound_ms']:.3f} ms; items one-way {rec['items'][0]}, "
+            f"mutual form {rec['items'][1]} one-way + {rec['items'][2]} "
+            f"mutual; {mut.n_partial} slots ({rec['slot_bytes']:.4e} B); "
+            f"built in {rec['one_way_work_ms']:.3f} / "
+            f"{rec['mutual_work_ms']:.3f} ms; max abs err {err:.3e}")
+        out[label] = rec
+        del L, one, mut, full, forms
+        torch.cuda.empty_cache()
+    print(json.dumps({"k1_pairs": out}), flush=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_environment()
@@ -3144,6 +3307,7 @@ def main():
     launches["near_field_table"] = dist["LET example"]["launches"][
         "near_field_table"]
     kernels.update(phase_near_experiments())
+    kernels["near_field"]["mutual_form"] = phase_k1_pairs()
     for name in EXP_KERNELS:
         launches[name] = kernels[name].pop("launches")
         kernels[name].update(per_pair.get(name, {}))
@@ -3189,5 +3353,9 @@ if __name__ == "__main__":
         phase_environment()
         build.load_library()
         phase_budget_heal()
+    elif sys.argv[1:2] == [K1_PAIRS_ARG]:
+        phase_environment()
+        phase_build()
+        phase_k1_pairs()
     else:
         main()

@@ -399,7 +399,8 @@ def _make_run_reuse(cfg: SimConfig, n_steps: int, report_overflow: bool,
         plan = bh.bh_plan_lists(
             tree, theta=cfg.theta, near_budget=cfg.resolve_bh_near_budget(),
             far_budget=cfg.resolve_bh_far_budget(), refine=refine,
-            cand_budgets=cands, dtype=pos.dtype, sections=sections, heal=heal)
+            cand_budgets=cands, dtype=pos.dtype, sections=sections, heal=heal,
+            leaf_size=leaf)
 
         def accel_fn(p):
             with span("force"):

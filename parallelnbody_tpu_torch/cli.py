@@ -601,6 +601,11 @@ def _run_body(args, cfg, device, group) -> int:
                             after["host_reads"] - before["host_reads"]) / k
                         record["bh_heals"] = (after["bh.heals"]
                                               - before["bh.heals"])
+                        # K1's pair terms served, and those evaluated once
+                        # for both leaves (the mutual form, on the card).
+                        for c in ("k1.pair_terms", "k1.sym_terms"):
+                            record[c.replace(".", "_")] = (after[c]
+                                                           - before[c])
                     if ovf_total:
                         record["bh_overflow"] = ovf_total
                     metrics.log(record)

@@ -65,6 +65,39 @@
 //     ones (R = 4), and every C from 8 to 64 lost the tail and ran within
 //     the spread between runs; C = 32 keeps the items few (3.5 a row at
 //     N = 1M) and the partial buffer at 60 MB there.
+//
+// Mutual form (Newton's third law; the overload of near_field_kernel with
+// three template parameters). Where the lists cover every leaf and the
+// targets are the sources, most entries come in mirror pairs: s is in t's
+// list and t in s's (on Plummer spheres at theta 0.72, 0.79 of the entries
+// at N = 262144 and 0.94 at 8M, leaf 128; 0.75 at 1M, leaf 256). The
+// wrapper's bh_kernels.near_pairs keeps the copy with
+// t < s as a mutual entry of row t and drops the mirror; the self entry
+// and the rest stay one-way. A mutual item evaluates each pair (i of t, j
+// of s) once, terms.cuh mutual_term (8.82 SASS instructions an ordered pair
+// in K3, against the one-way loop's 13.3), and adds it to both bodies:
+//   * A block is one warp of T = ceil(G / R) <= 32 threads, R the fewest
+//     targets a thread that fit the leaf (4 at G = 128), with t's bodies
+//     and their masses in registers (targets past G massless).
+//   * The source tile streams through the cp.async ring as in sweep_tiles,
+//     padded to T R bodies (zero past G); its sums sit in shared memory,
+//     laid out as T groups of R bodies (group g: g, g + T, ...). In step
+//     k = 0 .. T - 1 lane l updates group (l + k) mod T, so no two lanes
+//     add to one sum at once, and the T lanes read and write T consecutive
+//     float4 (no bank conflicts). A step loads its R sources and their
+//     sums, adds the R^2 pairs and stores the sums: 3 R shared-memory
+//     accesses for R^2 pairs, 18.6 SASS instructions an unordered pair at
+//     R = 4. On the card (8M lists, leaf 128; PERF.md §6) that ran 3-4%
+//     under one source loaded and stored at a time, and a ring of 2 tiles
+//     (more blocks an SM) or 64 registers ran slower.
+//   * After the tile the source-side sums go to their partial slot (one
+//     G-float4 slot a mutual entry); near_combine_kernel adds a row's own
+//     items' partials in chunk order, then the slots of the mutual entries
+//     that name it, in ascending partner order. No float atomics: the
+//     output is bit-equal from run to run.
+// The one launch runs the mutual items (blocks 0 .. n_pairs - 1, longest
+// first) and then the one-way items, whose sweep is the one-way kernel's
+// on a flat list of source leaves.
 
 #include <cuda_runtime.h>
 
@@ -162,6 +195,124 @@ __global__ void near_combine_kernel(const float4* __restrict__ partial,
                                 g, s);
 }
 
+// Sweeps the n mutual entries list[0 .. n) of a block's target leaf,
+// whose bodies t (masses m, zero past G) are the leaf's own, through a
+// ring of pnb::kStages tiles of W = T R float4 and a W-float4 tile of
+// source-side sums (ring: (kStages + 1) W float4): each pair once, added to
+// t.s and to the source's sum, which goes to partial slot slots[k].
+template <int R, bool GUARD_ZERO, bool COMPUTE_POT>
+__device__ __forceinline__ void mutual_tiles(
+    float4* ring, const float4* __restrict__ table, const int* list,
+    const int* slots, int n, int G, float4* __restrict__ partial,
+    float eps2, pnb::Targets<R>& t, const float (&m)[R]) {
+  constexpr int S = pnb::kStages;
+  const int T = blockDim.x;
+  const int W = T * R;
+  const unsigned lanes = T == 32 ? 0xffffffffu : (1u << T) - 1;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4* js = ring + S * W;
+  for (int q = threadIdx.x; q < W; q += T) js[q] = zero;
+  auto stage = [&](int k) {
+    const float4* src = table + (long long)list[k] * G;
+    float4* d = ring + (k % S) * W;
+    for (int q = threadIdx.x; q < W; q += T) {
+      if (q < G)
+        pnb::cp_async16(d + q, src + q);
+      else
+        d[q] = zero;
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < S - 1; ++k) {
+    if (k < n) stage(k);
+    pnb::cp_async_commit();
+  }
+  for (int k = 0; k < n; ++k) {
+    pnb::cp_async_wait<S - 2>();  // this thread's copies of tile k landed
+    __syncthreads();  // everyone's have; tile k - 1 swept, js zeroed
+    if (k + S - 1 < n) stage(k + S - 1);
+    pnb::cp_async_commit();
+    const float4* jp = ring + (k % S) * W;
+    for (int step = 0; step < T; ++step) {
+      int grp = threadIdx.x + step;
+      if (grp >= T) grp -= T;
+      float4 pj[R], sj[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        pj[q] = jp[grp + q * T];
+        sj[q] = js[grp + q * T];
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          pnb::mutual_term<GUARD_ZERO, COMPUTE_POT>(
+              t.x[r], t.y[r], t.z[r], m[r], t.s[r], pj[q], eps2, sj[q]);
+#pragma unroll
+      for (int q = 0; q < R; ++q) js[grp + q * T] = sj[q];
+      __syncwarp(lanes);  // the group a lane takes next was its neighbour's
+    }
+    float4* dst = partial + (long long)slots[k] * G;
+    for (int q = threadIdx.x; q < W; q += T) {
+      if (q < G) dst[q] = js[q];
+      js[q] = zero;
+    }
+  }
+}
+
+// The mutual form's launch: blocks [0, n_pairs) take the mutual items
+// `pairs`, the rest the one-way items `items`, both (row, begin, end, dst)
+// over the flat list srcs of source leaves (slot_of: a mutual entry's
+// slot). T = ceil(G / R) <= 32 threads a block.
+template <int R, bool GUARD_ZERO, bool COMPUTE_POT>
+__global__ void __launch_bounds__(32)
+    near_field_kernel(const float4* __restrict__ table,
+                      const int* __restrict__ srcs,
+                      const int* __restrict__ slot_of,
+                      const int4* __restrict__ pairs, int n_pairs,
+                      const int4* __restrict__ items,
+                      float* __restrict__ acc, float* __restrict__ pot,
+                      float4* __restrict__ partial, int leaf_size, float g,
+                      float eps2) {
+  extern __shared__ float4 ring[];
+  const bool mutual = (int)blockIdx.x < n_pairs;
+  const int4 item = mutual ? pairs[blockIdx.x] : items[blockIdx.x - n_pairs];
+  const int G = leaf_size;
+  const long long first = (long long)item.x * G;
+  pnb::Targets<R> t;
+  float m[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = threadIdx.x + r * blockDim.x;
+    const float4 p = table[first + (i < G ? i : 0)];
+    t.x[r] = p.x;
+    t.y[r] = p.y;
+    t.z[r] = p.z;
+    m[r] = i < G ? p.w : 0.f;
+    t.s[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int* list = srcs + item.y;
+  if (mutual)
+    mutual_tiles<R, GUARD_ZERO, COMPUTE_POT>(ring, table, list,
+                                             slot_of + item.y,
+                                             item.z - item.y, G, partial,
+                                             eps2, t, m);
+  else
+    pnb::sweep_tiles<R, GUARD_ZERO, COMPUTE_POT>(
+        ring, G, item.z - item.y,
+        [&](int k) { return table + (long long)list[k] * G; },
+        [&](int) { return G; }, eps2, t);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = threadIdx.x + r * blockDim.x;
+    if (i >= G) continue;
+    if (item.w < 0)
+      store_row<COMPUTE_POT, false>(acc, pot, first + i, g, t.s[r]);
+    else
+      partial[(long long)item.w * G + i] = t.s[r];
+  }
+}
+
 template <int R, bool GUARD_ZERO, bool COMPUTE_POT, bool ACCUM>
 cudaError_t launch(const float4* table, const float* tgt, const int* idx,
                    const int4* items, const int* splits, float* acc,
@@ -170,7 +321,9 @@ cudaError_t launch(const float4* table, const float* tgt, const int* idx,
                    float eps2, cudaStream_t stream) {
   const int threads = (leaf_size + R - 1) / R;
   const size_t smem = (size_t)pnb::kStages * leaf_size * sizeof(float4);
-  auto kernel = near_field_kernel<R, GUARD_ZERO, COMPUTE_POT, ACCUM>;
+  void (*kernel)(const float4*, const float*, const int*, const int4*,
+                 float*, float*, float4*, int, int, int, float, float) =
+      near_field_kernel<R, GUARD_ZERO, COMPUTE_POT, ACCUM>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -182,6 +335,36 @@ cudaError_t launch(const float4* table, const float* tgt, const int* idx,
   if (n_split > 0) {
     const long long n = (long long)n_split * leaf_size;
     near_combine_kernel<COMPUTE_POT, ACCUM><<<(int)((n + 255) / 256), 256,
+                                              0, stream>>>(
+        partial, splits, acc, pot, n_split, leaf_size, g);
+  }
+  return cudaGetLastError();
+}
+
+template <int R, bool GUARD_ZERO, bool COMPUTE_POT>
+cudaError_t launch_pairs(const float4* table, const int* srcs,
+                         const int* slot_of, const int4* pairs,
+                         const int4* items, const int* splits, float* acc,
+                         float* pot, float4* partial, int n_pairs,
+                         int n_items, int n_split, int leaf_size, float g,
+                         float eps2, cudaStream_t stream) {
+  const int threads = (leaf_size + R - 1) / R;
+  const size_t smem =
+      (size_t)(pnb::kStages + 1) * threads * R * sizeof(float4);
+  void (*kernel)(const float4*, const int*, const int*, const int4*, int,
+                 const int4*, float*, float*, float4*, int, float, float) =
+      near_field_kernel<R, GUARD_ZERO, COMPUTE_POT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<n_pairs + n_items, threads, smem, stream>>>(
+      table, srcs, slot_of, pairs, n_pairs, items, acc, pot, partial,
+      leaf_size, g, eps2);
+  if (n_split > 0) {
+    const long long n = (long long)n_split * leaf_size;
+    near_combine_kernel<COMPUTE_POT, false><<<(int)((n + 255) / 256), 256,
                                               0, stream>>>(
         partial, splits, acc, pot, n_split, leaf_size, g);
   }
@@ -237,6 +420,50 @@ extern "C" int pnb_near_field(const void* table, const void* tgt,
     case 1: return with_r(std::integral_constant<int, 1>());
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The mutual form (bh_kernels.near_pairs' work): table (n_pad, 4), srcs and
+// slot_of (n_served,), pairs (n_pairs, 4), items (n_items, 4), splits
+// (n_split, 3), partial (n_partial, leaf_size, 4); leaf_size <= 256.
+extern "C" int pnb_near_field_pairs(const void* table, const void* srcs,
+                                    const void* slot_of, const void* pairs,
+                                    const void* items, const void* splits,
+                                    void* acc, void* pot, void* partial,
+                                    int n_pairs, int n_items, int n_split,
+                                    int leaf_size, float g, float eps2,
+                                    int guard_zero, int compute_pot,
+                                    void* stream) {
+  if (n_pairs + n_items <= 0) return (int)cudaSuccess;
+  auto tb = static_cast<const float4*>(table);
+  auto sr = static_cast<const int*>(srcs);
+  auto so = static_cast<const int*>(slot_of);
+  auto pr = static_cast<const int4*>(pairs);
+  auto it = static_cast<const int4*>(items);
+  auto sp = static_cast<const int*>(splits);
+  auto a = static_cast<float*>(acc);
+  auto ph = static_cast<float*>(pot);
+  auto pa = static_cast<float4*>(partial);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto fn) {
+    return (int)fn(tb, sr, so, pr, it, sp, a, ph, pa, n_pairs, n_items,
+                   n_split, leaf_size, g, eps2, st);
+  };
+  auto with_r = [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (guard_zero)
+      return compute_pot ? go(launch_pairs<R, true, true>)
+                         : go(launch_pairs<R, true, false>);
+    return compute_pot ? go(launch_pairs<R, false, true>)
+                       : go(launch_pairs<R, false, false>);
+  };
+  // The fewest targets a thread that fit the leaf in one warp
+  // (bh_kernels.pair_targets).
+  if (leaf_size <= 0) return (int)cudaErrorInvalidValue;
+  if (leaf_size <= 32) return with_r(std::integral_constant<int, 1>());
+  if (leaf_size <= 64) return with_r(std::integral_constant<int, 2>());
+  if (leaf_size <= 128) return with_r(std::integral_constant<int, 4>());
+  if (leaf_size <= 256) return with_r(std::integral_constant<int, 8>());
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* pnb_error_string(int err) {

@@ -33,6 +33,10 @@ _F = ctypes.c_float
 _SIGNATURES = (
     ("pnb_near_field",
      [_VP] * 8 + [_I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _VP], _I),
+    ("pnb_near_field_pairs",
+     [_VP] * 9 + [_I, _I, _I, _I, _F, _F, _I, _I, _VP], _I),
+    ("pnb_near_pairs_count", [_VP] * 8 + [_I, _I, _I, _VP], _I),
+    ("pnb_near_pairs_emit", [_VP] * 10 + [_I, _I, _I, _I, _VP], _I),
     ("pnb_far_octet",
      [_VP] * 7 + [_I, _I, _I, _I, _F, _F, _I, _I, _VP], _I),
     ("pnb_allpairs",

@@ -911,7 +911,9 @@ def _forces_sorted(pos_s, mass_s, tree, far_masks, rejects, *, start_leaf,
                     tree, far_masks, rejects, far0_budget=budgets["far"],
                     **kw)
             overflow = lists[-1]
-            work = bh_kernels.near_work(lists[1], overflow=overflow)
+            work = bh_kernels.near_work(lists[1], lists[0],
+                                        overflow=overflow,
+                                        sources=(n_leaves, leaf_size))
             return (lists, work), _clip_count(work, overflow)
 
     budgets = {"near": near_budget, "far": far0_budget,
@@ -1137,7 +1139,7 @@ class BHListPlan(NamedTuple):
 
 
 def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
-                  refine, cand_budgets, dtype, sections=1,
+                  refine, cand_budgets, dtype, leaf_size, sections=1,
                   heal=None) -> BHListPlan:
     """Traverse + build the octet-far interaction lists for ALL target
     leaves of `tree`: the geometry half of bh_accel, used by the
@@ -1156,7 +1158,12 @@ def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
     again at grown budgets, from the traversal already made where there is
     one window (it does not depend on the budgets). The clip count rides
     on each window's read of K1's item sizes; the plan's overflow is that
-    of the lists it holds."""
+    of the lists it holds.
+
+    leaf_size: the tree's leaf size. One window's lists cover every leaf
+    and get K1's mutual items (`bh_kernels.near_work(sources=)`), which
+    evaluate each mutual leaf pair once; several windows' get the one-way
+    items."""
     n_leaves = tree.com[0].shape[0]
     stop = 1 if refine == "dense" else 2
     windows = _windows(n_leaves, sections)
@@ -1186,7 +1193,8 @@ def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
                         **kw)
                 del far_masks, rejects
                 parts.append((ni, nv, fk, fv, of))
-                works.append(bh_kernels.near_work(nv, overflow=of))
+                works.append(bh_kernels.near_work(
+                    nv, ni, overflow=of, sources=(n_leaves, leaf_size)))
                 clipped += _clip_count(works[-1], of)
                 orders.append(bh_kernels.far_order(fv))
         ni, nv, fk, fv, ofs = zip(*parts)
@@ -1224,7 +1232,8 @@ def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
     of real rows (pads sit at rows [n_live:] and must not widen the domain
     cube). sections > 1 evaluates the target windows one after the other,
     each with the work items and launch order the plan built for it;
-    physics identical to the unsectioned evaluation."""
+    physics identical to the unsectioned evaluation (whose mutual K1 items
+    round differently)."""
     n_leaves = pos_s.shape[0] // leaf_size
     nodes8 = _refresh_nodes8(pos_s, mass_s, leaf_size=leaf_size,
                              multipole=multipole, max_levels=max_levels,
@@ -1504,7 +1513,8 @@ def measure_import_requirement(pos, mass, cfg, n_ranks: int) -> dict:
     plan = bh_plan_lists(
         tree, theta=cfg.theta, near_budget=cfg.resolve_bh_near_budget(),
         far_budget=cfg.resolve_bh_far_budget(), refine=refine,
-        cand_budgets=cands, dtype=pos.dtype, sections=sections)
+        cand_budgets=cands, dtype=pos.dtype, leaf_size=leaf_size,
+        sections=sections)
     ni = plan.near_idx.cpu().numpy()
     nv = plan.near_valid.cpu().numpy()
     l_loc = -(-n_leaves // n_ranks)

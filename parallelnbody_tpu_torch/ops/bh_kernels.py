@@ -18,6 +18,10 @@ n_shard_leaves), list entries outside the window skipped (the ring near
 field of parallel/distributed.py); and the table form (`src_table=`), a
 prebuilt packed (n_rows * G, 4) [x, y, z, m] source table, entries past its
 last row skipped (the LET near field). Each form has its own launch count.
+On lists that cover every leaf and whose targets are the sources, the
+unwindowed form evaluates each mutual leaf pair once for both leaves
+(`near_pairs`, Newton's third law); the other forms, and target windows
+of a sectioned evaluation, keep the one-way form.
 
 All three return the list sums scaled as the JAX package's `_unpack` does:
 acc = g * [sum w dx, sum w dy, sum w dz] and pot = -g * sum m u, with
@@ -33,7 +37,8 @@ ops/bh.py); on a CUDA device it launches its kernel or raises. There is no
 fallback from one to the other. `LAUNCHES` counts kernel launches per
 wrapper. K1's wrapper runs in a `bh.near` span, and it (the card) or
 `near_field_plain` (the CPU) counts the pair terms evaluated
-("k1.pair_terms", live list entries x G^2); K2's and K4's run in a
+("k1.pair_terms", live list entries x G^2; "k1.sym_terms", the mutual
+entries x G^2 of the mutual form); K2's and K4's run in a
 `bh.far` span and, while tracing is on, count their node x target terms
 ("far.terms", on the device); K1's item sizes reach the host through
 `host_read`
@@ -53,11 +58,18 @@ from parallelnbody_tpu_torch.utils.profiling import is_tracing, span
 
 LAUNCHES = {"near_field": 0, "near_field_window": 0, "near_field_table": 0,
             "far_octet": 0, "far_gather": 0}
+# Launches of the mutual form's pairing (csrc/near_pairs.cu), two C calls
+# a list build.
+PAIR_LAUNCHES = {"near_pairs": 0}
 
 # K1 work-item length: a near-list row is cut into items of at most this
 # many source leaves, one block each (csrc/near_field.cu; chosen on the card,
 # PERF.md §6).
 NEAR_CHUNK = 32
+# The largest leaf at which K1 evaluates mutual leaf pairs once
+# (`near_pairs`): a block is then one warp of ceil(G / R) <= 32 threads,
+# R <= 8 targets each, whose lanes rotate over the source tile's sums.
+PAIR_LEAF_MAX = 256
 # The window form sizes each window's items and blocks by the window's own
 # work (`window_shape`): (targets a thread R, entries an item C) in the
 # order tried. A heavy window keeps the unwindowed form's one-warp blocks;
@@ -101,6 +113,17 @@ class NearWork:
     # The list build's clip counter, read with the item sizes
     # (near_work(overflow=)); None where none was asked for.
     overflow: int | None = None
+    # The mutual form (`near_pairs`), None elsewhere: the source leaves of
+    # the served entries in one flat list (each row's one-way run, then
+    # its mutual run; `items` and `pairs` index it), the partial slot that
+    # takes each mutual entry's source-side sums (`slot_of`, beside
+    # `srcs`), and the mutual items (n_pairs, 4) int32 [row, begin, end,
+    # dst], longest first.
+    srcs: torch.Tensor | None = None
+    slot_of: torch.Tensor | None = None
+    pairs: torch.Tensor | None = None
+    # Mutual entries: unordered leaf pairs evaluated once for both leaves.
+    sym_entries: int = 0
 
     def __iter__(self):
         return iter((self.items, self.splits, self.n_partial))
@@ -110,8 +133,9 @@ class NearWork:
 
 
 def reset_launch_counts():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, PAIR_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 # Element budget of one plain-version temporary plane (list entries x G
@@ -361,6 +385,34 @@ def _sizes_of(row, k, every_row):
     return n_items + (row[2] if every_row else 0), n_partial, n_split, row[0]
 
 
+def _cut(counts, n_chunks, chunk, n_items, lo, dst0):
+    """The items (n_items, 4) int64 [row, begin, end, dst] that cut each
+    row's run of counts (L,) entries into n_chunks (L,) items of at most
+    `chunk`, longest first (a stable sort, so a row's items keep their
+    order among equals). begin / end count from lo (L,) (None: 0); an
+    item's dst is dst0[row] + its chunk number where dst0[row] >= 0, else
+    -1 (the row's single item, which stores the row)."""
+    dev = counts.device
+    first_item = torch.cumsum(n_chunks, 0) - n_chunks
+    rows = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev),
+                                   n_chunks, output_size=n_items)
+    k = torch.arange(n_items, device=dev) - first_item[rows]
+    begin = k * chunk
+    end = torch.minimum(begin + chunk, counts[rows])
+    dst = torch.where(dst0[rows] >= 0, dst0[rows] + k, -1)
+    order = torch.sort(end - begin, descending=True, stable=True).indices
+    if lo is not None:
+        start = lo.to(torch.int64)[rows]
+        begin, end = begin + start, end + start
+    return torch.stack([rows, begin, end, dst], dim=1)[order]
+
+
+def _rows_where(mask, n):
+    """The n rows where mask (L,) is True, ascending, without a sync of
+    their own."""
+    return torch.sort((~mask).to(torch.int8), stable=True).indices[:n]
+
+
 def near_items(counts, chunk, lo=None, sizes=None, r=0, every_row=True,
                overflow=None):
     """K1's work items from the live length counts (L,) of front-packed
@@ -385,7 +437,6 @@ def near_items(counts, chunk, lo=None, sizes=None, r=0, every_row=True,
     clip counter) read in the same read, into NearWork.overflow; only
     where the sizes are read here."""
     counts = counts.to(torch.int64)
-    dev = counts.device
     n_chunks = (counts + chunk - 1) // chunk
     if every_row:
         n_chunks = torch.clamp(n_chunks, min=1)
@@ -398,22 +449,10 @@ def near_items(counts, chunk, lo=None, sizes=None, r=0, every_row=True,
         if overflow is not None:
             overflow = row[-1]
     n_items, n_partial, n_split, entries = sizes
-    first_item = torch.cumsum(n_chunks, 0) - n_chunks
     first_slot = torch.cumsum(split_n, 0) - split_n
-    rows = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev),
-                                   n_chunks, output_size=n_items)
-    k = torch.arange(n_items, device=dev) - first_item[rows]
-    begin = k * chunk
-    end = torch.minimum(begin + chunk, counts[rows])
-    dst = torch.where(split[rows], first_slot[rows] + k, -1)
-    order = torch.sort(end - begin, descending=True, stable=True).indices
-    if lo is not None:
-        start = lo.to(torch.int64)[rows]
-        begin, end = begin + start, end + start
-    items = torch.stack([rows, begin, end, dst], dim=1)[order]
-    # The split rows in ascending order, without a sync of their own.
-    split_rows = torch.sort((~split).to(torch.int8), stable=True).indices[
-        :n_split]
+    items = _cut(counts, n_chunks, chunk, n_items, lo,
+                 torch.where(split, first_slot, -1))
+    split_rows = _rows_where(split, n_split)
     splits = torch.stack([split_rows, first_slot[split_rows],
                           n_chunks[split_rows]], dim=1)
     return NearWork(items.to(torch.int32).contiguous(),
@@ -422,7 +461,152 @@ def near_items(counts, chunk, lo=None, sizes=None, r=0, every_row=True,
                     overflow=overflow)
 
 
-def near_work(valid, idx=None, id_range=None, overflow=None):
+def pair_targets(leaf_size):
+    """Targets a thread of K1's mutual form at this leaf size: the fewest
+    of 1, 2, 4, 8 that fit the leaf in one warp (csrc/near_field.cu); 0
+    above PAIR_LEAF_MAX, where the form does not run."""
+    for r in (1, 2, 4, 8):
+        if leaf_size <= 32 * r:
+            return r
+    return 0
+
+
+def near_pairs(idx, valid, chunk=NEAR_CHUNK, overflow=None):
+    """K1's work items in the mutual form, for front-packed ascending near
+    lists idx/valid (L, B) over all L leaves whose rows are those leaves
+    themselves (targets = sources). A live entry (t, s) is mutual where
+    t != s and t is in s's list too: the copy with t < s is kept as a
+    mutual entry of row t, which K1 evaluates once for both leaves
+    (Newton's third law), and the mirror (s, t) is dropped from s's work.
+    Every other entry, the self entry (t, t) among them, is one-way.
+
+    Each row's one-way entries, then its mutual ones, go into one flat
+    list (NearWork.srcs), both in list order, and are cut as near_items
+    cuts a row: one-way items of at most `chunk` entries (an empty run
+    one empty item, which writes its zeros), mutual items likewise (none
+    for an empty run), each kind longest first. A row whose one item is
+    all its work (one-way, nothing incoming) stores its output; every
+    other row gets a run of partial slots that the combining pass adds in
+    order: its one-way items', its mutual items' (chunk order), then the
+    source-side sums of the mutual entries that name it, one slot each,
+    in ascending partner order (NearWork.slot_of: the slot of each kept
+    entry).
+
+    On CUDA tensors the pairing runs in csrc/near_pairs.cu (two C calls,
+    three launches, then one stable sort of the items by length); the
+    sizes (with `overflow`, as near_items reads it) reach the host in one
+    `host_read` between them. Elsewhere it runs in torch ops, which the
+    card tests hold the kernels to item for item: the mirrors are found by
+    one search of the row-major keys t (L + 1) + s, ascending because the
+    lists are, for s (L + 1) + t, and after the one `host_read` the
+    entries are compacted at the sizes read (nonzero_static: no wait of
+    its own)."""
+    if valid.device.type == "cuda":
+        return _near_pairs_cuda(idx, valid, chunk, overflow)
+    n_rows, budget = valid.shape
+    dev = valid.device
+    n_all = n_rows * budget
+    t = torch.arange(n_rows, device=dev)[:, None]
+    s = idx.to(torch.int64)
+    keys = (t * (n_rows + 1) + torch.where(valid, s, n_rows)).reshape(-1)
+    want = (s * (n_rows + 1) + t).reshape(-1)
+    at = torch.searchsorted(keys, want, out_int32=True).clamp_(max=n_all - 1)
+    # A dead entry's key names no leaf, so only live entries are hit.
+    hit = (keys[at] == want).reshape(n_rows, budget) & valid
+    del keys, want
+    keep, drop = hit & (s > t), hit & (s < t)
+    del s, hit
+    one = valid & ~(keep | drop)
+    n_keep, n_in = keep.sum(1), drop.sum(1)
+    counts = valid.sum(1)
+    n_one = counts - n_keep - n_in
+    one_items = torch.clamp((n_one + chunk - 1) // chunk, min=1)
+    keep_items = (n_keep + chunk - 1) // chunk
+    own = one_items + keep_items
+    block = torch.where(own + n_in > 1, own + n_in, 0)
+    first = torch.cumsum(block, 0) - block
+    served = n_one + n_keep
+    base = torch.cumsum(served, 0) - served
+    extra = [] if overflow is None else [overflow.reshape(())]
+    sizes = host_read(torch.stack([
+        counts.sum(), one_items.sum(), keep_items.sum(), block.sum(),
+        (block > 0).sum(), served.sum(), n_keep.sum(), *extra]))
+    entries, n_items, n_pairs, n_partial, n_split, n_served, n_sym = sizes[:7]
+    # The served entries in list order (each row's one-way entries, then
+    # its kept ones), compacted at the size just read: no wait of its own.
+    pos = torch.nonzero_static(torch.stack([one, keep], dim=1).reshape(-1),
+                               size=n_served).reshape(-1)
+    grid = pos // (2 * budget) * budget + pos % budget
+    srcs = idx.reshape(-1)[grid].contiguous()
+    # The dropped entries in list order are the incoming slots, each row's
+    # in ascending partner order; a kept entry's slot is its mirror's (-1
+    # beside a one-way entry).
+    dropped = torch.nonzero_static(drop.reshape(-1), size=n_sym).reshape(-1)
+    rows_in = dropped // budget
+    in_base = torch.cumsum(n_in, 0) - n_in
+    slot_at = torch.empty(n_all, dtype=torch.int32, device=dev)
+    slot_at[dropped] = ((first + own - in_base)[rows_in] + torch.arange(
+        n_sym, device=dev)).to(torch.int32)
+    slot_of = torch.where(pos // budget % 2 == 1, slot_at[at[grid]],
+                          -1).to(torch.int32)
+    combined = block > 0
+    items = _cut(n_one, one_items, chunk, n_items, base,
+                 torch.where(combined, first, -1))
+    pairs = _cut(n_keep, keep_items, chunk, n_pairs, base + n_one,
+                 first + one_items)
+    split_rows = _rows_where(combined, n_split)
+    splits = torch.stack([split_rows, first[split_rows], block[split_rows]],
+                         dim=1)
+    return NearWork(items.to(torch.int32).contiguous(),
+                    splits.to(torch.int32).contiguous(), n_partial,
+                    r=0, chunk=chunk, entries=entries,
+                    overflow=sizes[7] if overflow is not None else None,
+                    srcs=srcs, slot_of=slot_of,
+                    pairs=pairs.to(torch.int32).contiguous(),
+                    sym_entries=n_sym)
+
+
+def _near_pairs_cuda(idx, valid, chunk, overflow):
+    """near_pairs on the card (csrc/near_pairs.cu): the entries' kinds and
+    the rows' offsets, one read of the sizes, then the served sources,
+    slots, items and splits, and the items' stable sort by length (one-way
+    items first, each kind longest first)."""
+    n_rows, budget = valid.shape
+    dev = valid.device
+    check("idx", idx, torch.int32, (n_rows, budget))
+    check("valid", valid, torch.bool, (n_rows, budget))
+    kind = torch.empty((n_rows, budget), dtype=torch.int8, device=dev)
+    aux = torch.empty((n_rows, budget), dtype=torch.int32, device=dev)
+    rowc = torch.empty((n_rows, 4), dtype=torch.int32, device=dev)
+    offs = torch.empty((n_rows, 8), dtype=torch.int32, device=dev)
+    sizes = torch.empty(8, dtype=torch.int64, device=dev)
+    if overflow is not None:
+        overflow = overflow.reshape(()).to(torch.int64)
+    launch(PAIR_LAUNCHES, "near_pairs", "pnb_near_pairs_count", ptr(idx),
+           ptr(valid), ptr(kind), ptr(aux), ptr(rowc), ptr(offs),
+           ptr(sizes), None if overflow is None else ptr(overflow), n_rows,
+           budget, chunk)
+    (entries, n_items, n_pairs, n_partial, n_split, n_served, n_sym,
+     clipped) = host_read(sizes)
+    i32 = dict(dtype=torch.int32, device=dev)
+    srcs = torch.empty(n_served, **i32)
+    slot_of = torch.empty(n_served, **i32)
+    both = torch.empty((n_items + n_pairs, 4), **i32)
+    keys = torch.empty(n_items + n_pairs, **i32)
+    splits = torch.empty((n_split, 3), **i32)
+    launch(PAIR_LAUNCHES, "near_pairs", "pnb_near_pairs_emit", ptr(idx),
+           ptr(kind), ptr(aux), ptr(rowc), ptr(offs), ptr(srcs),
+           ptr(slot_of), ptr(both), ptr(keys), ptr(splits), n_rows, budget,
+           chunk, n_items)
+    both = both[torch.sort(keys, stable=True).indices]
+    return NearWork(both[:n_items], splits, n_partial, r=0, chunk=chunk,
+                    entries=entries,
+                    overflow=clipped if overflow is not None else None,
+                    srcs=srcs, slot_of=slot_of, pairs=both[n_items:],
+                    sym_entries=n_sym)
+
+
+def near_work(valid, idx=None, id_range=None, overflow=None, sources=None):
     """K1's work items (`near_items`, NEAR_CHUNK entries at most) for the
     front-packed near lists whose mask is valid (L, B), where a row's valid
     count is its live length. id_range = (id_lo, id_hi) keeps each row's
@@ -432,12 +616,22 @@ def near_work(valid, idx=None, id_range=None, overflow=None):
     times (the rebuild-interval runs) wait on the host once, not once a
     step. None for CPU lists: `near_field_plain` needs no items.
 
+    sources = (n_leaves, leaf_size) of the sorted particles whose leaves
+    idx names: where the lists' rows are those leaves themselves (L ==
+    n_leaves, no id_range; the targets are the sources) and the leaf size
+    is at most PAIR_LEAF_MAX, the items are `near_pairs`', which evaluate
+    each mutual leaf pair once. Other lists (a target window's rows, the
+    window and table forms), or no idx, get the one-way items.
+
     overflow: the list build's 0-d int64 clip counter, read with the item
     sizes into NearWork.overflow (no read of its own); unwindowed lists
     only."""
     if valid.device.type == "cpu":
         return None
     if id_range is None:
+        if idx is not None and sources is not None and \
+                valid.shape[0] == sources[0] and pair_targets(sources[1]):
+            return near_pairs(idx, valid, NEAR_CHUNK, overflow=overflow)
         return near_items(torch.sum(valid, dim=1), NEAR_CHUNK,
                           overflow=overflow)
     return near_windows(idx, valid, id_range, chunk=NEAR_CHUNK)[0]
@@ -534,7 +728,15 @@ def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
     out = (acc, pot): add this call's sums into them in place (each term
     rounded as if written and then added) and return them; rows with no
     entry are not touched, and pot not at all without the potential. The
-    ring near field accumulates its passes so."""
+    ring near field accumulates its passes so.
+
+    Mutual form: where the lists cover every leaf (n_slice * G == n_pad,
+    neither leaf_lo nor src_table) and the targets are the sources
+    (tgt_leaves is pos_s's own memory), work built here pairs each mutual
+    leaf pair (`near_pairs`, through `near_work(sources=)`) and one launch
+    evaluates it once for both leaves; prebuilt work of that form is taken
+    only there, without out=. It counts "k1.sym_terms" (mutual entries x
+    G^2) beside "k1.pair_terms"."""
     with span("bh.near"):
         if src_table is not None:
             if pos_s is not None or mass_s is not None or \
@@ -569,13 +771,25 @@ def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
         check("valid", valid, torch.bool, (n_slice, budget))
         dev = table.device
         off = int(leaf_lo or 0)
+        whole = (form == "near_field" and out is None and
+                 n_slice * leaf_size == n_pad and
+                 tgt_leaves.data_ptr() == pos_s.data_ptr())
         if work is None and form == "near_field_window":
             work = near_windows(idx, valid, [off, off + n_pad // leaf_size],
                                 writes=() if out is not None else None,
                                 leaf_size=leaf_size)[0]
         elif work is None:
             work = near_work(valid, idx, None if form == "near_field" else
-                             (0, n_pad // leaf_size))
+                             (0, n_pad // leaf_size),
+                             sources=(n_slice, leaf_size) if whole else None)
+        if work.pairs is not None:
+            if not whole:
+                raise ValueError("mutual work items need whole-set lists "
+                                 "whose targets are pos_s's own leaves, and "
+                                 "no out=")
+            return _near_pairs_launch(table, work, n_slice, leaf_size,
+                                      g=g, softening=softening,
+                                      compute_pot=compute_pot)
         items, splits, n_partial = work
         check("work.items", items, torch.int32, (items.shape[0], 4))
         check("work.splits", splits, torch.int32, (splits.shape[0], 3))
@@ -604,6 +818,36 @@ def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
                int(bool(compute_pot)), int(out is not None), work.r)
         COUNTERS["k1.pair_terms"] += work.entries * leaf_size ** 2
         return acc, pot
+
+
+def _near_pairs_launch(table, work, n_slice, leaf_size, *, g, softening,
+                       compute_pot):
+    """K1's mutual form (`near_pairs` items) on the packed table: one
+    launch of both kinds of items and the combining pass."""
+    items, splits, n_partial = work
+    for name, t, cols in (("work.items", items, 4), ("work.pairs",
+                                                      work.pairs, 4),
+                          ("work.splits", splits, 3)):
+        check(name, t, torch.int32, (t.shape[0], cols))
+    n_served = work.srcs.shape[0]
+    check("work.srcs", work.srcs, torch.int32, (n_served,))
+    check("work.slot_of", work.slot_of, torch.int32, (n_served,))
+    dev = table.device
+    partial = torch.empty((n_partial, leaf_size, 4), dtype=torch.float32,
+                          device=dev)
+    acc = torch.empty((n_slice * leaf_size, 3), dtype=torch.float32,
+                      device=dev)
+    pot = torch.empty((n_slice * leaf_size,), dtype=torch.float32,
+                      device=dev)
+    launch(LAUNCHES, "near_field", "pnb_near_field_pairs",
+           ptr(table), ptr(work.srcs), ptr(work.slot_of), ptr(work.pairs),
+           ptr(items), ptr(splits), ptr(acc), ptr(pot), ptr(partial),
+           work.pairs.shape[0], items.shape[0], splits.shape[0], leaf_size,
+           float(g), float(softening) ** 2, int(softening == 0.0),
+           int(bool(compute_pot)))
+    COUNTERS["k1.pair_terms"] += work.entries * leaf_size ** 2
+    COUNTERS["k1.sym_terms"] += work.sym_entries * leaf_size ** 2
+    return acc, pot
 
 
 def far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,

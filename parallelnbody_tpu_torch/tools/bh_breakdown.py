@@ -248,7 +248,8 @@ def phases(pos, mass, spec, run, lists_only=False):
     tgt = pos_s.reshape(n_leaves, leaf, 3)
     fkw = dict(g=spec.g, softening=spec.softening,
                compute_pot=spec.compute_pot)
-    work = run("near_work", lambda: bh_kernels.near_work(nv),
+    work = run("near_work", lambda: bh_kernels.near_work(
+        nv, ni, sources=(n_leaves, leaf)),
                lambda o: {"items": None if o is None else o.items.shape[0]})
     if spec.far_mode == "octet":
         order = run("far_order", lambda: bh_kernels.far_order(fv))

@@ -93,7 +93,8 @@ def make_plan_eval(cfg: SimConfig):
             multipole_order=cfg.bh_multipole, max_levels=cfg.bh_max_levels)
         return pos_s, mass_s, perm, bh.bh_plan_lists(
             tree, theta=cfg.theta, near_budget=near, far_budget=far,
-            refine=refine, cand_budgets=cands, dtype=pos_s.dtype)
+            refine=refine, cand_budgets=cands, dtype=pos_s.dtype,
+            leaf_size=leaf)
 
     def evaluate(pos_s, mass_s, lists):
         return bh.bh_eval_lists(pos_s, mass_s, lists, leaf_size=leaf,

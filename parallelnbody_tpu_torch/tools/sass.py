@@ -76,7 +76,9 @@ def inner_loops(lib_path):
     text, kernel_instructions}} for the innermost loop of each kernel that
     holds the most MUFU.RSQ (pairs = its MUFU.RSQ count), with
     `tensor_loop` (the same keys but text) for the one of those with
-    HMMA, where there is one."""
+    HMMA, where there is one, and `loops`: every innermost loop that holds
+    MUFU.RSQ, in the order of their backward branches (the same keys but
+    text)."""
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True).stdout
@@ -96,6 +98,7 @@ def inner_loops(lib_path):
                  if not any(a <= c and d <= b and (c, d) != (a, b)
                             for c, d in loops)]
         best = tensor = None
+        found = []
         for a, b in inner:
             text = [t for x, t in insns if a <= x <= b]
             body = [_opcode(t) for t in text]
@@ -107,13 +110,15 @@ def inner_loops(lib_path):
                    "opcodes": dict(collections.Counter(
                        op.split(".")[0] for op in body).most_common()),
                    "text": text}
+            found.append({k: v for k, v in rec.items() if k != "text"})
             if best is None or mufu > best["pairs"]:
                 best = rec
             if "HMMA" in rec["opcodes"] and (tensor is None
                                              or mufu > tensor["pairs"]):
                 tensor = rec
         if best:
-            out[name] = dict(best, kernel_instructions=len(insns))
+            out[name] = dict(best, kernel_instructions=len(insns),
+                             loops=found)
             if tensor is not None:
                 out[name]["tensor_loop"] = {k: v for k, v in tensor.items()
                                             if k != "text"}

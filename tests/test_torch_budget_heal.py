@@ -137,7 +137,8 @@ def _tree(cfg, state):
         cfg.resolve_bh_far_budget())
     kw = dict(theta=cfg.theta, near_budget=cfg.resolve_bh_near_budget(),
               far_budget=cfg.resolve_bh_far_budget(), refine=refine,
-              cand_budgets=cands, dtype=pos_s.dtype)
+              cand_budgets=cands, dtype=pos_s.dtype,
+              leaf_size=cfg.resolve_bh_leaf_size())
     return tree, kw
 
 

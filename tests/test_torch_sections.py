@@ -157,7 +157,7 @@ def test_sectioned_plan_equals_unsectioned_plan():
         torch.from_numpy(pos), torch.from_numpy(mass), leaf_size=32,
         curve="hilbert", multipole_order=2)
     kw = dict(theta=0.72, near_budget=128, far_budget=256, refine="staged",
-              cand_budgets=(64, 256), dtype=torch.float32)
+              cand_budgets=(64, 256), dtype=torch.float32, leaf_size=32)
     one = tbh.bh_plan_lists(tree, sections=1, **kw)
     four = tbh.bh_plan_lists(tree, sections=4, **kw)
     for a, b in zip(one[:5], four[:5]):

@@ -81,7 +81,7 @@ def plan_counts(cfg, pos, mass):
     plan = bh.bh_plan_lists(
         tree, theta=cfg.theta, near_budget=cfg.resolve_bh_near_budget(),
         far_budget=cfg.resolve_bh_far_budget(), refine=refine,
-        cand_budgets=cands, dtype=pos.dtype)
+        cand_budgets=cands, dtype=pos.dtype, leaf_size=leaf)
     masks = torch.where(plan.far_valid, plan.far_keys & 0xFF, 0)
     children = sum(int(((masks >> b) & 1).sum()) for b in range(8))
     return int(plan.near_valid.sum()), children, leaf
@@ -225,6 +225,8 @@ def test_cli_profile_dir_logs_interactions_and_host_reads(tmp_path, capsys):
         assert r["interactions_per_sec"] > 0
         assert r["host_reads_per_step"] == 0
         assert r["bh_heals"] == 0
+        # The CPU runs the plain near field: no mutual form.
+        assert r["k1_pair_terms"] > 0 and r["k1_sym_terms"] == 0
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
     assert {"api.run", "bh.near", "bh.far"} <= names
