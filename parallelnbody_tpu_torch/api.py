@@ -149,42 +149,29 @@ def calibrate_budgets(cfg: SimConfig, state: SimState,
     cfg = cfg.with_resolved_leaf(state.pos.device)
     if cfg.resolve_force(state.pos.device) != "barnes_hut":
         return cfg
-    from parallelnbody_tpu_torch.ops.bh import (BUDGET_LANES, pad_budget,
-                                                measure_budget_requirements)
+    from parallelnbody_tpu_torch.ops.bh import (
+        BUDGET_FIELDS, BUDGET_LANES, BHSetup, measure_budget_requirements,
+        measure_import_requirement, pad_budget)
 
-    want_near = cfg.bh_near_budget == 0
-    want_far = cfg.bh_far_budget == 0
-    staged = cfg.resolve_bh_refine() == "staged"
-    want_c2 = staged and cfg.bh_cand2_budget == 0
-    want_c1 = staged and cfg.bh_cand_budget == 0
+    # The candidate budgets only where the lists are staged.
+    staged = BHSetup.of(cfg, state.pos.shape[0]).refine == "staged"
+    want = [k for k, f in BUDGET_FIELDS.items() if getattr(cfg, f) == 0
+            and (staged or k in ("near", "far"))]
     want_imp = (n_ranks is not None and n_ranks > 1 and cfg.bh_distributed
                 and cfg.bh_comm == "let" and cfg.bh_import_budget == 0)
-    want_lists = want_near or want_far or want_c2 or want_c1
-    if not (want_lists or want_imp):
+    if not (want or want_imp):
         return cfg
 
-    def pad(x, kind):
-        # Relative headroom AND one full lane of absolute slack, rounded up
-        # to a multiple (the JAX package's rule).
-        return pad_budget(x, BUDGET_LANES[kind], headroom)
-
     kw = {}
-    if want_lists:
+    if want:
         req = measure_budget_requirements(state.pos, state.mass, cfg)
-        if want_near:
-            kw["bh_near_budget"] = min(pad(req["near_max"], "near"),
-                                       req["n_leaves"])
-        if want_far:
-            kw["bh_far_budget"] = pad(req["far_max"], "far")
-        # Only where the measurement ran the staged pipeline (resolve_refine
-        # falls back to dense on shallow trees).
-        if req["refine"] == "staged":
-            if want_c2:
-                kw["bh_cand2_budget"] = pad(req["cand2_max"], "cand2")
-            if want_c1:
-                kw["bh_cand_budget"] = pad(req["cand1_max"], "cand1")
+        # Relative headroom AND one full lane of absolute slack, rounded up
+        # to a multiple (the JAX package's rule); near at most every leaf.
+        kw = {BUDGET_FIELDS[k]: pad_budget(req[f"{k}_max"], BUDGET_LANES[k],
+                                           headroom) for k in want}
+        if "near" in want:
+            kw["bh_near_budget"] = min(kw["bh_near_budget"], req["n_leaves"])
     if want_imp:
-        from parallelnbody_tpu_torch.ops.bh import measure_import_requirement
         from parallelnbody_tpu_torch.parallel.distributed import _plan_cfg
 
         imp = measure_import_requirement(state.pos, state.mass,
@@ -196,11 +183,6 @@ def calibrate_budgets(cfg: SimConfig, state: SimState,
         return cfg.calibrated(**kw).replace(
             bh_import_budget=min(pad_budget(scaled, 8, headroom), n_leaf_loc))
     return cfg.calibrated(**kw)
-
-
-# The list budgets that 0 leaves to calibrate_budgets.
-AUTO_BUDGET_FIELDS = ("bh_near_budget", "bh_far_budget", "bh_cand2_budget",
-                      "bh_cand_budget")
 
 
 def prepare_simulation(cfg: SimConfig, device="cuda",
@@ -242,8 +224,6 @@ def prepare_simulation(cfg: SimConfig, device="cuda",
 def _list_heal(cfg: SimConfig):
     """A new ListHeal (ops/bh.py) of the budgets that calibration chose in
     cfg, for the callables that share it; None where it chose none."""
-    if not cfg.calibrated_budgets:
-        return None
     from parallelnbody_tpu_torch.ops.bh import ListHeal
 
     return ListHeal.of(cfg)
@@ -329,91 +309,42 @@ def _reuse_eligible(cfg: SimConfig, n_steps: int, device="cpu") -> bool:
         return False
     if cfg.resolve_force(device) != "barnes_hut":
         return False
-    from parallelnbody_tpu_torch.ops import bh
+    from parallelnbody_tpu_torch.ops.bh import BHSetup
 
-    leaf = cfg.resolve_bh_leaf_size()
-    _, _, n_levels = bh.plan_tree(cfg.n, leaf, cfg.bh_max_levels)
-    refine, _ = bh.resolve_refine(
-        cfg.resolve_bh_refine(), (cfg.bh_cand2_budget, cfg.bh_cand_budget),
-        n_levels, cfg.resolve_bh_near_budget(), cfg.resolve_bh_far_budget())
-    return bh.resolve_far_mode(cfg.bh_far_mode, refine) == "octet"
+    return BHSetup.of(cfg).far_mode == "octet"
 
 
 def _make_run_reuse(cfg: SimConfig, n_steps: int, report_overflow: bool,
                     device="cpu", heal=None) -> Callable:
     """Run with a tree-rebuild interval (cfg.bh_rebuild_every = k): the
-    state is carried in Hilbert-sorted order; each block of k steps pays
-    ONE sort + ONE traversal/list build, then k evaluations that refresh
-    only the multipole pyramid against the frozen lists (ops/bh.py
-    bh_plan_lists/bh_eval_lists). The original particle order is restored
-    at the end through a carried original-index column. The block size
-    follows `device`'s plan/eval ratio (_REUSE_PLAN_RATIO). A block whose
-    lists clip a budget that calibration chose builds them again at grown
-    budgets, kept for the later blocks (ops/bh.py ListHeal; heal as
-    make_step's)."""
+    state is carried in curve-sorted order; each block of k steps pays ONE
+    sort + ONE traversal/list build (ops/bh.py rebuild_block), then k
+    evaluations that refresh only the multipole pyramid against the frozen
+    lists. The original particle order is restored at the end through a
+    carried original-index column. The block size follows `device`'s
+    plan/eval ratio (_REUSE_PLAN_RATIO). A block whose lists clip a budget
+    that calibration chose builds them again at grown budgets, kept for
+    the later blocks (ops/bh.py ListHeal; heal as make_step's)."""
     from parallelnbody_tpu_torch.ops import bh
-    from parallelnbody_tpu_torch.ops.hilbert import hilbert_encode
-    from parallelnbody_tpu_torch.ops.morton import morton_encode
 
     integrator = get_integrator(cfg.integrator)
-    leaf = cfg.resolve_bh_leaf_size()
     n = cfg.n
-    n_leaves, n_pad, n_levels = bh.plan_tree(n, leaf, cfg.bh_max_levels)
-    refine, cands = bh.resolve_refine(
-        cfg.resolve_bh_refine(), (cfg.bh_cand2_budget, cfg.bh_cand_budget),
-        n_levels, cfg.resolve_bh_near_budget(), cfg.resolve_bh_far_budget())
-    sections = bh.resolve_sections(cfg.bh_sections, n_leaves, refine)
-    encode = hilbert_encode if cfg.bh_curve == "hilbert" else morton_encode
+    setup = bh.BHSetup.of(cfg)
     k = _reuse_block_size(cfg.bh_rebuild_every, n_steps, _plan_ratio(device))
     n_blocks, tail = divmod(n_steps, k)
-    compute_pot = cfg.track_potential
     heal = heal or _list_heal(cfg)
-
-    def sort_block(pos, vel, acc, mass, orig):
-        """Re-sort every column into current Hilbert order (pad rows,
-        orig >= n, are left out of the domain cube and keyed last)."""
-        live = orig < n
-        lo = torch.amin(torch.where(live[:, None], pos, torch.inf), dim=0)
-        hi = torch.amax(torch.where(live[:, None], pos, -torch.inf), dim=0)
-        center, half, _ = bh.domain_cube(lo, hi)
-        keys = torch.where(live, encode(pos, center, half),
-                           torch.full_like(orig, bh.INT32_MAX))
-        perm = torch.sort(keys, stable=True).indices
-        return pos[perm], vel[perm], acc[perm], mass[perm], orig[perm]
 
     def block(carry, dt_mask):
         """One rebuild block: sort, tree, lists, then len(dt_mask) steps.
         A tail block of t < k live steps masks the rest with dt = 0, an
         exact no-op for pos/vel/time/step."""
         pos, vel, acc, mass, orig, time, step, of = carry
-        with span("bh.sort"):
-            pos_s, vel_s, acc_s, mass_s, orig_s = sort_block(pos, vel, acc,
-                                                             mass, orig)
-        with span("bh.tree"):
-            lo = torch.amin(pos_s[:n], dim=0)
-            hi = torch.amax(pos_s[:n], dim=0)
-            _, _, sentinel = bh.domain_cube(lo, hi)
-            tree = bh.build_tree(pos_s, mass_s, leaf, sentinel,
-                                 multipole_order=cfg.bh_multipole,
-                                 max_levels=cfg.bh_max_levels)
-        plan = bh.bh_plan_lists(
-            tree, theta=cfg.theta, near_budget=cfg.resolve_bh_near_budget(),
-            far_budget=cfg.resolve_bh_far_budget(), refine=refine,
-            cand_budgets=cands, dtype=pos.dtype, sections=sections, heal=heal,
-            leaf_size=leaf)
-
-        def accel_fn(p):
-            with span("force"):
-                return bh.bh_eval_lists(
-                    p, mass_s, plan, leaf_size=leaf, g=cfg.g,
-                    softening=cfg.softening, multipole=cfg.bh_multipole,
-                    max_levels=cfg.bh_max_levels, compute_pot=compute_pot,
-                    n_live=n, sections=sections)
-
+        (ps, vs, as_, mass_s, orig_s), plan, accel_fn = bh.rebuild_block(
+            pos, vel, acc, mass, orig, setup, n, heal)
         dt = torch.as_tensor(cfg.dt, dtype=pos.dtype, device=pos.device)
         # pot is a placeholder until the first inner step overwrites it:
         # every integrator returns pot from its final accel_fn call.
-        ps, vs, as_, pots = pos_s, vel_s, acc_s, torch.zeros_like(mass_s)
+        pots = torch.zeros_like(mass_s)
         for m in dt_mask:
             dt_eff = dt * m
             with span("integrator"):
@@ -426,13 +357,13 @@ def _make_run_reuse(cfg: SimConfig, n_steps: int, report_overflow: bool,
 
     def run(state: SimState):
         dev = state.pos.device
-        pad = n_pad - n
-        z3 = state.pos.new_zeros((pad, 3))
+        n_pad = setup.n_pad
+        z3 = state.pos.new_zeros((n_pad - n, 3))
         carry = (
             torch.cat([state.pos, z3], 0),
             torch.cat([state.vel, z3], 0),
             torch.cat([state.acc, z3], 0),
-            torch.cat([state.mass, state.mass.new_zeros(pad)], 0),
+            torch.cat([state.mass, state.mass.new_zeros(n_pad - n)], 0),
             torch.arange(n_pad, dtype=torch.int32, device=dev),
             state.time, state.step, _zero_count(dev),
         )

@@ -39,9 +39,9 @@ import time
 import numpy as np
 import torch
 
-from parallelnbody_tpu_torch.api import AUTO_BUDGET_FIELDS
 from parallelnbody_tpu_torch.config import SimConfig, reference_compat_config
 from parallelnbody_tpu_torch.state import SimState, resolve_device
+
 
 def _add_config_flags(p: argparse.ArgumentParser):
     p.add_argument("--config", type=str, default=None,
@@ -207,30 +207,6 @@ def _make_sharded_run_k(cfg, group, args):
 
 
 # ------------------------------------------------------------------------ run
-def recalibrate_on_overflow(cfg, state, auto_fields):
-    """Self-healing budgets: when a segment reports overflow on a config
-    whose budgets were auto-calibrated at t=0, re-measure the evolved
-    geometry (a collapsing merger packs more near leaves per target than
-    its t=0 state) and grow any budget that the fresh measurement says is
-    too small. Only the originally-auto fields move (explicit budgets are
-    the user's word), and only upward. Returns (cfg, grew), grew mapping
-    the raised fields to their new values ({} = nothing to do).
-
-    The clipped segment itself is not recomputed: a clip costs one segment
-    of degraded force for the affected particles (bounded, warned); the
-    heal is for the rest of the run. The step programs already grow a
-    calibrated budget that clips (api.make_step / make_run), so on one
-    device this finds nothing to grow unless the budgets were calibrated
-    elsewhere; the grown fields stay calibrated."""
-    from parallelnbody_tpu_torch.api import calibrate_budgets
-
-    fresh = calibrate_budgets(cfg.replace(**{f: 0 for f in auto_fields}),
-                              state)
-    grew = {f: getattr(fresh, f) for f in auto_fields
-            if getattr(fresh, f) > getattr(cfg, f)}
-    return (cfg.calibrated(**grew) if grew else cfg), grew
-
-
 # Set-up's spans (api.prepare_simulation) and the keys of their seconds in
 # the first record that `run --profile-dir` logs.
 SETUP_SPANS = {"api.prepare": "prepare_s", "api.calibrate": "calibrate_s",
@@ -288,15 +264,8 @@ def _run_body(args, cfg, device, group) -> int:
                 print(f"resumed from {ckpt} at step {int(state.step)}",
                       file=sys.stderr)
 
-    # Which budget fields arrived as 0 = auto (before calibration fills
-    # them): these are the fields recalibrate_on_overflow may grow mid-run.
-    # A resumed checkpoint carries calibrated budgets, so resumed runs heal
-    # only via explicit flags. Sharded runs are not calibrated (the JAX
-    # package's rule): their budgets resolve to the static fallbacks.
-    auto_budget_fields = ([f for f in AUTO_BUDGET_FIELDS
-                           if getattr(cfg, f) == 0]
-                          if cfg.resolve_force(device) == "barnes_hut"
-                          and not sharded else [])
+    # Sharded runs are not calibrated (the JAX package's rule): their
+    # budgets resolve to the static fallbacks.
     if sharded:
         if state is None:
             state = mesh.shard_state(
@@ -336,18 +305,11 @@ def _run_body(args, cfg, device, group) -> int:
         if sharded:
             ovf = sharded_bh_overflow(cfg, group, state)
         else:
-            from parallelnbody_tpu_torch.ops.bh import bh_accel
+            from parallelnbody_tpu_torch.ops.bh import make_bh_accel
 
-            _, _, ovf = bh_accel(
-                state.pos, state.mass, leaf_size=cfg.resolve_bh_leaf_size(),
-                theta=cfg.theta, g=cfg.g, softening=cfg.softening,
-                near_budget=cfg.resolve_bh_near_budget(),
-                far0_budget=cfg.resolve_bh_far_budget(), curve=cfg.bh_curve,
-                multipole=cfg.bh_multipole, max_levels=cfg.bh_max_levels,
-                refine=cfg.resolve_bh_refine(),
-                cand_budgets=(cfg.bh_cand2_budget, cfg.bh_cand_budget),
-                far_mode=cfg.bh_far_mode, sections=cfg.bh_sections)
-            ovf = int(ovf)
+            cell = [0]
+            make_bh_accel(cfg, state.mass, overflow_cell=cell)(state.pos)
+            ovf = int(cell[0])
         if ovf and not quiet:
             print(f"WARNING: Barnes-Hut budgets clipped up to {ovf} "
                   f"interaction-list entries; raise --bh-near-budget/"
@@ -558,7 +520,7 @@ def _run_body(args, cfg, device, group) -> int:
                         print("control: stop (checkpoint saved)", file=sys.stderr)
                     break
                 if runs_invalid:
-                    # dt or budgets changed: new step programs.
+                    # dt changed: new step programs.
                     runs_invalid = False
                     run_k = make_run_k(cfg)
                 k = min(seg, cfg.steps - done)
@@ -577,16 +539,6 @@ def _run_body(args, cfg, device, group) -> int:
                               f"--bh-far-budget (forces are degraded for the "
                               f"affected particles)", file=sys.stderr)
                     ovf_total += seg_ovf
-                    if auto_budget_fields:
-                        # Self-heal auto budgets from the evolved geometry:
-                        # grow only what clipped, rebuild the programs.
-                        cfg, grew = recalibrate_on_overflow(
-                            cfg, state, auto_budget_fields)
-                        if grew:
-                            runs_invalid = True
-                            if not quiet:
-                                print(f"recalibrated budgets after overflow: "
-                                      f"{grew}", file=sys.stderr)
                 step_now = int(force_sync(state.step))
                 now = time.perf_counter()
                 if cfg.log_every and done % cfg.log_every == 0:

@@ -26,6 +26,13 @@ either far field, unsectioned or in target windows:
      after the other, each through the same windowed traversal and lists;
      the results and the overflow count are those of one window over all.
 
+One pipeline serves every caller. BHSetup resolves a configuration's
+settings once. Each target window's lists come from _window_lists and its
+forces from _window_forces, whether bh_accel evaluates a step, a rebuild
+block (rebuild_block: sort, pyramid, bh_plan_lists) freezes lists that
+bh_eval_lists evaluates at each step, or a rank of parallel/ builds its own
+window.
+
 Each phase of a force evaluation is a span (utils/profiling.span):
 `bh.sort` (keys, sort, gather), `bh.tree`, `bh.traverse`, `bh.lists` (the
 lists with K1's work items, and in a plan K2's launch order),
@@ -42,7 +49,9 @@ with r_* tight bounding radii around each group's center of mass.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
@@ -79,11 +88,16 @@ def plan_tree(n: int, leaf_size: int, max_levels: int = 12):
     divisible, else by the remaining factor (mixed radix at the top)."""
     n_leaves_min = -(-n // leaf_size)
     n_leaves = max(8, 1 << math.ceil(math.log2(n_leaves_min)))
+    return n_leaves, n_leaves * leaf_size, _count_levels(n_leaves, max_levels)
+
+
+def _count_levels(n_leaves: int, max_levels: int = 12) -> int:
+    """Levels of the pyramid build_upper makes over n_leaves leaves."""
     levels, n_k = 1, n_leaves
     while n_k > 1 and levels < max_levels:
         n_k //= 8 if n_k % 8 == 0 and n_k >= 8 else n_k
         levels += 1
-    return n_leaves, n_leaves * leaf_size, levels
+    return levels
 
 
 def domain_cube(lo, hi):
@@ -171,6 +185,26 @@ def build_upper(com, mass, radius, quad, sentinel, *,
 
     return BHTree(com=tuple(coms), mass=tuple(masses), radius=tuple(radii),
                   quad=tuple(quads))
+
+
+def leaf_rows(pos_s, mass_s, leaf_size: int, sentinel, multipole_order: int):
+    """The leaf level of build_tree as one (n_leaves, 5|10) table of rows
+    [com, mass, radius(, quad)]: a distributed tree's summaries, which the
+    ranks gather and pass to tree_of_rows."""
+    t = build_tree(pos_s, mass_s, leaf_size, sentinel,
+                   multipole_order=multipole_order, max_levels=1)
+    cols = [t.com[0], t.mass[0][:, None], t.radius[0][:, None]]
+    if t.quad[0] is not None:
+        cols.append(t.quad[0])
+    return torch.cat(cols, 1)
+
+
+def tree_of_rows(rows, sentinel, *, max_levels: int = 12) -> BHTree:
+    """The multipole pyramid over a table of leaf rows (leaf_rows')."""
+    return build_upper(rows[:, 0:3].contiguous(), rows[:, 3].contiguous(),
+                       rows[:, 4].contiguous(),
+                       rows[:, 5:10].contiguous() if rows.shape[1] > 5
+                       else None, sentinel, max_levels=max_levels)
 
 
 # MAC size constant (the JAX package's value): the node's "size" in
@@ -406,16 +440,6 @@ def build_interaction_lists_octet(tree, far_masks, rejects_l1, *, theta,
     overflow = of_n + 8 * of_f
     return (near_idx, near_valid, far_keys, far_valid,
             _nodes_all_octet(tree, dtype), overflow)
-
-
-def _eval_far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,
-                    compute_pot=True, order=None):
-    """Evaluate ONE octet-masked far list over the 8-aligned combined node
-    table -> (acc, pot) flat over the window's particles (kernel K2, its
-    leaves launched in `order`, bh_kernels.far_order)."""
-    return bh_kernels.far_octet(tgt_leaves, nodes8, keys, valid, g=g,
-                                softening=softening, compute_pot=compute_pot,
-                                order=order)
 
 
 # ------------------------------------------------- staged (hierarchical) lists
@@ -703,29 +727,6 @@ def _upper_list(tree, far_masks, dtype):
     return up_idx, up_valid, nodes_up, _node_table(tree, 0, dtype)
 
 
-def _eval_far_list(tgt_leaves, table, idx, valid, *, g, softening,
-                   compute_pot=True, order=None):
-    """Evaluate ONE front-packed per-target list of node rows over `table`
-    ([com, mass] or [com, mass, quad]) -> (acc, pot) flat over the window's
-    particles (kernel K4, its leaves launched in `order`,
-    bh_kernels.far_order)."""
-    return bh_kernels.far_gather(tgt_leaves, table, idx, valid, g=g,
-                                 softening=softening, compute_pot=compute_pot,
-                                 order=order)
-
-
-def eval_far_lists(tgt_leaves, nodes_up, up_idx, up_valid, leaf_nodes,
-                   far0_idx, far0_valid, *, g, softening, compute_pot=True):
-    """Both dense gather far classes for one target window, each a list of
-    node rows evaluated by K4, summed in the JAX package's order: the upper
-    nodes, then the accepted leaves."""
-    kw = dict(g=g, softening=softening, compute_pot=compute_pot)
-    acc, pot = _eval_far_list(tgt_leaves, nodes_up, up_idx, up_valid, **kw)
-    a, ph = _eval_far_list(tgt_leaves, leaf_nodes, far0_idx, far0_valid,
-                           **kw)
-    return acc + a, pot + ph
-
-
 # -------------------------------------------------------------- budget heal
 # The list budgets by the kind of list they size, as a list build records
 # its needs: the near list, the far list (octet entries, or node rows in
@@ -833,108 +834,7 @@ class ListHeal:
         return lists
 
 
-# ------------------------------------------------------------------- assembly
-def _prepare(pos, mass, *, leaf_size, curve, multipole_order=1, max_levels=12):
-    """Pad, curve-sort, and build the multipole pyramid. Returns
-    (pos_s, mass_s, perm, tree, n, n_pad); perm[i] is the original row of
-    sorted row i. A stable sort of the keys breaks ties by original index,
-    as the JAX package's (key, iota) sort does."""
-    n = pos.shape[0]
-    n_leaves, n_pad, _ = plan_tree(n, leaf_size, max_levels)
-
-    with span("bh.sort"):
-        lo = torch.amin(pos, dim=0)
-        hi = torch.amax(pos, dim=0)
-        center, half, sentinel = domain_cube(lo, hi)
-
-        encode = hilbert_encode if curve == "hilbert" else morton_encode
-        keys = encode(pos, center, half)
-        if n_pad > n:
-            pos_p = torch.cat([pos, sentinel.expand(n_pad - n, 3)], dim=0)
-            mass_p = torch.cat([mass, mass.new_zeros(n_pad - n)], dim=0)
-            keys = torch.cat([keys, keys.new_full((n_pad - n,), INT32_MAX)])
-        else:
-            pos_p, mass_p = pos, mass
-
-        perm = torch.sort(keys, stable=True).indices
-        pos_s = pos_p[perm]
-        mass_s = mass_p[perm]
-    with span("bh.tree"):
-        tree = build_tree(pos_s, mass_s, leaf_size, sentinel,
-                          multipole_order=multipole_order,
-                          max_levels=max_levels)
-    return pos_s, mass_s, perm, tree, n, n_pad
-
-
-def _forces_sorted(pos_s, mass_s, tree, far_masks, rejects, *, start_leaf,
-                   n_slice, leaf_size, theta, g, softening, near_budget,
-                   far0_budget, compute_pot=True, refine="dense",
-                   cand_budgets=(0, 0), far_mode="octet", heal=None):
-    """Far+near forces for target leaves [start_leaf, start_leaf + n_slice),
-    in sorted order. Returns (acc (n_slice*G, 3), pot (n_slice*G,),
-    overflow).
-
-    refine="dense": the dense leaf plane (far_masks/rejects from
-    traverse(stop_level=1)); far_mode="octet" evaluates one octet-key far
-    list by K2, far_mode="gather" the upper and leaf far lists of node rows
-    by K4 (far0_budget then counts leaf entries). refine="staged":
-    hierarchical candidate refinement (build_interaction_lists_staged;
-    traverse(stop_level=2)) with cand_budgets = (cand2, cand1); one far list
-    covers every far class, octet keys for K2 or node rows of _nodes_all for
-    K4, and far0_budget counts its entries. The near list goes to K1 with
-    its work items either way.
-
-    heal: a ListHeal, which builds the lists at its grown budgets and
-    builds them again where they clip a budget calibration chose; the
-    clip count rides on the read of K1's item sizes."""
-    n_leaves = pos_s.shape[0] // leaf_size
-    p_leaves = pos_s.reshape(n_leaves, leaf_size, 3)
-    tgt_leaves = p_leaves[start_leaf:start_leaf + n_slice]
-    fkw = dict(g=g, softening=softening, compute_pot=compute_pot)
-
-    def build(budgets, need):
-        kw = dict(theta=theta, start_leaf=start_leaf, n_slice=n_slice,
-                  near_budget=budgets["near"], dtype=pos_s.dtype, need=need)
-        with span("bh.lists"):
-            if refine == "staged":
-                lists = build_interaction_lists_staged(
-                    tree, far_masks, rejects, far_budget=budgets["far"],
-                    cand2_budget=budgets["cand2"],
-                    cand1_budget=budgets["cand1"],
-                    octet_far=far_mode == "octet", **kw)
-            elif far_mode == "octet":
-                lists = build_interaction_lists_octet(
-                    tree, far_masks, rejects, far_budget=budgets["far"],
-                    **kw)
-            else:
-                lists = build_interaction_lists(
-                    tree, far_masks, rejects, far0_budget=budgets["far"],
-                    **kw)
-            overflow = lists[-1]
-            work = bh_kernels.near_work(lists[1], lists[0],
-                                        overflow=overflow,
-                                        sources=(n_leaves, leaf_size))
-            return (lists, work), _clip_count(work, overflow)
-
-    budgets = {"near": near_budget, "far": far0_budget,
-               "cand2": cand_budgets[0], "cand1": cand_budgets[1]}
-    lists, work = (build(budgets, {})[0] if heal is None
-                   else heal.build(build, budgets, _full_widths(tree)))
-    near_idx, near_valid, overflow = lists[0], lists[1], lists[-1]
-    if refine == "staged" or far_mode == "octet":
-        evaluate = _eval_far_octet if far_mode == "octet" else _eval_far_list
-        far_idx, far_valid, nodes = lists[2:5]
-        acc, pot = evaluate(tgt_leaves, nodes, far_idx, far_valid, **fkw)
-    else:
-        far0_idx, far0_valid, up_idx, up_valid, nodes_up, leaf_nodes = \
-            lists[2:8]
-        acc, pot = eval_far_lists(tgt_leaves, nodes_up, up_idx, up_valid,
-                                  leaf_nodes, far0_idx, far0_valid, **fkw)
-    a, ph = bh_kernels.near_field(pos_s, mass_s, tgt_leaves, near_idx,
-                                  near_valid, work=work, **fkw)
-    return acc + a, pot + ph, overflow
-
-
+# ------------------------------------------------------------ configuration
 def resolve_refine(refine, cand_budgets, n_levels, near_budget, far_budget):
     """Resolve the refinement mode + staged candidate budgets (the JAX
     package's rule: "staged" needs >= 3 tree levels, auto candidate
@@ -1005,6 +905,255 @@ def _join(parts):
     return parts[0] if len(parts) == 1 else torch.cat(list(parts), dim=0)
 
 
+@dataclass(frozen=True)
+class BHSetup:
+    """A configuration's Barnes-Hut settings, resolved once for a tree: its
+    plan (plan_tree), the refinement and staged candidate budgets
+    (resolve_refine, `cands` = (cand2, cand1)), the far mode
+    (resolve_far_mode), the section count (resolve_sections), the near and
+    far list budgets and the physics. Every caller of the pipeline resolves
+    through it: `of` a SimConfig, `make` from bh_accel's keywords."""
+
+    leaf: int
+    n_leaves: int
+    n_pad: int
+    n_levels: int
+    refine: str
+    cands: tuple
+    far_mode: str
+    sections: int
+    near: int
+    far: int
+    theta: float
+    g: float
+    softening: float
+    multipole: int
+    max_levels: int
+    curve: str
+    compute_pot: bool
+
+    @classmethod
+    def make(cls, n=None, *, leaf_size=256, theta=0.5, g=1.0,
+             softening=1e-2, near_budget=64, far0_budget=2048,
+             curve="hilbert", multipole=1, max_levels=12, compute_pot=True,
+             refine="dense", cand_budgets=(0, 0), far_mode="auto",
+             sections=0, n_leaves=None) -> "BHSetup":
+        """The settings of bh_accel's keywords for n bodies or, given
+        n_leaves, for a tree of that many leaves (a distributed tree's, a
+        given tree's)."""
+        if n_leaves is None:
+            n_leaves, _, n_levels = plan_tree(n, leaf_size, max_levels)
+        else:
+            n_levels = _count_levels(n_leaves, max_levels)
+        refine, cands = resolve_refine(refine, tuple(cand_budgets), n_levels,
+                                       near_budget, far0_budget)
+        return cls(leaf_size, n_leaves, n_leaves * leaf_size, n_levels,
+                   refine, cands, resolve_far_mode(far_mode, refine),
+                   resolve_sections(sections, n_leaves, refine), near_budget,
+                   far0_budget, theta, g, softening, multipole, max_levels,
+                   curve, compute_pot)
+
+    @classmethod
+    def of(cls, cfg, n=None, *, n_leaves=None) -> "BHSetup":
+        """cfg's settings for n bodies (cfg.n by default) or a tree of
+        n_leaves leaves. cfg's leaf size is read as it resolves without a
+        device: the entry points resolve it first (with_resolved_leaf)."""
+        return cls.make(
+            cfg.n if n is None else n, leaf_size=cfg.resolve_bh_leaf_size(),
+            theta=cfg.theta, g=cfg.g, softening=cfg.softening,
+            near_budget=cfg.resolve_bh_near_budget(),
+            far0_budget=cfg.resolve_bh_far_budget(), curve=cfg.bh_curve,
+            multipole=cfg.bh_multipole, max_levels=cfg.bh_max_levels,
+            compute_pot=cfg.track_potential, refine=cfg.resolve_bh_refine(),
+            cand_budgets=(cfg.bh_cand2_budget, cfg.bh_cand_budget),
+            far_mode=cfg.bh_far_mode, sections=cfg.bh_sections,
+            n_leaves=n_leaves)
+
+    @property
+    def stop(self) -> int:
+        """The traversal's stop level: 1 for dense lists, 2 for staged."""
+        return 1 if self.refine == "dense" else 2
+
+    def budgets(self) -> dict:
+        """The list budgets by kind (BUDGET_FIELDS' keys)."""
+        return {"near": self.near, "far": self.far, "cand2": self.cands[0],
+                "cand1": self.cands[1]}
+
+    def windows(self):
+        return _windows(self.n_leaves, self.sections)
+
+
+# ------------------------------------------------------------------- geometry
+def _cube_of(pos, live=None):
+    """domain_cube of the rows of pos where `live` (every row where None)."""
+    if live is None:
+        lo, hi = torch.amin(pos, dim=0), torch.amax(pos, dim=0)
+    else:
+        lo = torch.amin(torch.where(live[:, None], pos, torch.inf), dim=0)
+        hi = torch.amax(torch.where(live[:, None], pos, -torch.inf), dim=0)
+    return domain_cube(lo, hi)
+
+
+def _curve_order(pos, curve, live=None, n_pad=None):
+    """(perm, sentinel): the stable sort of pos's rows by their curve keys
+    in the domain cube of the live rows (_cube_of), rows not live keyed
+    last, as are the n_pad - len(pos) pad rows to follow pos where n_pad
+    is given. perm[i] is the row of sorted row i; ties keep the row order,
+    as the JAX package's (key, iota) sort does."""
+    center, half, sentinel = _cube_of(pos, live)
+    encode = hilbert_encode if curve == "hilbert" else morton_encode
+    keys = encode(pos, center, half)
+    if live is not None:
+        keys = torch.where(live, keys, torch.full_like(keys, INT32_MAX))
+    if n_pad is not None and n_pad > pos.shape[0]:
+        keys = torch.cat([keys, keys.new_full((n_pad - pos.shape[0],),
+                                              INT32_MAX)])
+    return torch.sort(keys, stable=True).indices, sentinel
+
+
+def _live_tree(pos_s, mass_s, n_live, *, leaf_size, multipole, max_levels,
+               sentinel=None):
+    """The multipole pyramid of curve-sorted rows whose first n_live are
+    live: the pads after them are left out of the domain cube, whose
+    sentinel marks empty nodes (given where the caller's sort has it)."""
+    if sentinel is None:
+        _, _, sentinel = _cube_of(pos_s[:n_live])
+    return build_tree(pos_s, mass_s, leaf_size, sentinel,
+                      multipole_order=multipole, max_levels=max_levels)
+
+
+def _prepare(pos, mass, *, leaf_size, curve, multipole_order=1, max_levels=12):
+    """Pad, curve-sort, and build the multipole pyramid. Returns
+    (pos_s, mass_s, perm, tree, n, n_pad); perm[i] is the original row of
+    sorted row i."""
+    n = pos.shape[0]
+    _, n_pad, _ = plan_tree(n, leaf_size, max_levels)
+    with span("bh.sort"):
+        perm, sentinel = _curve_order(pos, curve, n_pad=n_pad)
+        if n_pad > n:
+            pos = torch.cat([pos, sentinel.expand(n_pad - n, 3)], dim=0)
+            mass = torch.cat([mass, mass.new_zeros(n_pad - n)], dim=0)
+        pos_s, mass_s = pos[perm], mass[perm]
+    with span("bh.tree"):
+        tree = _live_tree(pos_s, mass_s, n, leaf_size=leaf_size,
+                          multipole=multipole_order, max_levels=max_levels,
+                          sentinel=sentinel)
+    return pos_s, mass_s, perm, tree, n, n_pad
+
+
+def _refresh_nodes8(pos_s, mass_s, *, leaf_size, multipole, max_levels,
+                    n_live):
+    """The pyramid refresh of a frozen-list evaluation: the multipole
+    pyramid of the CURRENT sorted positions as K2's 8-aligned node table
+    (pads, rows [n_live:], left out of the domain cube)."""
+    with span("bh.refresh"):
+        tree = _live_tree(pos_s, mass_s, n_live, leaf_size=leaf_size,
+                          multipole=multipole, max_levels=max_levels)
+        return _nodes_all_octet(tree, pos_s.dtype)
+
+
+# ------------------------------------------------------ one target window
+def _window_lists(tree, far_masks, rejects, setup, start, w, budgets, need):
+    """The lists of target window [start, start + w) at `budgets` (a dict
+    by kind, as BHSetup.budgets) from the builder `setup` resolves to:
+    staged, dense octet or dense gather; far_masks and rejects are the
+    window's traversal (stop level setup.stop). need: as _keys_compact's.
+    Returns (near_idx, near_valid, far, overflow), far the far field's
+    operands for _far_forces, its budgeted list first: (keys, valid,
+    nodes8) in the octet form, (rows, valid, nodes_all) in the staged
+    gather form, and in the dense gather form (far0_idx, far0_valid,
+    leaf_nodes) and the upper list (up_idx, up_valid, nodes_up)."""
+    kw = dict(theta=setup.theta, start_leaf=start, n_slice=w,
+              near_budget=budgets["near"], dtype=tree.com[0].dtype,
+              need=need)
+    if setup.refine == "staged":
+        ni, nv, fi, fv, nodes, of = build_interaction_lists_staged(
+            tree, far_masks, rejects, far_budget=budgets["far"],
+            cand2_budget=budgets["cand2"], cand1_budget=budgets["cand1"],
+            octet_far=setup.far_mode == "octet", **kw)
+    elif setup.far_mode == "octet":
+        ni, nv, fi, fv, nodes, of = build_interaction_lists_octet(
+            tree, far_masks, rejects, far_budget=budgets["far"], **kw)
+    else:
+        ni, nv, f0i, f0v, upi, upv, nodes_up, leaf_nodes, of = \
+            build_interaction_lists(tree, far_masks, rejects,
+                                    far0_budget=budgets["far"], **kw)
+        return ni, nv, (f0i, f0v, leaf_nodes, upi, upv, nodes_up), of
+    return ni, nv, (fi, fv, nodes), of
+
+
+def _far_forces(tgt, far, setup, order=None):
+    """The far field of a window's targets (L, G, 3) from its far operands
+    (_window_lists): K2 on the octet form (launched in `order`,
+    bh_kernels.far_order), K4 on the staged gather list, or K4 on the dense
+    gather form's upper list and then its leaf list, summed in the JAX
+    package's order. Returns (acc, pot) flat over the window's particles."""
+    kw = dict(g=setup.g, softening=setup.softening,
+              compute_pot=setup.compute_pot)
+    if setup.far_mode == "octet":
+        keys, valid, nodes8 = far
+        return bh_kernels.far_octet(tgt, nodes8, keys, valid, order=order,
+                                    **kw)
+    if setup.refine == "staged":
+        idx, valid, nodes = far
+        return bh_kernels.far_gather(tgt, nodes, idx, valid, **kw)
+    f0i, f0v, leaf_nodes, upi, upv, nodes_up = far
+    acc, pot = bh_kernels.far_gather(tgt, nodes_up, upi, upv, **kw)
+    a, ph = bh_kernels.far_gather(tgt, leaf_nodes, f0i, f0v, **kw)
+    return acc + a, pot + ph
+
+
+def _window_forces(pos_s, mass_s, tgt, near_idx, near_valid, far, setup, *,
+                   work=None, order=None):
+    """A target window's forces from its lists: the far field
+    (_far_forces), then K1 on the near list with its work items, summed.
+    Returns (acc, pot) flat over the window's particles."""
+    acc, pot = _far_forces(tgt, far, setup, order)
+    a, ph = bh_kernels.near_field(
+        pos_s, mass_s, tgt, near_idx, near_valid, work=work, g=setup.g,
+        softening=setup.softening, compute_pot=setup.compute_pot)
+    return acc + a, pot + ph
+
+
+def _healed(build, budgets, tree, heal):
+    """build(budgets, need)'s lists, through the caller's ListHeal where
+    there is one (ListHeal.build)."""
+    if heal is None:
+        return build(budgets, {})[0]
+    return heal.build(build, budgets, _full_widths(tree))
+
+
+def _forces_sorted(pos_s, mass_s, tree, far_masks, rejects, setup, *,
+                   start_leaf, n_slice, heal=None):
+    """Far+near forces for target leaves [start_leaf, start_leaf + n_slice)
+    of the curve-sorted rows, from the window's traversal: its lists
+    (_window_lists) with K1's work items over every leaf as sources, then
+    _window_forces. Returns (acc (n_slice*G, 3), pot (n_slice*G,),
+    overflow).
+
+    heal: a ListHeal, which builds the lists at its grown budgets and
+    builds them again where they clip a budget calibration chose; the
+    clip count rides on the read of K1's item sizes."""
+    leaf = setup.leaf
+    n_leaves = pos_s.shape[0] // leaf
+    tgt = pos_s.reshape(n_leaves, leaf, 3)[start_leaf:start_leaf + n_slice]
+
+    def build(budgets, need):
+        with span("bh.lists"):
+            ni, nv, far, of = _window_lists(tree, far_masks, rejects, setup,
+                                            start_leaf, n_slice, budgets,
+                                            need)
+            work = bh_kernels.near_work(nv, ni, overflow=of,
+                                        sources=(n_leaves, leaf))
+            return (ni, nv, far, of, work), _clip_count(work, of)
+
+    ni, nv, far, of, work = _healed(build, setup.budgets(), tree, heal)
+    acc, pot = _window_forces(pos_s, mass_s, tgt, ni, nv, far, setup,
+                              work=work)
+    return acc, pot, of
+
+
+# ---------------------------------------------------------------- evaluation
 def bh_accel(pos, mass, *, leaf_size=256, theta=0.5, g=1.0, softening=1e-2,
              near_budget=64, far0_budget=2048, curve="hilbert", multipole=1,
              max_levels=12, compute_pot=True, refine="dense",
@@ -1033,34 +1182,34 @@ def bh_accel(pos, mass, *, leaf_size=256, theta=0.5, g=1.0, softening=1e-2,
     again at grown budgets before any force is taken from them; the
     overflow is that of the lists evaluated.
     """
-    pos_s, mass_s, perm, tree, n, n_pad = _prepare(
-        pos, mass, leaf_size=leaf_size, curve=curve, multipole_order=multipole,
-        max_levels=max_levels)
-    n_leaves = n_pad // leaf_size
-    refine, cand_budgets = resolve_refine(refine, cand_budgets, tree.n_levels,
-                                          near_budget, far0_budget)
-    far_mode = resolve_far_mode(far_mode, refine)
-    sections = resolve_sections(sections, n_leaves, refine)
-    stop = 1 if refine == "dense" else 2
+    setup = BHSetup.make(
+        pos.shape[0], leaf_size=leaf_size, theta=theta, g=g,
+        softening=softening, near_budget=near_budget,
+        far0_budget=far0_budget, curve=curve, multipole=multipole,
+        max_levels=max_levels, compute_pot=compute_pot, refine=refine,
+        cand_budgets=cand_budgets, far_mode=far_mode, sections=sections)
+    return _accel(pos, mass, setup, heal)
 
+
+def _accel(pos, mass, setup, heal=None):
+    """bh_accel at resolved settings."""
+    pos_s, mass_s, perm, tree, n, _ = _prepare(
+        pos, mass, leaf_size=setup.leaf, curve=setup.curve,
+        multipole_order=setup.multipole, max_levels=setup.max_levels)
     accs, pots, ovfs = [], [], []
-    for start, w in _windows(n_leaves, sections):
+    for start, w in setup.windows():
         with span("bh.traverse"):
-            far_masks, rejects = traverse(tree, theta, start_leaf=start,
-                                          n_slice=w, stop_level=stop)
-        acc, pot, of = _forces_sorted(
-            pos_s, mass_s, tree, far_masks, rejects,
-            start_leaf=start, n_slice=w, leaf_size=leaf_size, theta=theta,
-            g=g, softening=softening, near_budget=near_budget,
-            far0_budget=far0_budget, compute_pot=compute_pot, refine=refine,
-            cand_budgets=cand_budgets, far_mode=far_mode, heal=heal)
+            far_masks, rejects = traverse(tree, setup.theta, start_leaf=start,
+                                          n_slice=w, stop_level=setup.stop)
+        acc, pot, of = _forces_sorted(pos_s, mass_s, tree, far_masks,
+                                      rejects, setup, start_leaf=start,
+                                      n_slice=w, heal=heal)
         del far_masks, rejects
         accs.append(acc)
         pots.append(pot)
         ovfs.append(of)
     acc, pot = _join(accs), _join(pots)
     overflow = torch.sum(torch.stack(ovfs), dtype=torch.int64)
-
     acc, pot = _unsort(acc, pot, perm, n)
     return acc, pot, overflow
 
@@ -1077,35 +1226,25 @@ def _unsort(acc, pot, perm, n):
         return acc_out[:n], pot_out[:n]
 
 
-def bh_accel_target_slice(pos_all, mass_all, rank, n_ranks, *, leaf_size,
-                          theta, g, softening, near_budget, far0_budget,
-                          curve, multipole=1, max_levels=12, refine="dense",
-                          cand_budgets=(0, 0), far_mode="auto"):
+def bh_accel_target_slice(pos_all, mass_all, rank, n_ranks, setup):
     """The replicated-tree building block of the multi-device paths: forces
     for the rank-th slice of target leaves only, from the gathered global
-    pos_all / mass_all (identical on every rank). Slices hold
-    ceil(n_leaves / n_ranks) leaves; trailing windows are clamped into
-    range and overlap the previous rank's (slice_row_of_sorted picks one
-    copy). Returns (acc_slice, pot_slice, perm, overflow) in sorted order
-    with the sort permutation, as the JAX package's."""
-    pos_s, mass_s, perm, tree, n, n_pad = _prepare(
-        pos_all, mass_all, leaf_size=leaf_size, curve=curve,
-        multipole_order=multipole, max_levels=max_levels)
-    n_leaves = n_pad // leaf_size
-    n_slice = -(-n_leaves // n_ranks)
-    start = min(rank * n_slice, n_leaves - n_slice)
-    refine, cand_budgets = resolve_refine(refine, cand_budgets, tree.n_levels,
-                                          near_budget, far0_budget)
-    far_mode = resolve_far_mode(far_mode, refine)
-    far_masks, rejects = traverse(
-        tree, theta, start_leaf=start, n_slice=n_slice,
-        stop_level=2 if refine == "staged" else 1)
-    acc, pot, overflow = _forces_sorted(
-        pos_s, mass_s, tree, far_masks, rejects, start_leaf=start,
-        n_slice=n_slice, leaf_size=leaf_size, theta=theta, g=g,
-        softening=softening, near_budget=near_budget,
-        far0_budget=far0_budget, refine=refine, cand_budgets=cand_budgets,
-        far_mode=far_mode)
+    pos_all / mass_all (identical on every rank), at the settings `setup`
+    (BHSetup, for all the rows). Slices hold ceil(n_leaves / n_ranks)
+    leaves; trailing windows are clamped into range and overlap the
+    previous rank's (slice_row_of_sorted picks one copy). Returns
+    (acc_slice, pot_slice, perm, overflow) in sorted order with the sort
+    permutation, as the JAX package's."""
+    pos_s, mass_s, perm, tree, _, _ = _prepare(
+        pos_all, mass_all, leaf_size=setup.leaf, curve=setup.curve,
+        multipole_order=setup.multipole, max_levels=setup.max_levels)
+    n_slice = -(-setup.n_leaves // n_ranks)
+    start = min(rank * n_slice, setup.n_leaves - n_slice)
+    far_masks, rejects = traverse(tree, setup.theta, start_leaf=start,
+                                  n_slice=n_slice, stop_level=setup.stop)
+    acc, pot, overflow = _forces_sorted(pos_s, mass_s, tree, far_masks,
+                                        rejects, setup, start_leaf=start,
+                                        n_slice=n_slice)
     return acc, pot, perm, overflow
 
 
@@ -1143,8 +1282,9 @@ def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
                   heal=None) -> BHListPlan:
     """Traverse + build the octet-far interaction lists for ALL target
     leaves of `tree`: the geometry half of bh_accel, used by the
-    rebuild-interval runs (api._make_run_reuse). refine/cand_budgets must
-    arrive resolved (resolve_refine).
+    rebuild-interval runs (rebuild_block). The refinement and candidate
+    budgets resolve as bh_accel's; `sections` windows are built as given.
+    dtype: the tree's, that of the lists' node table.
 
     sections > 1: the traversal planes and list-build temporaries are sized
     per target window exactly as in sectioned bh_accel, while the returned
@@ -1164,37 +1304,40 @@ def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
     and get K1's mutual items (`bh_kernels.near_work(sources=)`), which
     evaluate each mutual leaf pair once; several windows' get the one-way
     items."""
-    n_leaves = tree.com[0].shape[0]
-    stop = 1 if refine == "dense" else 2
-    windows = _windows(n_leaves, sections)
+    if dtype != tree.com[0].dtype:
+        raise ValueError(f"lists of a {tree.com[0].dtype} tree in {dtype}")
+    setup = BHSetup.make(
+        n_leaves=tree.com[0].shape[0], leaf_size=leaf_size, theta=theta,
+        near_budget=near_budget, far0_budget=far_budget, refine=refine,
+        cand_budgets=cand_budgets)
+    return _plan(tree, dataclasses.replace(setup, sections=sections), heal)
+
+
+def _plan(tree, setup, heal=None) -> BHListPlan:
+    """bh_plan_lists at resolved settings; the plan's lists are octet
+    lists whatever setup's far mode."""
+    setup = dataclasses.replace(setup, far_mode="octet")
+    n_leaves, leaf = tree.com[0].shape[0], setup.leaf
+    windows = _windows(n_leaves, setup.sections)
 
     def walk(start, w):
         with span("bh.traverse"):
-            return traverse(tree, theta, start_leaf=start, n_slice=w,
-                            stop_level=stop)
+            return traverse(tree, setup.theta, start_leaf=start, n_slice=w,
+                            stop_level=setup.stop)
 
     kept = walk(*windows[0]) if len(windows) == 1 else None
 
     def build(budgets, need):
-        kw = dict(theta=theta, near_budget=budgets["near"],
-                  far_budget=budgets["far"], dtype=dtype, need=need)
         parts, works, orders, clipped = [], [], [], 0
         for start, w in windows:
             far_masks, rejects = kept if kept is not None else walk(start, w)
             with span("bh.lists"):
-                if refine == "staged":
-                    ni, nv, fk, fv, _, of = build_interaction_lists_staged(
-                        tree, far_masks, rejects, start_leaf=start, n_slice=w,
-                        cand2_budget=budgets["cand2"],
-                        cand1_budget=budgets["cand1"], octet_far=True, **kw)
-                else:
-                    ni, nv, fk, fv, _, of = build_interaction_lists_octet(
-                        tree, far_masks, rejects, start_leaf=start, n_slice=w,
-                        **kw)
+                ni, nv, (fk, fv, _), of = _window_lists(
+                    tree, far_masks, rejects, setup, start, w, budgets, need)
                 del far_masks, rejects
                 parts.append((ni, nv, fk, fv, of))
                 works.append(bh_kernels.near_work(
-                    nv, ni, overflow=of, sources=(n_leaves, leaf_size)))
+                    nv, ni, overflow=of, sources=(n_leaves, leaf)))
                 clipped += _clip_count(works[-1], of)
                 orders.append(bh_kernels.far_order(fv))
         ni, nv, fk, fv, ofs = zip(*parts)
@@ -1202,25 +1345,7 @@ def bh_plan_lists(tree: BHTree, *, theta, near_budget, far_budget,
         return BHListPlan(_join(ni), _join(nv), _join(fk), _join(fv),
                           overflow, tuple(works), tuple(orders)), clipped
 
-    budgets = {"near": near_budget, "far": far_budget,
-               "cand2": cand_budgets[0], "cand1": cand_budgets[1]}
-    if heal is None:
-        return build(budgets, {})[0]
-    return heal.build(build, budgets, _full_widths(tree))
-
-
-def _refresh_nodes8(pos_s, mass_s, *, leaf_size, multipole, max_levels,
-                    n_live):
-    """The pyramid refresh of a frozen-list evaluation: the multipole
-    pyramid of the CURRENT sorted positions as K2's 8-aligned node table
-    (pads, rows [n_live:], left out of the domain cube)."""
-    with span("bh.refresh"):
-        lo = torch.amin(pos_s[:n_live], dim=0)
-        hi = torch.amax(pos_s[:n_live], dim=0)
-        _, _, sentinel = domain_cube(lo, hi)
-        tree = build_tree(pos_s, mass_s, leaf_size, sentinel,
-                          multipole_order=multipole, max_levels=max_levels)
-        return _nodes_all_octet(tree, pos_s.dtype)
+    return _healed(build, setup.budgets(), tree, heal)
 
 
 def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
@@ -1235,29 +1360,61 @@ def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
     physics identical to the unsectioned evaluation (whose mutual K1 items
     round differently)."""
     n_leaves = pos_s.shape[0] // leaf_size
-    nodes8 = _refresh_nodes8(pos_s, mass_s, leaf_size=leaf_size,
-                             multipole=multipole, max_levels=max_levels,
-                             n_live=n_live)
-    tgt = pos_s.reshape(n_leaves, leaf_size, 3)
     windows = _windows(n_leaves, sections)
     for built in (plan.near_work, plan.far_order):
         if built is not None and len(built) != len(windows):
             raise ValueError(f"plan built for {len(built)} windows, "
                              f"evaluated in {len(windows)}")
-    kw = dict(g=g, softening=softening, compute_pot=compute_pot)
+    setup = BHSetup.make(n_leaves=n_leaves, leaf_size=leaf_size, g=g,
+                         softening=softening, multipole=multipole,
+                         max_levels=max_levels, compute_pot=compute_pot,
+                         far_mode="octet")
+    nodes8 = _refresh_nodes8(pos_s, mass_s, leaf_size=leaf_size,
+                             multipole=multipole, max_levels=max_levels,
+                             n_live=n_live)
+    tgt = pos_s.reshape(n_leaves, leaf_size, 3)
     accs, pots = [], []
     for i, (start, w) in enumerate(windows):
         rows = slice(start, start + w)
-        acc, pot = _eval_far_octet(
-            tgt[rows], nodes8, plan.far_keys[rows], plan.far_valid[rows],
-            order=None if plan.far_order is None else plan.far_order[i], **kw)
-        a, ph = bh_kernels.near_field(
+        acc, pot = _window_forces(
             pos_s, mass_s, tgt[rows], plan.near_idx[rows],
             plan.near_valid[rows],
-            work=None if plan.near_work is None else plan.near_work[i], **kw)
-        accs.append(acc + a)
-        pots.append(pot + ph)
+            (plan.far_keys[rows], plan.far_valid[rows], nodes8), setup,
+            work=None if plan.near_work is None else plan.near_work[i],
+            order=None if plan.far_order is None else plan.far_order[i])
+        accs.append(acc)
+        pots.append(pot)
     return _join(accs), _join(pots)
+
+
+def rebuild_block(pos, vel, acc, mass, orig, setup, n_live, heal=None):
+    """One rebuild block's geometry (the rebuild-interval runs,
+    bh_rebuild_every): its rows re-sorted into their current curve order,
+    pads (orig >= n_live, orig each row's original index) left out of the
+    domain cube and keyed last; the pyramid of the live rows; the frozen
+    lists (_plan, with the caller's heal). Returns ((pos_s, vel_s, acc_s,
+    mass_s, orig_s), plan, accel_fn), accel_fn(pos_s) -> (acc, pot) the
+    lists evaluated at the block's current sorted positions through
+    bh_eval_lists (looked up at each call)."""
+    with span("bh.sort"):
+        perm, _ = _curve_order(pos, setup.curve, live=orig < n_live)
+        rows = tuple(c[perm] for c in (pos, vel, acc, mass, orig))
+    pos_s, mass_s = rows[0], rows[3]
+    with span("bh.tree"):
+        tree = _live_tree(pos_s, mass_s, n_live, leaf_size=setup.leaf,
+                          multipole=setup.multipole,
+                          max_levels=setup.max_levels)
+    plan = _plan(tree, setup, heal)
+
+    def accel_fn(p):
+        with span("force"):
+            return bh_eval_lists(
+                p, mass_s, plan, leaf_size=setup.leaf, g=setup.g,
+                softening=setup.softening, multipole=setup.multipole,
+                max_levels=setup.max_levels, compute_pot=setup.compute_pot,
+                n_live=n_live, sections=setup.sections)
+
+    return rows, plan, accel_fn
 
 
 def leaf_aabbs(pos, mass, *, leaf_size=256, curve="hilbert"):
@@ -1290,71 +1447,42 @@ def tree_stats(pos, mass, cfg) -> dict:
     """Structure dump for the CLI's `tree` command: depth, level widths,
     leaf-radius and interaction-list-length percentiles, overflow, for the
     refinement and far mode the config resolves to (dense octet, dense
-    gather or staged), so `tree` audits what `run` executes. Staged lists
-    are built in row blocks (build_interaction_lists_staged's auto), as the
-    runs build them."""
-    leaf = cfg.resolve_bh_leaf_size()
-    pos_s, _, _, tree, n, n_pad = _prepare(
-        pos, mass, leaf_size=leaf, curve=cfg.bh_curve,
-        multipole_order=cfg.bh_multipole, max_levels=cfg.bh_max_levels)
-    n_leaves = n_pad // leaf
-    near_budget = cfg.resolve_bh_near_budget()
-    far_budget = cfg.resolve_bh_far_budget()
-    refine, cands = resolve_refine(
-        cfg.resolve_bh_refine(), (cfg.bh_cand2_budget, cfg.bh_cand_budget),
-        tree.n_levels, near_budget, far_budget)
-    far_mode = resolve_far_mode(cfg.bh_far_mode, refine)
+    gather or staged), so `tree` audits what `run` executes: the lists of
+    one window over every leaf, built as the runs build them."""
+    setup = BHSetup.of(cfg, pos.shape[0])
+    _, _, _, tree, n, _ = _prepare(
+        pos, mass, leaf_size=setup.leaf, curve=setup.curve,
+        multipole_order=setup.multipole, max_levels=setup.max_levels)
     out = {
-        "n": int(n), "n_leaves": n_leaves, "leaf_size": leaf,
+        "n": int(n), "n_leaves": setup.n_leaves, "leaf_size": setup.leaf,
         "levels": tree.n_levels,
         "level_widths": [int(c.shape[0]) for c in tree.com],
-        "theta": cfg.theta, "curve": cfg.bh_curve, "refine": refine,
-        "far_mode": far_mode,
+        "theta": cfg.theta, "curve": cfg.bh_curve, "refine": setup.refine,
+        "far_mode": setup.far_mode,
         "leaf_radius": _percentiles(tree.radius[0]),
-        "budgets": {"near": near_budget, "far": far_budget},
+        "budgets": {"near": setup.near, "far": setup.far},
     }
-    kw = dict(theta=cfg.theta, start_leaf=0, n_slice=n_leaves,
-              near_budget=near_budget)
-    if refine == "dense" and far_mode == "octet":
-        far_masks, rejects_l1 = traverse(tree, cfg.theta)
-        (_, nv, _, fv, _, overflow) = build_interaction_lists_octet(
-            tree, far_masks, rejects_l1, far_budget=far_budget,
-            dtype=pos_s.dtype, **kw)
-        out |= {
-            "near_leaves_per_target": _percentiles(torch.sum(nv, dim=1)),
-            "far_octets_per_target": _percentiles(torch.sum(fv, dim=1)),
-            "overflow": int(overflow),
-        }
-    elif refine == "dense":
-        far_masks, rejects_l1 = traverse(tree, cfg.theta)
-        _, near_valid, _, far0_valid, overflow = leaf_interactions(
-            tree, rejects_l1, far0_budget=far_budget, **kw)
-        upper = sum(int(torch.sum(far_masks[k]))
-                    for k in range(1, tree.n_levels))
-        out |= {
-            "near_leaves_per_target": _percentiles(
-                torch.sum(near_valid, dim=1)),
-            "far0_nodes_per_target": _percentiles(
-                torch.sum(far0_valid, dim=1)),
-            "upper_accepted_total": upper,
-            "overflow": int(overflow),
-        }
-    else:  # staged
-        far_masks, rej2 = traverse(tree, cfg.theta, stop_level=2)
-        (_, nv, _, fv, _, overflow) = build_interaction_lists_staged(
-            tree, far_masks, rej2, far_budget=far_budget,
-            cand2_budget=cands[0], cand1_budget=cands[1], dtype=pos_s.dtype,
-            octet_far=far_mode == "octet", **kw)
-        far_key = ("far_octets_per_target" if far_mode == "octet"
+    far_masks, rejects = traverse(tree, cfg.theta, stop_level=setup.stop)
+    _, nv, far, overflow = _window_lists(tree, far_masks, rejects, setup, 0,
+                                         setup.n_leaves, setup.budgets(),
+                                         None)
+    out["near_leaves_per_target"] = _percentiles(torch.sum(nv, dim=1))
+    if setup.refine == "dense" and setup.far_mode == "gather":
+        out |= {"far0_nodes_per_target": _percentiles(
+                    torch.sum(far[1], dim=1)),
+                "upper_accepted_total": sum(
+                    int(torch.sum(far_masks[k]))
+                    for k in range(1, tree.n_levels))}
+    else:
+        far_key = ("far_octets_per_target" if setup.far_mode == "octet"
                    else "far_nodes_per_target")
-        out |= {
-            "near_leaves_per_target": _percentiles(torch.sum(nv, dim=1)),
-            far_key: _percentiles(torch.sum(fv, dim=1)),
-            "l2_rejects_per_target": _percentiles(torch.sum(rej2, dim=1)),
-            "cand_budgets": {"cand2": cands[0], "cand1": cands[1]},
-            "overflow": int(overflow),
-        }
-    return out
+        out[far_key] = _percentiles(torch.sum(far[1], dim=1))
+    if setup.refine == "staged":
+        out |= {"l2_rejects_per_target": _percentiles(
+                    torch.sum(rejects, dim=1)),
+                "cand_budgets": {"cand2": setup.cands[0],
+                                 "cand1": setup.cands[1]}}
+    return out | {"overflow": int(overflow)}
 
 
 def measure_budget_requirements(pos, mass, cfg) -> dict:
@@ -1373,27 +1501,21 @@ def measure_budget_requirements(pos, mass, cfg) -> dict:
     "far_mode", "sections", "n_leaves", "leaf_size"} (cand maxima are 0
     for dense refine); far_max counts octet entries for the octet far mode,
     node entries for gather (dense gather: leaf entries)."""
-    leaf_size = cfg.resolve_bh_leaf_size()
-    theta = cfg.theta
-    n = pos.shape[0]
-    n_leaves, n_pad, n_levels = plan_tree(n, leaf_size, cfg.bh_max_levels)
-    refine, _ = resolve_refine(cfg.resolve_bh_refine(), (1, 1), n_levels,
-                               1, 1)
-    far_mode = resolve_far_mode(cfg.bh_far_mode, refine)
-    sections = resolve_sections(cfg.bh_sections, n_leaves, refine)
-    octet = far_mode == "octet"
-    out = {"refine": refine, "far_mode": far_mode, "sections": sections,
-           "n_leaves": n_leaves, "leaf_size": leaf_size,
-           "cand2_max": 0, "cand1_max": 0}
+    setup = BHSetup.of(cfg, pos.shape[0])
+    theta, n_leaves = cfg.theta, setup.n_leaves
+    octet = setup.far_mode == "octet"
+    out = {"refine": setup.refine, "far_mode": setup.far_mode,
+           "sections": setup.sections, "n_leaves": n_leaves,
+           "leaf_size": setup.leaf, "cand2_max": 0, "cand1_max": 0}
 
     _, _, _, tree, _, _ = _prepare(
-        pos, mass, leaf_size=leaf_size, curve=cfg.bh_curve,
-        multipole_order=cfg.bh_multipole, max_levels=cfg.bh_max_levels)
+        pos, mass, leaf_size=setup.leaf, curve=setup.curve,
+        multipole_order=setup.multipole, max_levels=setup.max_levels)
     widths = [c.shape[0] for c in tree.com]
     offs8, _ = _octet_offsets(widths)
-    windows = _windows(n_leaves, sections)
+    windows = setup.windows()
 
-    if refine == "dense":
+    if setup.refine == "dense":
         near_max = far_max = 0
         for start, w in windows:
             far_masks, rejects_l1 = traverse(tree, theta, start_leaf=start,
@@ -1500,21 +1622,12 @@ def measure_import_requirement(pos, mass, cfg, n_ranks: int) -> dict:
     "n_leaf_loc_proxy", "n_leaves"}."""
     import numpy as np
 
-    leaf_size = cfg.resolve_bh_leaf_size()
-    n_leaves, _, n_levels = plan_tree(pos.shape[0], leaf_size,
-                                      cfg.bh_max_levels)
-    refine, cands = resolve_refine(
-        cfg.resolve_bh_refine(), (cfg.bh_cand2_budget, cfg.bh_cand_budget),
-        n_levels, cfg.resolve_bh_near_budget(), cfg.resolve_bh_far_budget())
-    sections = resolve_sections(cfg.bh_sections, n_leaves, refine)
+    setup = BHSetup.of(cfg, pos.shape[0])
+    n_leaves = setup.n_leaves
     _, _, _, tree, _, _ = _prepare(
-        pos, mass, leaf_size=leaf_size, curve=cfg.bh_curve,
-        multipole_order=cfg.bh_multipole, max_levels=cfg.bh_max_levels)
-    plan = bh_plan_lists(
-        tree, theta=cfg.theta, near_budget=cfg.resolve_bh_near_budget(),
-        far_budget=cfg.resolve_bh_far_budget(), refine=refine,
-        cand_budgets=cands, dtype=pos.dtype, leaf_size=leaf_size,
-        sections=sections)
+        pos, mass, leaf_size=setup.leaf, curve=setup.curve,
+        multipole_order=setup.multipole, max_levels=setup.max_levels)
+    plan = _plan(tree, setup)
     ni = plan.near_idx.cpu().numpy()
     nv = plan.near_valid.cpu().numpy()
     l_loc = -(-n_leaves // n_ranks)
@@ -1531,7 +1644,8 @@ def measure_import_requirement(pos, mass, cfg, n_ranks: int) -> dict:
 
 
 def make_bh_accel(cfg, mass, overflow_cell=None, heal=None):
-    """accel_fn(pos) -> (acc, pot) with the configured BH parameters.
+    """accel_fn(pos) -> (acc, pot) with the configured BH parameters
+    (BHSetup.of cfg for mass's bodies, resolved here once).
 
     overflow_cell: optional one-element list; each evaluation's budget
     overflow counter (a device tensor, no host sync) is ACCUMULATED into it,
@@ -1539,22 +1653,11 @@ def make_bh_accel(cfg, mass, overflow_cell=None, heal=None):
 
     heal: the caller's ListHeal (bh_accel's heal), kept across the
     evaluations of every accel_fn it is given to."""
+    setup = BHSetup.of(cfg, mass.shape[0])
 
     def accel_fn(pos):
         with span("force"):
-            acc, pot, ovf = bh_accel(
-                pos, mass,
-                leaf_size=cfg.resolve_bh_leaf_size(), theta=cfg.theta,
-                g=cfg.g, softening=cfg.softening,
-                near_budget=cfg.resolve_bh_near_budget(),
-                far0_budget=cfg.resolve_bh_far_budget(), curve=cfg.bh_curve,
-                multipole=cfg.bh_multipole, max_levels=cfg.bh_max_levels,
-                compute_pot=cfg.track_potential,
-                refine=cfg.resolve_bh_refine(),
-                cand_budgets=(cfg.bh_cand2_budget, cfg.bh_cand_budget),
-                far_mode=cfg.bh_far_mode, sections=cfg.bh_sections,
-                heal=heal,
-            )
+            acc, pot, ovf = _accel(pos, mass, setup, heal)
             if overflow_cell is not None:
                 overflow_cell[0] = overflow_cell[0] + ovf
             return acc, pot

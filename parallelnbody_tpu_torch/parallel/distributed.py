@@ -33,16 +33,15 @@ end for dropped rows, and the spare slot is cut off.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 
 from parallelnbody_tpu_torch.ops import bh_kernels
 from parallelnbody_tpu_torch.ops.bh import (
-    INT32_MAX, _eval_far_list, _eval_far_octet, _nodes_all_octet,
-    build_interaction_lists, build_interaction_lists_octet,
-    build_interaction_lists_staged, build_tree, build_upper, domain_cube,
-    eval_far_lists, resolve_far_mode, resolve_refine, traverse)
+    INT32_MAX, BHSetup, _far_forces, _nodes_all_octet, _window_lists,
+    domain_cube, leaf_rows, traverse, tree_of_rows)
 from parallelnbody_tpu_torch.ops.hilbert import hilbert_encode
 from parallelnbody_tpu_torch.ops.morton import morton_encode
 from parallelnbody_tpu_torch.parallel.mesh import RingGroup
@@ -277,36 +276,15 @@ def _near_let_eval(pos_own, mass_own, tgt_leaves, near_valid, lp: _LetPlan,
         src_table=src)
 
 
-def _near_let(pos_own, mass_own, tgt_leaves, near_idx, near_valid, cfg, *,
-              group, leaf_size, n_leaf_loc, compute_pot):
-    """Locally essential near field: plan + evaluation. Returns (acc, pot,
-    overflow); a clipped import leaves an inert zero-mass tile and is
-    counted."""
-    lp = _near_let_plan(near_idx, near_valid, cfg, group=group,
-                        n_leaf_loc=n_leaf_loc)
-    acc, pot = _near_let_eval(pos_own, mass_own, tgt_leaves, near_valid, lp,
-                              cfg, group=group, leaf_size=leaf_size,
-                              n_leaf_loc=n_leaf_loc, compute_pot=compute_pot)
-    return acc, pot, lp.overflow
-
-
 # ------------------------------------------------------------------ ring
 def _owned_tree(pos_own, mass_own, sentinel, cfg, *, leaf_size,
                 group: RingGroup):
     """Distributed tree: local leaf summaries, one all_gather of the
     summary table (com, mass, radius and the quadrupole in one tensor), the
     replicated upper pyramid. Built afresh at every evaluation."""
-    ltree = build_tree(pos_own, mass_own, leaf_size, sentinel,
-                       multipole_order=cfg.bh_multipole, max_levels=1)
-    quad = ltree.quad[0]
-    cols = [ltree.com[0], ltree.mass[0][:, None], ltree.radius[0][:, None]]
-    if quad is not None:
-        cols.append(quad)
-    g = group.all_gather(torch.cat(cols, 1))
-    return build_upper(g[:, 0:3].contiguous(), g[:, 3].contiguous(),
-                       g[:, 4].contiguous(),
-                       g[:, 5:10].contiguous() if quad is not None else None,
-                       sentinel, max_levels=cfg.bh_max_levels)
+    rows = leaf_rows(pos_own, mass_own, leaf_size, sentinel, cfg.bh_multipole)
+    return tree_of_rows(group.all_gather(rows), sentinel,
+                        max_levels=cfg.bh_max_levels)
 
 
 def ring_windows(near_idx, near_valid, n_ranks, n_leaf_loc, rank,
@@ -349,39 +327,16 @@ def _near_ring(pos_own, mass_own, tgt_leaves, near_idx, near_valid, cfg, *,
     return out
 
 
-def _lists(tree, cfg, *, start, n_leaf_loc, dtype, octet_only=False):
-    """Traversal and lists for the target window [start, start +
-    n_leaf_loc) in the refinement and far mode the config resolves to
-    (octet_only: the octet far mode of the rebuild-interval plan). Returns
-    (refine, far_mode, near_idx, near_valid, far lists..., overflow)."""
-    refine, cands = resolve_refine(
-        cfg.resolve_bh_refine(), (cfg.bh_cand2_budget, cfg.bh_cand_budget),
-        tree.n_levels, cfg.resolve_bh_near_budget(),
-        cfg.resolve_bh_far_budget())
-    far_mode = ("octet" if octet_only
-                else resolve_far_mode(cfg.bh_far_mode, refine))
-    kw = dict(theta=cfg.theta, start_leaf=start, n_slice=n_leaf_loc,
-              near_budget=cfg.resolve_bh_near_budget(), dtype=dtype)
-    if refine == "staged":
-        far_masks, rej2 = traverse(tree, cfg.theta, start_leaf=start,
-                                   n_slice=n_leaf_loc, stop_level=2)
-        out = build_interaction_lists_staged(
-            tree, far_masks, rej2, far_budget=cfg.resolve_bh_far_budget(),
-            cand2_budget=cands[0], cand1_budget=cands[1],
-            octet_far=far_mode == "octet", **kw)
-    elif far_mode == "octet":
-        far_masks, rej1 = traverse(tree, cfg.theta, start_leaf=start,
-                                   n_slice=n_leaf_loc)
-        out = build_interaction_lists_octet(
-            tree, far_masks, rej1, far_budget=cfg.resolve_bh_far_budget(),
-            **kw)
-    else:
-        far_masks, rej1 = traverse(tree, cfg.theta, start_leaf=start,
-                                   n_slice=n_leaf_loc)
-        out = build_interaction_lists(
-            tree, far_masks, rej1, far0_budget=cfg.resolve_bh_far_budget(),
-            **kw)
-    return (refine, far_mode) + tuple(out)
+def _lists(tree, cfg, *, start, n_leaf_loc):
+    """Traversal and lists (ops/bh.py _window_lists) for the target window
+    [start, start + n_leaf_loc) in the refinement and far mode the config
+    resolves to for the distributed tree. Returns (setup, near_idx,
+    near_valid, far, overflow)."""
+    setup = BHSetup.of(cfg, n_leaves=tree.com[0].shape[0])
+    far_masks, rejects = traverse(tree, cfg.theta, start_leaf=start,
+                                  n_slice=n_leaf_loc, stop_level=setup.stop)
+    return (setup,) + _window_lists(tree, far_masks, rejects, setup, start,
+                                    n_leaf_loc, setup.budgets(), None)
 
 
 def _forces_owned(pos_own, mass_own, sentinel, cfg, *, group: RingGroup,
@@ -389,29 +344,21 @@ def _forces_owned(pos_own, mass_own, sentinel, cfg, *, group: RingGroup,
     """Tree, lists, far kernels (K2 octet; K4 gather) and the near field
     (ring or LET) for the owned key-range shard. Returns (acc, pot,
     overflow) in owned order."""
-    g, soft = cfg.g, cfg.softening
     tree = _owned_tree(pos_own, mass_own, sentinel, cfg, leaf_size=leaf_size,
                        group=group)
-    start = group.rank * n_leaf_loc
     tgt_leaves = pos_own.reshape(n_leaf_loc, leaf_size, 3)
-    refine, far_mode, near_idx, near_valid, *far = _lists(
-        tree, cfg, start=start, n_leaf_loc=n_leaf_loc, dtype=pos_own.dtype)
-    of_lists = far[-1]
-    fkw = dict(g=g, softening=soft, compute_pot=compute_pot)
-    if refine == "staged" or far_mode == "octet":
-        fidx, fvalid, nodes = far[0], far[1], far[2]
-        evaluate = _eval_far_octet if far_mode == "octet" else _eval_far_list
-        acc, pot = evaluate(tgt_leaves, nodes, fidx, fvalid, **fkw)
-    else:
-        f0i, f0v, upi, upv, nodes_up, leaf_nodes = far[:6]
-        acc, pot = eval_far_lists(tgt_leaves, nodes_up, upi, upv, leaf_nodes,
-                                  f0i, f0v, **fkw)
+    setup, near_idx, near_valid, far, of_lists = _lists(
+        tree, cfg, start=group.rank * n_leaf_loc, n_leaf_loc=n_leaf_loc)
+    acc, pot = _far_forces(tgt_leaves, far,
+                           dataclasses.replace(setup, compute_pot=compute_pot))
     if cfg.bh_comm == "let":
-        a, ph, of_imp = _near_let(
-            pos_own, mass_own, tgt_leaves, near_idx, near_valid, cfg,
-            group=group, leaf_size=leaf_size, n_leaf_loc=n_leaf_loc,
-            compute_pot=compute_pot)
-        return acc + a, pot + ph, of_lists + of_imp
+        # A clipped import leaves an inert zero-mass tile and is counted.
+        lp = _near_let_plan(near_idx, near_valid, cfg, group=group,
+                            n_leaf_loc=n_leaf_loc)
+        a, ph = _near_let_eval(pos_own, mass_own, tgt_leaves, near_valid, lp,
+                               cfg, group=group, leaf_size=leaf_size,
+                               n_leaf_loc=n_leaf_loc, compute_pot=compute_pot)
+        return acc + a, pot + ph, of_lists + lp.overflow
     a, ph = _near_ring(pos_own, mass_own, tgt_leaves, near_idx, near_valid,
                        cfg, group=group, n_leaf_loc=n_leaf_loc,
                        compute_pot=compute_pot)
@@ -437,9 +384,8 @@ def _plan_owned(pos_own, mass_own, sentinel, cfg, *, group: RingGroup,
     overflow); the overflow is exact for the whole block."""
     tree = _owned_tree(pos_own, mass_own, sentinel, cfg, leaf_size=leaf_size,
                        group=group)
-    _, _, ni, nv, fk, fv, _, of = _lists(
-        tree, cfg, start=group.rank * n_leaf_loc, n_leaf_loc=n_leaf_loc,
-        dtype=pos_own.dtype, octet_only=True)
+    _, ni, nv, (fk, fv, _), of = _lists(
+        tree, cfg, start=group.rank * n_leaf_loc, n_leaf_loc=n_leaf_loc)
     works = (ring_windows(ni, nv, group.world_size, n_leaf_loc, group.rank,
                           leaf_size)
              if cfg.bh_comm == "ring" else None)
@@ -456,10 +402,11 @@ def _eval_owned(pos_own, mass_own, sentinel, plan: _OwnedPlan, cfg, *,
                        group=group)
     nodes8 = _nodes_all_octet(tree, pos_own.dtype)
     tgt_leaves = pos_own.reshape(n_leaf_loc, leaf_size, 3)
-    acc, pot = _eval_far_octet(tgt_leaves, nodes8, plan.far_keys,
-                               plan.far_valid, g=cfg.g,
-                               softening=cfg.softening,
-                               compute_pot=compute_pot, order=plan.far_order)
+    acc, pot = bh_kernels.far_octet(tgt_leaves, nodes8, plan.far_keys,
+                                    plan.far_valid, g=cfg.g,
+                                    softening=cfg.softening,
+                                    compute_pot=compute_pot,
+                                    order=plan.far_order)
     if let_plan is not None:
         a, ph = _near_let_eval(pos_own, mass_own, tgt_leaves,
                                plan.near_valid, let_plan, cfg, group=group,
@@ -482,8 +429,7 @@ def _dist_reuse_eligible(cfg, n_steps: int) -> bool:
         return False
     if cfg.bh_comm not in ("ring", "let"):
         return False
-    return resolve_far_mode(cfg.bh_far_mode,
-                            cfg.resolve_bh_refine()) == "octet"
+    return BHSetup.of(cfg).far_mode == "octet"
 
 
 def _return_to_origin(cols_f, id_own, valid_own, *, group: RingGroup,

@@ -45,6 +45,8 @@ from parallelnbody_tpu_torch.state import SimState, resolve_device
 # Collective timeout of the process groups started here (a hung collective
 # raises after it); RankPool.run has its own deadline.
 GROUP_TIMEOUT = 1800.0
+# The name of the ranks' one axis, as the JAX package's mesh names it.
+RING_AXIS = "ring"
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
         "max": dist.ReduceOp.MAX}
@@ -418,7 +420,7 @@ def make_multislice_ring_mesh(ici: int, dcn: int, device="cuda",
     return make_ring_mesh(ici * dcn, device, **kw)
 
 
-def state_pspecs(axis: str = "ring") -> SimState:
+def state_pspecs(axis: str = RING_AXIS) -> SimState:
     """Which SimState fields are sharded over the ranks (`axis`) and which
     are replicated (None): the particle arrays and the scalars."""
     return SimState(pos=axis, vel=axis, mass=axis, acc=axis, pot=axis,

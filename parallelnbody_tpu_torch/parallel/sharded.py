@@ -9,6 +9,8 @@ RingGroup in place of the mesh axis.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from parallelnbody_tpu_torch.config import SimConfig
@@ -38,29 +40,25 @@ def _bh_sharded_accel(pos_local, mass_local, cfg: SimConfig,
     replicated sort permutation. with_overflow=True also returns the
     list-budget overflow summed over ranks (overlapping trailing windows
     may count a clip twice; zero means zero)."""
-    from parallelnbody_tpu_torch.ops.bh import (bh_accel_target_slice,
-                                                plan_tree,
+    from parallelnbody_tpu_torch.ops.bh import (BHSetup,
+                                                bh_accel_target_slice,
                                                 slice_row_of_sorted)
 
     cfg = cfg.with_resolved_leaf(group.device)
     n_ranks, rank = group.world_size, group.rank
     n_local = pos_local.shape[0]
-    leaf = cfg.resolve_bh_leaf_size()
     both = group.all_gather(torch.cat([pos_local, mass_local[:, None]], 1))
+    # The potential always, as the JAX package's slices compute it.
+    setup = dataclasses.replace(BHSetup.of(cfg, both.shape[0]),
+                                compute_pot=True)
     acc_sl, pot_sl, perm, overflow = bh_accel_target_slice(
         both[:, :3].contiguous(), both[:, 3].contiguous(), rank, n_ranks,
-        leaf_size=leaf, theta=cfg.theta, g=cfg.g, softening=cfg.softening,
-        near_budget=cfg.resolve_bh_near_budget(),
-        far0_budget=cfg.resolve_bh_far_budget(), curve=cfg.bh_curve,
-        multipole=cfg.bh_multipole, max_levels=cfg.bh_max_levels,
-        refine=cfg.resolve_bh_refine(),
-        cand_budgets=(cfg.bh_cand2_budget, cfg.bh_cand_budget),
-        far_mode=cfg.bh_far_mode)
+        setup)
     out_g = group.all_gather(torch.cat([acc_sl, pot_sl[:, None]], 1))
-    n_leaves, _, _ = plan_tree(both.shape[0], leaf, cfg.bh_max_levels)
     inv_perm = torch.argsort(perm)  # sorted position of each original row
     my_ids = rank * n_local + torch.arange(n_local, device=perm.device)
-    rows = slice_row_of_sorted(inv_perm[my_ids], n_leaves, n_ranks, leaf)
+    rows = slice_row_of_sorted(inv_perm[my_ids], setup.n_leaves, n_ranks,
+                               setup.leaf)
     acc, pot = out_g[rows, :3], out_g[rows, 3]
     if with_overflow:
         return acc, pot, group.all_reduce(overflow.to(torch.int32))

@@ -113,16 +113,16 @@ def owned_geometry(group, cfg_json, arrays, with_sources=False):
                        curve=cfg.bh_curve)
     tree = D._owned_tree(pos_own, mass_own, sentinel, cfg, leaf_size=leaf,
                          group=group)
-    refine, far_mode, ni, nv, *far = D._lists(
-        tree, cfg, start=group.rank * n_leaf_loc, n_leaf_loc=n_leaf_loc,
-        dtype=pos_own.dtype)
+    setup, ni, nv, far, of_lists = D._lists(
+        tree, cfg, start=group.rank * n_leaf_loc, n_leaf_loc=n_leaf_loc)
     lp = D._near_let_plan(ni, nv, cfg, group=group, n_leaf_loc=n_leaf_loc)
     out = {"id_own": id_own, "valid_own": valid_own,
            "migrants": int(mig), "of_exchange": int(of_ex),
            "near_idx": ni, "near_valid": nv, "far_idx": far[0],
-           "far_valid": far[1], "of_lists": int(far[-1]),
+           "far_valid": far[1], "of_lists": int(of_lists),
            "let_new_idx": lp.new_idx, "let_overflow": int(lp.overflow),
-           "refine": refine, "far_mode": far_mode, "n_leaf_loc": n_leaf_loc,
+           "refine": setup.refine, "far_mode": setup.far_mode,
+           "n_leaf_loc": n_leaf_loc,
            "sentinel": sentinel}
     if with_sources:
         packed = torch.cat([pos_own, mass_own[:, None]], 1)

@@ -57,12 +57,10 @@ import torch
 
 from parallelnbody_tpu_torch import SimConfig
 from parallelnbody_tpu_torch.api import (_REUSE_PLAN_RATIO,
-                                         AUTO_BUDGET_FIELDS,
                                          _fill_initial_forces,
                                          _reuse_block_size, calibrate_budgets,
                                          init_simulation, make_run,
                                          prepare_simulation)
-from parallelnbody_tpu_torch.cli import recalibrate_on_overflow
 from parallelnbody_tpu_torch.ops import bh
 from parallelnbody_tpu_torch.tools import measure
 from parallelnbody_tpu_torch.tools.reuse_probe import make_plan_eval
@@ -91,6 +89,8 @@ CALIB_CASES = (("SimConfig(n=2^20)", None, 1 << 20),
                ("examples/galaxy_2m.json", "examples/galaxy_2m.json", None))
 CALIB_STEPS = (1, 1, 1, 1, 16, 16)
 GIB = 2**30
+# The list budgets that 0 leaves to calibration.
+AUTO_BUDGET_FIELDS = tuple(bh.BUDGET_FIELDS.values())
 
 
 def _events_ms(fn, reps):
@@ -115,9 +115,22 @@ def _load(path):
         return SimConfig.from_json(f.read())
 
 
+def recalibrate_on_overflow(cfg, state, auto_fields):
+    """cfg with each budget of auto_fields (fields that arrived as 0 =
+    auto) raised to what calibrate_budgets measures on `state`, where that
+    is more: only upward, and explicit budgets never. Returns (cfg, grew),
+    grew mapping the raised fields to their new values ({} = nothing to
+    do); the raised fields stay calibrated."""
+    fresh = calibrate_budgets(cfg.replace(**{f: 0 for f in auto_fields}),
+                              state)
+    grew = {f: getattr(fresh, f) for f in auto_fields
+            if getattr(fresh, f) > getattr(cfg, f)}
+    return (cfg.calibrated(**grew) if grew else cfg), grew
+
+
 def _prepared(cfg, steps):
     """(cfg, t = 0 state): prepare_simulation on the card, then the auto
-    budgets raised (cli.recalibrate_on_overflow) to cover the state after
+    budgets raised (recalibrate_on_overflow) to cover the state after
     every step through `steps`, so that runs of up to `steps` from the
     returned state clip nothing that the configuration states. Every
     step: a single step's near lists can need several times the maximum
@@ -227,16 +240,12 @@ def leaf():
         auto = SimConfig(n=n)
         for size in LEAF_ORDER:
             cfg = _load(RULE_CONFIG).replace(n=n, bh_leaf_size=size)
+            setup = bh.BHSetup.of(cfg)
             yield _gate({"rule": "leaf", "n": n, "leaf": size,
                          "auto_leaf_cpu": auto.resolve_bh_leaf_size("cpu"),
                          "auto_leaf_cuda": auto.resolve_bh_leaf_size("cuda"),
-                         "n_leaves": bh.plan_tree(n, size,
-                                                  cfg.bh_max_levels)[0],
-                         "refine": cfg.resolve_bh_refine(),
-                         "sections": bh.resolve_sections(
-                             cfg.bh_sections, bh.plan_tree(
-                                 n, size, cfg.bh_max_levels)[0],
-                             cfg.resolve_bh_refine()),
+                         "n_leaves": setup.n_leaves,
+                         "refine": setup.refine, "sections": setup.sections,
                          **_sim_ms(cfg, reuse=True, rms=True,
                                    step_reps=LEAF_STEP_REPS)})
 
@@ -246,9 +255,9 @@ def refine():
         for mode in ("dense", "staged"):
             cfg = _load(RULE_CONFIG).replace(n=n, bh_leaf_size=256,
                                              bh_refine=mode)
-            n_leaves = bh.plan_tree(n, 256, cfg.bh_max_levels)[0]
             yield _gate({
-                "rule": "refine", "n": n, "n_leaves": n_leaves,
+                "rule": "refine", "n": n,
+                "n_leaves": bh.BHSetup.of(cfg).n_leaves,
                 "refine": mode,
                 "auto": SimConfig(n=n, bh_leaf_size=256).resolve_bh_refine(),
                 **_sim_ms(cfg, reuse=True)})

@@ -163,12 +163,9 @@ def _geometry(cfg, dev):
     """The leaf, refinement and sections the config resolves to on dev."""
     if cfg.resolve_force(dev) != "barnes_hut":
         return {}
-    leaf = cfg.resolve_bh_leaf_size(dev)
-    n_leaves, _, n_levels = bh.plan_tree(cfg.n, leaf, cfg.bh_max_levels)
-    refine = cfg.resolve_bh_refine(dev)
-    return {"leaf": leaf, "refine": refine,
-            "sections": bh.resolve_sections(cfg.bh_sections, n_leaves,
-                                            refine)}
+    setup = bh.BHSetup.of(cfg.with_resolved_leaf(dev))
+    return {"leaf": setup.leaf, "refine": setup.refine,
+            "sections": setup.sections}
 
 
 def _budgets(cfg):

@@ -34,8 +34,8 @@ outputs of the ones before it:
                 octet);
   K2 / K4       the far field: K2 on the octet list, K4 on the staged
                 gather list, or K4 on the upper and on the leaf list (the
-                two launches of `bh.eval_far_lists`), each with its terms
-                and bound;
+                two launches of `bh._far_forces`' dense gather form), each
+                with its terms and bound;
   K1            the near field on the prebuilt items, its pairs and bound;
   unsort        `bh._unsort`, the scatter `bh_accel` runs (not the
                 script's 5-operand sort).
@@ -105,42 +105,37 @@ class Spec:
     softening: float = 0.01
     compute_pot: bool = True
 
-    def resolved(self, n):
-        n_levels = bh.plan_tree(n, self.leaf, self.max_levels)[2]
-        refine, cands = bh.resolve_refine(self.refine, self.cands, n_levels,
-                                          self.near, self.far)
-        return dataclasses.replace(
-            self, refine=refine, cands=cands,
-            far_mode=bh.resolve_far_mode(self.far_mode, refine))
-
-    def accel(self, pos, mass):
-        """`bh.bh_accel` at this spec, in one window."""
-        return bh.bh_accel(
-            pos, mass, leaf_size=self.leaf, theta=self.theta, g=self.g,
+    def setup(self, n):
+        """The bh.BHSetup of this spec for n bodies, in one window."""
+        return bh.BHSetup.make(
+            n, leaf_size=self.leaf, theta=self.theta, g=self.g,
             softening=self.softening, near_budget=self.near,
             far0_budget=self.far, curve=self.curve, multipole=self.multipole,
             max_levels=self.max_levels, compute_pot=self.compute_pot,
             refine=self.refine, cand_budgets=self.cands,
             far_mode=self.far_mode, sections=1)
 
+    def resolved(self, n):
+        s = self.setup(n)
+        return dataclasses.replace(self, refine=s.refine, cands=s.cands,
+                                   far_mode=s.far_mode)
+
+    def accel(self, pos, mass):
+        """`bh.bh_accel` at this spec, in one window."""
+        return bh._accel(pos, mass, self.setup(pos.shape[0]))
+
 
 def spec_of(cfg, far_mode=None):
     """The Spec of a (calibrated, leaf-resolved) configuration."""
-    n_leaves = bh.plan_tree(cfg.n, cfg.resolve_bh_leaf_size(),
-                            cfg.bh_max_levels)[0]
-    refine = cfg.resolve_bh_refine()
-    if bh.resolve_sections(cfg.bh_sections, n_leaves, refine) != 1:
+    s = bh.BHSetup.of(cfg)
+    if s.sections != 1:
         raise ValueError("the phases are timed over one window; "
                          f"{cfg.bh_sections} sections resolve to more")
-    return Spec(leaf=cfg.resolve_bh_leaf_size(), theta=cfg.theta,
-                near=cfg.resolve_bh_near_budget(),
-                far=cfg.resolve_bh_far_budget(), refine=refine,
-                far_mode=far_mode or cfg.bh_far_mode,
-                cands=(cfg.bh_cand2_budget, cfg.bh_cand_budget),
-                multipole=cfg.bh_multipole, curve=cfg.bh_curve,
-                max_levels=cfg.bh_max_levels, g=cfg.g,
-                softening=cfg.softening,
-                compute_pot=cfg.track_potential).resolved(cfg.n)
+    return Spec(leaf=s.leaf, theta=s.theta, near=s.near, far=s.far,
+                refine=s.refine, far_mode=far_mode or s.far_mode,
+                cands=s.cands, multipole=s.multipole, curve=s.curve,
+                max_levels=s.max_levels, g=s.g, softening=s.softening,
+                compute_pot=s.compute_pot)
 
 
 def stats(values):

@@ -91,11 +91,13 @@ def forces(pos, mass, mode, k_rms, *, leaf, near, far, theta):
     """One evaluation: (acc (n, 3) in input order, overflow)."""
     pos_s, mass_s, perm, tree, n, n_pad = _tree(pos, mass, mode, k_rms, leaf)
     far_masks, rejects = bh.traverse(tree, theta)
+    setup = bh.BHSetup.make(n, leaf_size=leaf, theta=theta,
+                            softening=SOFTENING, near_budget=near,
+                            far0_budget=far, multipole=2, compute_pot=False,
+                            far_mode="gather")
     acc, pot, ovf = bh._forces_sorted(
-        pos_s, mass_s, tree, far_masks, rejects, start_leaf=0,
-        n_slice=n_pad // leaf, leaf_size=leaf, theta=theta, g=1.0,
-        softening=SOFTENING, near_budget=near, far0_budget=far,
-        compute_pot=False, far_mode="gather")
+        pos_s, mass_s, tree, far_masks, rejects, setup, start_leaf=0,
+        n_slice=n_pad // leaf)
     return bh._unsort(acc, pot, perm, n)[0], ovf
 
 

@@ -39,6 +39,7 @@ limit (appended to --out).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
@@ -77,36 +78,27 @@ def make_plan_eval(cfg: SimConfig):
     order; evaluate(pos_s, mass_s, lists) -> (acc, pot) in sorted order
     rebuilds only the multipole pyramid from the current sorted positions
     and evaluates the frozen lists; full(pos, mass) -> (acc, pot,
-    overflow) is bh_accel with the octet far field."""
-    leaf = cfg.resolve_bh_leaf_size()
-    n_levels = bh.plan_tree(cfg.n, leaf, cfg.bh_max_levels)[2]
-    near, far = cfg.resolve_bh_near_budget(), cfg.resolve_bh_far_budget()
-    refine, cands = bh.resolve_refine(
-        cfg.resolve_bh_refine(), (cfg.bh_cand2_budget, cfg.bh_cand_budget),
-        n_levels, near, far)
-    kw = dict(g=cfg.g, softening=cfg.softening, multipole=cfg.bh_multipole,
-              max_levels=cfg.bh_max_levels, compute_pot=cfg.track_potential)
+    overflow) is bh_accel with the octet far field. All three in one
+    window, at the settings cfg resolves to (bh.BHSetup)."""
+    setup = dataclasses.replace(bh.BHSetup.of(cfg), sections=1,
+                                far_mode="octet")
+    kw = dict(leaf_size=setup.leaf, g=cfg.g, softening=cfg.softening,
+              multipole=cfg.bh_multipole, max_levels=cfg.bh_max_levels,
+              compute_pot=cfg.track_potential)
 
     def plan(pos, mass):
         pos_s, mass_s, perm, tree, _, _ = bh._prepare(
-            pos, mass, leaf_size=leaf, curve=cfg.bh_curve,
+            pos, mass, leaf_size=setup.leaf, curve=cfg.bh_curve,
             multipole_order=cfg.bh_multipole, max_levels=cfg.bh_max_levels)
-        return pos_s, mass_s, perm, bh.bh_plan_lists(
-            tree, theta=cfg.theta, near_budget=near, far_budget=far,
-            refine=refine, cand_budgets=cands, dtype=pos_s.dtype,
-            leaf_size=leaf)
+        return pos_s, mass_s, perm, bh._plan(tree, setup)
 
     def evaluate(pos_s, mass_s, lists):
-        return bh.bh_eval_lists(pos_s, mass_s, lists, leaf_size=leaf,
-                                n_live=cfg.n, **kw)
+        return bh.bh_eval_lists(pos_s, mass_s, lists, n_live=cfg.n, **kw)
 
     def full(pos, mass):
-        return bh.bh_accel(pos, mass, leaf_size=leaf, theta=cfg.theta,
-                           near_budget=near, far0_budget=far,
-                           curve=cfg.bh_curve, refine=refine,
-                           cand_budgets=cands, far_mode="octet", **kw)
+        return bh._accel(pos, mass, setup)
 
-    return plan, evaluate, full, refine
+    return plan, evaluate, full, setup.refine
 
 
 def _rel_rms(a, b):

@@ -53,12 +53,9 @@ def measure(path, sections):
     if sections:
         cfg = cfg.replace(bh_sections=sections)
     cfg = cfg.with_resolved_leaf("cuda")
-    leaf = cfg.resolve_bh_leaf_size()
-    n_leaves = bh.plan_tree(cfg.n, leaf, cfg.bh_max_levels)[0]
-    rec = {"config": path, "n": cfg.n, "n_leaves": n_leaves,
-           "bh_sections": cfg.bh_sections,
-           "sections": bh.resolve_sections(cfg.bh_sections, n_leaves,
-                                           cfg.resolve_bh_refine())}
+    setup = bh.BHSetup.of(cfg)
+    rec = {"config": path, "n": cfg.n, "n_leaves": setup.n_leaves,
+           "bh_sections": cfg.bh_sections, "sections": setup.sections}
     sim, rec["init_gib"], rec["init_s"] = peak_phase(
         lambda: Simulation(cfg, device="cuda"))
     for k in (1, 16):

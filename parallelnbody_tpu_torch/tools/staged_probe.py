@@ -22,7 +22,7 @@ resolves them (printed). Lines, by --mode:
   phases)      max), and the rejected level-2 nodes a target leaf (mean,
                max) against the level-2 candidate budget;
   phases       on the staged lists: the far field in one K4 launch
-               (`bh._eval_far_list`) and K1 (`bh_kernels.near_field`),
+               (`bh_kernels.far_gather`) and K1 (`bh_kernels.near_field`),
                once on work items built beforehand and once building
                them inside the call, as `bh_accel` does. The script timed
                its TPU near kernel at two VMEM segment sizes instead; the
@@ -116,7 +116,7 @@ def probe(pos, mass, args, out=None):
     if args.mode == "phases":
         tgt = pos_s.reshape(n_leaves, args.leaf, 3)
         fkw = dict(g=1.0, softening=0.01, compute_pot=False)
-        run("K4 far (combined)", lambda: bh._eval_far_list(
+        run("K4 far (combined)", lambda: bh_kernels.far_gather(
             tgt, nodes_all, fi2, fv2, **fkw))
         emit()
         work = bh_kernels.near_work(nv2)

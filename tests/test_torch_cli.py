@@ -516,3 +516,60 @@ def test_tree_matches_jax_cli(refine, capsys):
     assert set(t["requirements"]) == set(j["requirements"])
     for stat in ("near_leaves_per_target", "far_octets_per_target"):
         assert t[stat]["mean"] == pytest.approx(j[stat]["mean"], rel=0.2)
+
+
+def test_run_heals_clipping_auto_budgets(capsys, tmp_path, monkeypatch):
+    """A run whose calibrated budgets clip from its first step (cut to 4
+    after calibration): the step programs grow them (ops/bh.py ListHeal)
+    before any force is taken from the clipped lists, so no segment
+    reports an overflow, which alone set off the CLI's old mid-run
+    recalibration, and the run ends bit for bit where a run at budgets
+    that clip nothing ends. The budgets the heal grew to are the ones a
+    recalibration on the final state gives: it would grow nothing."""
+    from parallelnbody_tpu_torch import SimConfig, api
+    from parallelnbody_tpu_torch.kernels.launch import COUNTERS
+    from parallelnbody_tpu_torch.ops.bh import BUDGET_FIELDS, ListHeal
+    from parallelnbody_tpu_torch.tools.auto_rules import \
+        recalibrate_on_overflow
+
+    prepare = api.prepare_simulation
+    cut = {"bh_near_budget": 4, "bh_far_budget": 4}
+    monkeypatch.setattr(api, "prepare_simulation", lambda *a, **k: (
+        lambda cal, state: (cal.calibrated(**cut), state))(*prepare(*a, **k)))
+    common = ["run", "--n", "4096", "--force", "barnes_hut",
+              "--bh-leaf-size", "16", "--theta", "0.72", "--bh-multipole",
+              "2", "--dt", "0.001", "--steps", "16", "--log-every", "8",
+              "--checkpoint-every", "16"]
+    heals = COUNTERS["bh.heals"]
+    assert main(common + ["--metrics", str(tmp_path / "m.jsonl"),
+                          "--checkpoint-dir", str(tmp_path / "cut")]) == 0
+    out = capsys.readouterr()
+    assert COUNTERS["bh.heals"] > heals
+    assert json.loads(out.out.strip().splitlines()[-1])["bh_overflow"] == 0
+    assert "mid-run" not in out.err
+    records = (tmp_path / "m.jsonl").read_text().strip().splitlines()
+    assert len(records) == 3
+    assert not any("bh_overflow" in json.loads(r) for r in records)
+    assert main(common + ["--bh-near-budget", "256", "--bh-far-budget",
+                          "4096", "--checkpoint-dir", str(tmp_path / "wide")]
+                ) == 0
+    assert _last_json(capsys)["bh_overflow"] == 0
+    got, _ = load_checkpoint(latest_checkpoint(tmp_path / "cut"), "cpu")
+    want, _ = load_checkpoint(latest_checkpoint(tmp_path / "wide"), "cpu")
+    for f in ("pos", "vel", "acc"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+    # The same run through the library: the budgets its heal grew to.
+    cal, state = prepare(SimConfig(n=4096, force="barnes_hut",
+                                   bh_leaf_size=16, theta=0.72,
+                                   bh_multipole=2, dt=0.001), "cpu")
+    cfg = cal.calibrated(**cut)
+    heal = ListHeal.of(cfg)
+    run = api.make_run(cfg, 8, heal=heal)
+    end = run(run(state))
+    assert torch.equal(end.pos, got.pos)
+    grown = {BUDGET_FIELDS[k]: v for k, v in heal.grown.items()}
+    assert set(grown) == set(cut)
+    _, grew = recalibrate_on_overflow(cfg.calibrated(**grown), end,
+                                      list(grown))
+    assert grew == {}

@@ -185,12 +185,14 @@ def test_octet_list_names_the_gather_list(staged_shape):
 
 
 def _forces(s, far_mode):
+    setup = tbh.BHSetup.make(
+        n_leaves=s["n_leaves"], leaf_size=LEAF, theta=THETA, softening=0.01,
+        near_budget=s["n_leaves"], far0_budget=4 * s["n_leaves"],
+        compute_pot=False, refine="staged", cand_budgets=s["cands"],
+        far_mode=far_mode)
     acc, _, of = tbh._forces_sorted(
-        s["pos_s"], s["mass_s"], s["tree"], s["fm"], s["rej"], start_leaf=0,
-        n_slice=s["n_leaves"], leaf_size=LEAF, theta=THETA, g=1.0,
-        softening=0.01, near_budget=s["n_leaves"],
-        far0_budget=4 * s["n_leaves"], compute_pot=False, refine="staged",
-        cand_budgets=s["cands"], far_mode=far_mode)
+        s["pos_s"], s["mass_s"], s["tree"], s["fm"], s["rej"], setup,
+        start_leaf=0, n_slice=s["n_leaves"])
     assert int(of) == 0
     return acc
 

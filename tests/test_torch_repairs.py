@@ -12,7 +12,9 @@ held to the JAX package on the CPU:
     CPU mesh (rank r at ring position r): the ranks make_ring_mesh starts
     for ici * dcn, so the CLI starts every mesh_shape through
     make_ring_mesh (its `--devices 4x2` run is held to the JAX CLI in
-    tests/test_torch_cli.py).
+    tests/test_torch_cli.py);
+  * `parallel.mesh.RING_AXIS` names the ranks' axis as the JAX package's
+    mesh does, and `state_pspecs` shards over it by default.
 """
 
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ import torch
 
 import parallelnbody_tpu.ops as jops
 import parallelnbody_tpu_torch.ops as tops
+from parallelnbody_tpu.parallel import mesh as jmesh
 from parallelnbody_tpu.parallel.mesh import \
     make_multislice_ring_mesh as jax_multislice
 from parallelnbody_tpu.state import SimState as JaxState
@@ -93,3 +96,9 @@ def test_multislice_ring_order_is_the_jax_device_order(eight_devices, ici,
 def test_multislice_ring_mesh_refuses_empty_axes():
     with pytest.raises(ValueError, match="at least 1"):
         mesh.make_multislice_ring_mesh(0, 2, device="cpu")
+
+
+def test_ring_axis_is_the_jax_name():
+    assert mesh.RING_AXIS == jmesh.RING_AXIS
+    assert mesh.state_pspecs().pos == mesh.RING_AXIS
+    assert mesh.state_pspecs("x").vel == "x"

@@ -241,3 +241,89 @@ def test_resolve_sections(sections, n_leaves, refine, want):
     rows; explicit counts are clamped to a power of two that divides
     n_leaves; dense refinement never sections."""
     assert tbh.resolve_sections(sections, n_leaves, refine) == want
+
+
+@pytest.fixture(scope="module")
+def plummer_f32():
+    """{n: (pos, mass)} float32 Plummer spheres from the JAX ICs."""
+    return {n: tuple(torch.from_numpy(a) for a in _plummer_np(n, 5,
+                                                             "float32"))
+            for n in (256, 8192)}
+
+
+@pytest.mark.parametrize("n", [256, 8192], ids=["2-levels", "4-levels"])
+@pytest.mark.parametrize("sections", [0, 1, 4])
+@pytest.mark.parametrize("far_mode", ["octet", "gather"])
+@pytest.mark.parametrize("refine", ["dense", "staged"])
+def test_setup_is_each_resolution_it_replaces(plummer_f32, refine, far_mode,
+                                              sections, n):
+    """BHSetup.of(cfg) resolves as the separate rules did (plan_tree,
+    resolve_refine, resolve_far_mode, resolve_sections; a staged config on
+    a tree of fewer than 3 levels falls back to dense and one window), its
+    levels are the built tree's, and BHSetup.make from bh_accel's keywords
+    and BHSetup.of at the tree's leaf count give the same settings."""
+    cfg = SimConfig(n=n, force="barnes_hut", bh_leaf_size=32, theta=0.6,
+                    bh_multipole=2, bh_refine=refine, bh_far_mode=far_mode,
+                    bh_sections=sections)
+    setup = tbh.BHSetup.of(cfg)
+    leaf = cfg.resolve_bh_leaf_size()
+    near, far = cfg.resolve_bh_near_budget(), cfg.resolve_bh_far_budget()
+    n_leaves, n_pad, n_levels = tbh.plan_tree(n, leaf, cfg.bh_max_levels)
+    want_refine, cands = tbh.resolve_refine(
+        cfg.resolve_bh_refine(), (cfg.bh_cand2_budget, cfg.bh_cand_budget),
+        n_levels, near, far)
+    assert (setup.leaf, setup.n_leaves, setup.n_pad, setup.n_levels) == (
+        leaf, n_leaves, n_pad, n_levels)
+    assert (setup.refine, setup.cands) == (want_refine, cands)
+    assert setup.far_mode == tbh.resolve_far_mode(far_mode, want_refine)
+    assert setup.sections == tbh.resolve_sections(sections, n_leaves,
+                                                  want_refine)
+    assert setup.stop == (1 if want_refine == "dense" else 2)
+    assert setup.budgets() == {"near": near, "far": far, "cand2": cands[0],
+                               "cand1": cands[1]}
+    assert (setup.theta, setup.g, setup.softening, setup.multipole,
+            setup.max_levels, setup.curve, setup.compute_pot) == (
+        cfg.theta, cfg.g, cfg.softening, cfg.bh_multipole,
+        cfg.bh_max_levels, cfg.bh_curve, cfg.track_potential)
+    assert (want_refine == "staged") == (refine == "staged" and n == 8192)
+    pos, mass = plummer_f32[n]
+    tree = tbh._prepare(pos, mass, leaf_size=leaf, curve=cfg.bh_curve,
+                        multipole_order=2)[3]
+    assert tree.n_levels == setup.n_levels
+    assert tree.com[0].shape[0] == setup.n_leaves
+    assert tbh.BHSetup.of(cfg, n_leaves=setup.n_leaves) == setup
+    assert tbh.BHSetup.make(
+        n, leaf_size=leaf, theta=cfg.theta, g=cfg.g,
+        softening=cfg.softening, near_budget=near, far0_budget=far,
+        curve=cfg.bh_curve, multipole=2, max_levels=cfg.bh_max_levels,
+        compute_pot=cfg.track_potential, refine=cfg.resolve_bh_refine(),
+        cand_budgets=(0, 0), far_mode=far_mode, sections=sections) == setup
+
+
+@pytest.mark.parametrize("sections", [1, 4])
+@pytest.mark.parametrize("refine", ["dense", "staged"])
+def test_accel_is_plan_then_eval(plummer_f32, refine, sections):
+    """bh_accel (octet far field) is, bit for bit, the rebuild block's
+    pipeline at the same positions: _prepare, bh_plan_lists and
+    bh_eval_lists in as many windows, unsorted; the overflow is the plan's.
+    (Dense lists are evaluated in one window by bh_accel; a plan in 4
+    windows holds the same lists.)"""
+    pos, mass = plummer_f32[8192]
+    cands = (64, 256) if refine == "staged" else (0, 0)
+    acc, pot, of = tbh.bh_accel(
+        pos, mass, leaf_size=32, theta=0.6, softening=0.02, near_budget=512,
+        far0_budget=512, multipole=2, refine=refine, cand_budgets=cands,
+        far_mode="octet", sections=sections)
+    pos_s, mass_s, perm, tree, n, _ = tbh._prepare(
+        pos, mass, leaf_size=32, curve="hilbert", multipole_order=2)
+    plan = tbh.bh_plan_lists(
+        tree, theta=0.6, near_budget=512, far_budget=512, refine=refine,
+        cand_budgets=cands, dtype=torch.float32, leaf_size=32,
+        sections=sections)
+    a_s, p_s = tbh.bh_eval_lists(
+        pos_s, mass_s, plan, leaf_size=32, g=1.0, softening=0.02,
+        multipole=2, max_levels=12, compute_pot=True, n_live=n,
+        sections=sections)
+    got_a, got_p = tbh._unsort(a_s, p_s, perm, n)
+    assert int(plan.overflow) == int(of) == 0
+    assert torch.equal(got_a, acc) and torch.equal(got_p, pot)
