@@ -42,7 +42,8 @@ Phases, each of which exits non-zero on failure:
        against the f64 direct sum at N = 16384, ms, bound, share and the
        MUFU floor at N = 262144), V4 at 3xTF32 below rms 1e-4.
   4. Octet main path: Simulation(cfg, device="cuda") on the N = 1M config,
-     then step(1) (per step) and step(16) (two rebuild blocks of 8).
+     then step(1) (per step) and step(16) (two rebuild blocks of 8), whose
+     frozen-list evaluations must launch the pyramid refresh's pass.
   5. All-pairs path: examples/allpairs_262k.json, step(1) and step(16);
      then SimConfig() as it stands (N = 4096, force="auto"), step(10).
   6. Gather path: the N = 1M config with bh_far_mode="gather", step(1) and
@@ -61,7 +62,8 @@ Phases, each of which exits non-zero on failure:
      accepted children per leaf; the work items' and launch orders' own
      build time.
   9. Staged path: examples/barneshut_8m.json through Simulation, step(1)
-     and step(16), with its calibrated budgets; then with
+     and step(16) (the pyramid refresh's pass launched), with its
+     calibrated budgets; then with
      bh_far_mode="gather", step(1), its forces against the octet path's.
  10. Galaxy path: examples/galaxy_2m.json (galaxy_collision ICs, auto
      leaf, staged, potential on), step(1) and step(8); then ms/step of
@@ -197,6 +199,16 @@ Phases, each of which exits non-zero on failure:
      target leaves, launched twice for the same bits; the share of the
      entries in mutual pairs, the partial slots and both work items'
      build time. One JSON line.
+ 23. The pyramid refresh on the card (also alone: this script with
+     --pyramid, after the build): csrc/pyramid.cu, which replaces no
+     Pallas kernel (the JAX package's refresh is XLA's fusion of
+     build_tree), against its plain version (bh.refresh_plain: the
+     refresh before the pass, packed as K2 reads it) at the sorted rows of
+     the 1M operating point and of the 8M cell (leaf 128), each timed
+     (events and busy ms), with the pass's bound (bytes read and written
+     at 3.35 TB/s), share and launches a refresh, held to the plain
+     version (empty and pad rows bit for bit), two calls the same bits.
+     One JSON line.
 
 Before each path every launch count is set to 0 and after it the counts
 are read (for a multi-device run, each rank's own counts, from
@@ -383,6 +395,9 @@ EXCHANGE_STEPS = 120        # exchange_volume_probe's steps a case
 STAT_TOOLS_ARG = "--stat-tools"           # phase 20 alone (a child process)
 BUDGET_HEAL_ARG = "--budget-heal"         # phase 21 alone
 K1_PAIRS_ARG = "--k1-pairs"               # phase 22 alone
+PYRAMID_ARG = "--pyramid"                 # phase 23 alone
+# Phase 23's row sets: (label, config, leaf size (None: the config's)).
+PYRAMID_SHAPES = (("1M", CONFIG, None), ("8M leaf 128", STAGED_CONFIG, 128))
 # Phase 22's list sets: (label, config, leaf size (None: the config's),
 # staged refinement), and the rounds of alternating timed forms.
 K1_PAIR_LISTS = (("1M", CONFIG, None, False),
@@ -493,7 +508,8 @@ def reset_launch_counts():
 
 
 def launch_counts():
-    return {**bh_kernels.LAUNCHES, **direct_kernels.LAUNCHES,
+    return {**bh_kernels.LAUNCHES, **bh_kernels.REFRESH_LAUNCHES,
+            **direct_kernels.LAUNCHES,
             **direct_mma.LAUNCHES, **near_probe.LAUNCHES,
             **near_flat.LAUNCHES}
 
@@ -1356,6 +1372,18 @@ def drive_path(label, cfg, kernels, steps, rms_bound, rms_k=RMS_SAMPLES):
     return sim, launches
 
 
+def check_refresh(label, launches):
+    """drive_path's (1, REUSE_STEPS) at a rebuild interval: step(1)
+    refreshes nothing, step(REUSE_STEPS) once a step, at least
+    REUSE_STEPS times (a tail block's masked steps evaluate too), three
+    launches of the pass a refresh."""
+    got = launches["refresh"]
+    if got % 3 or got < 3 * REUSE_STEPS:
+        raise AssertionError(f"{label}: {got} launches of the pyramid "
+                             f"refresh, not 3 a refresh of at least "
+                             f"{REUSE_STEPS}")
+
+
 def report_diagnostics(label, sim):
     diag = sim.diagnostics()
     log(f"{label}: diagnostics " + json.dumps(diag))
@@ -1365,8 +1393,10 @@ def report_diagnostics(label, sim):
 
 def phase_octet_path(cfg_json):
     cfg = SimConfig.from_json(cfg_json)
-    sim, launches = drive_path("octet path", cfg, ("near_field", "far_octet"),
+    sim, launches = drive_path("octet path", cfg,
+                               ("near_field", "far_octet", "refresh"),
                                (1, REUSE_STEPS), RMS_BOUND)
+    check_refresh("octet path", launches)
     _, ms_step = cuda_ms(lambda: sim.step(1), STEP_REPS)
     _, ms_block = cuda_ms(lambda: sim.step(REUSE_STEPS))
     dev_step = measure.busy_ms(lambda: sim.step(1))
@@ -1615,8 +1645,10 @@ def phase_staged_parity(staged_json, kernels):
 def phase_staged_path(staged_json):
     """The 8M staged config through Simulation, octet then gather."""
     cfg = SimConfig.from_json(staged_json)
-    sim, launches = drive_path("staged path", cfg, ("near_field", "far_octet"),
+    sim, launches = drive_path("staged path", cfg,
+                               ("near_field", "far_octet", "refresh"),
                                (1, REUSE_STEPS), RMS_BOUND)
+    check_refresh("staged path", launches)
     c = sim.cfg
     log(f"staged path: refine {c.resolve_bh_refine()}, calibrated budgets "
         f"near {c.bh_near_budget} far {c.bh_far_budget} cand2 "
@@ -3241,6 +3273,74 @@ def phase_k1_pairs():
     return out
 
 
+def phase_pyramid():
+    """The pyramid refresh's pass (csrc/pyramid.cu, three launches; no
+    Pallas kernel: the JAX package's refresh is XLA's fusion of
+    build_tree) against its plain version (refresh_plain, the refresh
+    before the pass) at each PYRAMID_SHAPES row set: the
+    configuration's ICs on the card in Hilbert order, zero-mass pads at the
+    origin after them, as the rebuild-interval runs carry them. Each timed
+    by measure.phase (events ms of KERNEL_REPS calls, busy ms of one more),
+    the pass's bound (the bodies read once, 16 bytes a row, and the table
+    written once, at 3.35 TB/s) and share = bound / busy, its launches a
+    refresh; held to the plain version (measure.pyramid_close); two calls
+    the same bits. Returns one record a row set."""
+    dev = torch.device(DEVICE)
+    out = {}
+    for label, path, leaf in PYRAMID_SHAPES:
+        with open(path) as f:
+            cfg = SimConfig.from_json(f.read())
+        cfg = cfg.with_resolved_leaf(dev)
+        if leaf is not None:
+            cfg = cfg.replace(bh_leaf_size=leaf)
+        leaf = cfg.bh_leaf_size
+        state = init_simulation(cfg, dev, compute_forces=False)
+        n = cfg.n
+        _, n_pad, _ = bh.plan_tree(n, leaf, cfg.bh_max_levels)
+        perm, _ = bh._curve_order(state.pos, cfg.bh_curve)
+        pos_s = torch.cat([state.pos[perm],
+                           state.pos.new_zeros((n_pad - n, 3))]).contiguous()
+        mass_s = torch.cat([state.mass[perm],
+                            state.mass.new_zeros(n_pad - n)])
+        del state, perm
+        kw = dict(leaf_size=leaf, multipole=cfg.bh_multipole,
+                  max_levels=cfg.bh_max_levels, n_live=n)
+        calls = {"pass": lambda: bh._refresh_nodes8(pos_s, mass_s, **kw),
+                 "plain": lambda: bh.refresh_plain(pos_s, mass_s, **kw)}
+        rec = {"n": n, "n_pad": n_pad, "leaf": leaf,
+               "multipole": cfg.bh_multipole}
+        before = bh_kernels.REFRESH_LAUNCHES["refresh"]
+        got = calls["pass"]()
+        rec["launches"] = bh_kernels.REFRESH_LAUNCHES["refresh"] - before
+        want = calls["plain"]()
+        errs = measure.pyramid_close(
+            f"pyramid {label}", got, want, pos_s, mass_s, leaf_size=leaf,
+            max_levels=cfg.bh_max_levels, n_live=n)
+        rec.update({f"{k}_err": v for k, v in errs.items()})
+        repeat_equal(f"pyramid {label}", lambda: (calls["pass"](),))
+        rec["table_rows"], cols = got.shape
+        rec["bytes"] = 16 * n_pad + 4 * cols * rec["table_rows"]
+        rec["bound_ms"] = rec["bytes"] / HBM_BYTES * 1e3
+        del got, want
+        for name, fn in calls.items():
+            _, t = measure.phase(fn, KERNEL_REPS, dev)
+            rec[f"{name}_ms"], rec[f"{name}_busy_ms"] = t["ms"], t["busy_ms"]
+        if rec["pass_busy_ms"]:
+            rec["share"] = rec["bound_ms"] / rec["pass_busy_ms"]
+        log(f"pyramid refresh, {label} ({n} bodies, leaf {leaf}, "
+            f"{rec['table_rows']} rows of {cols}): pass {rec['pass_ms']:.4f} "
+            f"ms (busy {rec['pass_busy_ms']}), plain {rec['plain_ms']:.4f} "
+            f"ms (busy {rec['plain_busy_ms']}), bound {rec['bound_ms']:.4f} "
+            f"ms, share {rec.get('share')}, {rec['launches']} launches; "
+            f"errors {rec['mass_err']:.2e} / {rec['com_err']:.3f} / "
+            f"{rec['quad_err']:.2e}")
+        out[label] = rec
+        del pos_s, mass_s, calls
+        torch.cuda.empty_cache()
+    print(json.dumps({"pyramid": out}), flush=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_environment()
@@ -3308,6 +3408,11 @@ def main():
         "near_field_table"]
     kernels.update(phase_near_experiments())
     kernels["near_field"]["mutual_form"] = phase_k1_pairs()
+    kernels["far_octet"]["pyramid_refresh"] = phase_pyramid()
+    # The pass's launches on the rebuild-interval paths that carry it.
+    kernels["far_octet"]["pyramid_refresh_launches"] = {
+        "octet path 1M": launches["refresh"],
+        "staged path 8M": staged["refresh"]}
     for name in EXP_KERNELS:
         launches[name] = kernels[name].pop("launches")
         kernels[name].update(per_pair.get(name, {}))
@@ -3357,5 +3462,9 @@ if __name__ == "__main__":
         phase_environment()
         phase_build()
         phase_k1_pairs()
+    elif sys.argv[1:2] == [PYRAMID_ARG]:
+        phase_environment()
+        build.load_library()
+        phase_pyramid()
     else:
         main()

@@ -52,6 +52,9 @@ _SIGNATURES = (
     ("pnb_near_probe", [_VP] * 7 + [_I] * 10 + [_F, _VP], _I),
     ("pnb_near_flat", [_VP] * 6 + [_I] * 5 + [_F, _I, _I, _VP], _I),
     ("pnb_near_flat_lanes", [_VP] * 6 + [_I] * 6 + [_F, _VP], _I),
+    ("pnb_pyramid_leaves", [_VP] * 5 + [_I] * 6 + [_VP], _I),
+    ("pnb_pyramid_top", [_VP] * 4 + [_I] * 4 + [_VP], _I),
+    ("pnb_pyramid_fill", [_VP] * 3 + [_I] * 4 + [_VP], _I),
     ("pnb_error_string", [_I], ctypes.c_char_p),
 )
 

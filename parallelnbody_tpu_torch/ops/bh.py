@@ -36,7 +36,8 @@ window.
 Each phase of a force evaluation is a span (utils/profiling.span):
 `bh.sort` (keys, sort, gather), `bh.tree`, `bh.traverse`, `bh.lists` (the
 lists with K1's work items, and in a plan K2's launch order),
-`bh.refresh` (a frozen-list evaluation's pyramid), `bh.unsort`; the kernel
+`bh.refresh` (a frozen-list evaluation's pyramid: refresh_plain on the
+CPU, one pass of csrc/pyramid.cu on the card), `bh.unsort`; the kernel
 wrappers' `bh.near` and `bh.far` (ops/bh_kernels.py).
 
 Integer outputs (keys, sort order, masks, lists, overflow) equal the JAX
@@ -50,13 +51,15 @@ with r_* tight bounding radii around each group's center of mass.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
-from parallelnbody_tpu_torch.kernels.launch import COUNTERS, host_read
+from parallelnbody_tpu_torch.kernels.launch import (COUNTERS, host_read,
+                                                    on_cpu)
 from parallelnbody_tpu_torch.ops import bh_kernels
 from parallelnbody_tpu_torch.ops.hilbert import hilbert_encode
 from parallelnbody_tpu_torch.ops.morton import morton_encode
@@ -91,13 +94,19 @@ def plan_tree(n: int, leaf_size: int, max_levels: int = 12):
     return n_leaves, n_leaves * leaf_size, _count_levels(n_leaves, max_levels)
 
 
+def _level_widths(n_leaves: int, max_levels: int = 12) -> list:
+    """The node count of each level of the pyramid build_upper makes over
+    n_leaves leaves, leaves first."""
+    widths = [n_leaves]
+    while widths[-1] > 1 and len(widths) < max_levels:
+        n_k = widths[-1]
+        widths.append(n_k // (8 if n_k % 8 == 0 and n_k >= 8 else n_k))
+    return widths
+
+
 def _count_levels(n_leaves: int, max_levels: int = 12) -> int:
     """Levels of the pyramid build_upper makes over n_leaves leaves."""
-    levels, n_k = 1, n_leaves
-    while n_k > 1 and levels < max_levels:
-        n_k //= 8 if n_k % 8 == 0 and n_k >= 8 else n_k
-        levels += 1
-    return levels
+    return len(_level_widths(n_leaves, max_levels))
 
 
 def domain_cube(lo, hi):
@@ -1041,15 +1050,44 @@ def _prepare(pos, mass, *, leaf_size, curve, multipole_order=1, max_levels=12):
     return pos_s, mass_s, perm, tree, n, n_pad
 
 
+@functools.lru_cache(maxsize=None)
+def _pyramid_plan(n_leaves, max_levels):
+    """(widths, rows, n8): each level's node count (_level_widths), the
+    first row of each level in the 8-aligned node table (_nodes_all_octet)
+    and the table's rows: the level plan of the refresh on the card."""
+    widths = _level_widths(n_leaves, max_levels)
+    offs8, n_oct = _octet_offsets(widths)
+    return tuple(widths), tuple(8 * o for o in offs8), 8 * n_oct
+
+
+def refresh_plain(pos_s, mass_s, *, leaf_size, multipole, max_levels,
+                  n_live):
+    """The plain version of the pyramid refresh (bh_kernels.pyramid_rows):
+    the multipole pyramid of the sorted rows (pads, rows [n_live:], left
+    out of the domain cube) as K2's 8-aligned node table, packed as the
+    pass packs it (bh_kernels.far_rows: (n8, 12) with quadrupoles, (n8, 4)
+    without)."""
+    tree = _live_tree(pos_s, mass_s, n_live, leaf_size=leaf_size,
+                      multipole=multipole, max_levels=max_levels)
+    return bh_kernels.far_rows(_nodes_all_octet(tree, pos_s.dtype))
+
+
 def _refresh_nodes8(pos_s, mass_s, *, leaf_size, multipole, max_levels,
                     n_live):
     """The pyramid refresh of a frozen-list evaluation: the multipole
     pyramid of the CURRENT sorted positions as K2's 8-aligned node table
-    (pads, rows [n_live:], left out of the domain cube)."""
+    (pads, rows [n_live:], left out of the domain cube), packed for K2
+    ((n8, 12|4)). CPU tensors run refresh_plain; CUDA tensors the pass on
+    the card (bh_kernels.pyramid_rows)."""
     with span("bh.refresh"):
-        tree = _live_tree(pos_s, mass_s, n_live, leaf_size=leaf_size,
-                          multipole=multipole, max_levels=max_levels)
-        return _nodes_all_octet(tree, pos_s.dtype)
+        if on_cpu(pos_s, mass_s):
+            return refresh_plain(pos_s, mass_s, leaf_size=leaf_size,
+                                 multipole=multipole, max_levels=max_levels,
+                                 n_live=n_live)
+        plan = _pyramid_plan(pos_s.shape[0] // leaf_size, max_levels)
+        return bh_kernels.pyramid_rows(pos_s, mass_s, plan,
+                                       leaf_size=leaf_size,
+                                       quad=multipole >= 2, n_live=n_live)
 
 
 # ------------------------------------------------------ one target window

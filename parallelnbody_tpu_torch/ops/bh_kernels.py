@@ -29,6 +29,12 @@ u = rsqrt(r^2 + eps^2) and w = m u^3 (plus the traceless quadrupole terms in
 the far field). guard_zero (softening 0) zeroes u where r^2 = 0;
 compute_pot=False returns a zero potential.
 
+Beside them, `pyramid_rows` runs the pyramid refresh of a frozen-list
+evaluation on the card (csrc/pyramid.cu; it replaces no Pallas kernel, and
+its plain version and the choice by device are ops/bh.py's
+`refresh_plain` and `_refresh_nodes8`): K2's node table packed as
+`far_rows` packs it, in three launches.
+
 Each wrapper dispatches on the device of the tensors it is given: on the CPU
 it runs its plain PyTorch version (`near_field_plain`, `far_octet_plain`,
 `far_gather_plain`, ports of `_near_field_jnp`, `_far0_jnp`,
@@ -61,6 +67,9 @@ LAUNCHES = {"near_field": 0, "near_field_window": 0, "near_field_table": 0,
 # Launches of the mutual form's pairing (csrc/near_pairs.cu), two C calls
 # a list build.
 PAIR_LAUNCHES = {"near_pairs": 0}
+# Launches of the pyramid refresh on the card (csrc/pyramid.cu), three C
+# calls a refresh, none on the CPU.
+REFRESH_LAUNCHES = {"refresh": 0}
 
 # K1 work-item length: a near-list row is cut into items of at most this
 # many source leaves, one block each (csrc/near_field.cu; chosen on the card,
@@ -133,7 +142,7 @@ class NearWork:
 
 
 def reset_launch_counts():
-    for counts in (LAUNCHES, PAIR_LAUNCHES):
+    for counts in (LAUNCHES, PAIR_LAUNCHES, REFRESH_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -256,7 +265,8 @@ def far_octet_plain(tgt_leaves, nodes8, keys, valid, *, g, softening,
                     compute_pot=True):
     """Octet-masked multipole far field (plain torch): targets (L, G, 3)
     against per-target lists of (octet_id << 8) | child_mask keys over the
-    8-row-aligned node table nodes8 (n8, 4|9). Each key's (8, C) sibling
+    8-row-aligned node table nodes8 (n8, 4|9), or (n8, 12) packed as
+    `far_rows` packs it (its Qzz column unread). Each key's (8, C) sibling
     tile is expanded with its child mask and evaluated with the node-list
     math (`_far_octet_jnp`). Returns (acc (L*G, 3), pot (L*G,))."""
     n_slice, leaf_size, _ = tgt_leaves.shape
@@ -331,11 +341,12 @@ def far_rows(table):
     """The node rows that K2 and K4 stage with 16-byte copies, from a
     multipole table (n, 9) [x, y, z, m, Qxx, Qyy, Qxy, Qxz, Qyz]: (n, 12)
     [x, y, z, m, Qxx, Qyy, Qxy, Qxz, Qyz, Qzz, 0, 0], Qzz = -(Qxx + Qyy)
-    formed once per node (csrc/terms.cuh quad_term). A monopole table
-    (n, 4) is its own packing, returned as it is, or copied where its rows
-    do not start on a 16-byte boundary. Three small torch ops on every call
-    of the wrappers; the plain versions read the (n, 9) table."""
-    if table.shape[1] == 4:
+    formed once per node (csrc/terms.cuh quad_term); three small torch ops.
+    A monopole table (n, 4) and a table already packed (n, 12) (the pyramid
+    refresh's, `pyramid_rows` and `bh.refresh_plain`) are returned as they are, or copied where
+    their rows do not start on a 16-byte boundary. The plain versions read
+    the (n, 9) or the (n, 12) table."""
+    if table.shape[1] in (4, 12):
         return table if table.data_ptr() % 16 == 0 else table.clone()
     rows = torch.nn.functional.pad(table, (0, 3))
     torch.add(table[:, 4], table[:, 5], out=rows[:, 9]).neg_()
@@ -362,6 +373,42 @@ def far_order(valid):
     if valid.device.type == "cpu":
         return None
     return heaviest_first(torch.sum(valid, dim=1, dtype=torch.int32))
+
+
+def pyramid_rows(pos_s, mass_s, plan, *, leaf_size, quad, n_live):
+    """The pyramid refresh on the card (csrc/pyramid.cu): the multipole
+    pyramid of the sorted rows pos_s (n_pad, 3) / mass_s (n_pad,), of which
+    the first n_live are live, as K2's table packed as `far_rows` packs it:
+    (n8, 12) with quadrupoles (quad), (n8, 4) without, each level padded to
+    8 rows, leaves first. plan = (widths, rows, n8), the level plan
+    (bh._pyramid_plan). Three launches, counted in REFRESH_LAUNCHES.
+    CUDA float32 tensors only: the plain version is bh.refresh_plain."""
+    widths, rows, n8 = plan
+    n_pad = pos_s.shape[0]
+    if on_cpu(pos_s, mass_s):
+        raise ValueError("pyramid_rows launches the card's kernels; the "
+                         "plain version is bh.refresh_plain")
+    if n_pad != widths[0] * leaf_size or not 0 < n_live <= n_pad:
+        raise ValueError(f"{n_pad} rows, {n_live} live, are not "
+                         f"{widths[0]} leaves of {leaf_size}")
+    check("pos_s", pos_s, torch.float32, (n_pad, 3))
+    check("mass_s", mass_s, torch.float32, (n_pad,))
+    dev = pos_s.device
+    table = torch.empty((n8, 12 if quad else 4), dtype=torch.float32,
+                        device=dev)
+    n_boxes = -(-widths[0] // 8)
+    scratch = torch.empty(6 * n_boxes + 3, dtype=torch.float32, device=dev)
+    boxes, sentinel = scratch[:6 * n_boxes], scratch[6 * n_boxes:]
+    host = torch.tensor([*widths, *rows], dtype=torch.int32)
+    levels = (ptr(host), len(widths), widths[0])
+    launch(REFRESH_LAUNCHES, "refresh", "pnb_pyramid_leaves",
+           ptr(pos_s), ptr(mass_s), ptr(table), ptr(boxes), *levels,
+           leaf_size, int(n_live), n8, int(quad))
+    launch(REFRESH_LAUNCHES, "refresh", "pnb_pyramid_top", ptr(table),
+           ptr(boxes), ptr(sentinel), *levels, n8, int(quad))
+    launch(REFRESH_LAUNCHES, "refresh", "pnb_pyramid_fill", ptr(table),
+           ptr(sentinel), *levels, n8, int(quad))
+    return table
 
 
 def _window_sizes(counts, chunks, extra=()):
@@ -855,10 +902,11 @@ def far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,
     """K2: octet-masked multipole far field of targets (L, G, 3) against
     their front-packed lists of (octet_id << 8) | child_mask keys (L, B)
     int32 / valid (L, B) bool over the 8-row-aligned node table nodes8
-    (n8, 4|9). Returns (acc (L*G, 3), pot (L*G,)). CPU tensors run
-    `far_octet_plain`; CUDA tensors launch the kernel (f32 only) on the
-    table packed by `far_rows`, target leaves in the launch order `order`
-    (`far_order(valid)`, built here when None)."""
+    (n8, 4|9), or that table packed (n8, 12) as `far_rows` packs it (the
+    pyramid refresh's). Returns (acc (L*G, 3), pot (L*G,)). CPU tensors
+    run `far_octet_plain`; CUDA tensors launch the kernel (f32 only) on the
+    table packed by `far_rows` (a packed table as it is), target leaves in
+    the launch order `order` (`far_order(valid)`, built here when None)."""
     with span("bh.far"):
         if is_tracing():
             count_on_device("far.terms", _octet_terms(keys, valid) *
@@ -870,9 +918,9 @@ def far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,
         n_slice, leaf_size, _ = tgt_leaves.shape
         n8, n_comp = nodes8.shape
         budget = keys.shape[1]
-        if n8 % 8 or n_comp not in (4, 9):
+        if n8 % 8 or n_comp not in (4, 9, 12):
             raise ValueError(f"nodes8 {tuple(nodes8.shape)}: rows must be a "
-                             "multiple of 8 and columns 4 or 9")
+                             "multiple of 8 and columns 4, 9 or 12")
         if not 0 < leaf_size <= 1024:
             raise ValueError(f"leaf size {leaf_size} above 1024")
         check("tgt_leaves", tgt_leaves, torch.float32, (n_slice, leaf_size, 3))

@@ -30,8 +30,9 @@ outputs of the ones before it:
   near_work     K1's work items (`bh_kernels.near_work`);
   far_order     K2's launch order (`bh_kernels.far_order`; octet);
   refresh       the pyramid refresh of a frozen-list evaluation
-                (`bh._refresh_nodes8`, build_tree + _nodes_all_octet;
-                octet);
+                (`bh._refresh_nodes8`: on the card the pass of
+                csrc/pyramid.cu, whose packed rows K2 takes as they are;
+                on the CPU build_tree + _nodes_all_octet; octet);
   K2 / K4       the far field: K2 on the octet list, K4 on the staged
                 gather list, or K4 on the upper and on the leaf list (the
                 two launches of `bh._far_forces`' dense gather form), each

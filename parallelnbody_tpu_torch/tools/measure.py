@@ -3,7 +3,8 @@ card's name and power limit, CUDA-event timing (one call, or rounds of
 several calls in alternating order), the device's busy time from
 torch.profiler (a reading held against the launches it saw) and a
 phase's two times, the least time of a pair sum, the parity checks
-against a reference output, and the JSON lines they print.
+against a reference output (among them the pyramid refresh's,
+`pyramid_close`), and the JSON lines they print.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import subprocess
 
 import torch
 
-from parallelnbody_tpu_torch.ops import bh_kernels, direct_kernels
+from parallelnbody_tpu_torch.ops import bh, bh_kernels, direct_kernels
 
 # The H100 SXM's published rates at 700 W.
 FP32_FLOPS = 67e12          # FP32 outside the tensor cores
@@ -203,6 +204,75 @@ def max_abs_err(name, got, want, rtol, atol):
                              f"{rtol} / atol {atol}; max abs err "
                              f"{float(err.max()):.3e}")
     return float(err.max())
+
+
+# The pyramid refresh's pass against its plain version (pyramid_close):
+# the mass and the centre within f32 rounding of sums over up to G bodies
+# (or a node's children) taken in another order, the centre also within
+# 1e-6 of the domain's half-extent, which is how closely an f32 centre at
+# that distance is known; the quadrupole within QUAD_TOL of the node's sum
+# m |d|^2 (with that centre floor): each of its terms m (3 dx dx - |d|^2)
+# rounds relative to m |d|^2, not to the often cancelling sum, so two
+# summation orders differ on that scale.
+PYRAMID_RTOL = 1e-5
+QUAD_TOL = 1e-5
+
+
+def _node_scale(pos_s, mass_s, tree, leaf, n8):
+    """(n8,) float64: each row's sum m |d|^2 about its centre (the plain
+    tree's), a leaf's over its bodies, an upper node's its children's plus
+    their masses at their centres (the parallel axis), the levels stacked
+    8-aligned as bh._nodes_all_octet stacks them (pad rows 0)."""
+    com = [c.double() for c in tree.com]
+    n_leaves = com[0].shape[0]
+    d = pos_s.double().reshape(n_leaves, leaf, 3) - com[0][:, None]
+    s = [torch.sum(mass_s.double().reshape(n_leaves, leaf) *
+                   torch.sum(d * d, -1), 1)]
+    del d
+    for k in range(1, len(com)):
+        b = com[k - 1].shape[0] // com[k].shape[0]
+        dc = com[k - 1].reshape(-1, b, 3) - com[k][:, None]
+        mk = tree.mass[k - 1].double().reshape(-1, b)
+        s.append(s[-1].reshape(-1, b).sum(1) +
+                 torch.sum(mk * torch.sum(dc * dc, -1), 1))
+    out = torch.zeros(n8, dtype=torch.float64, device=pos_s.device)
+    widths, rows, _ = bh._pyramid_plan(n_leaves, len(s))
+    for w, r, sk in zip(widths, rows, s):
+        out[r:r + w] = sk
+    return out
+
+
+def pyramid_close(name, got, want, pos_s, mass_s, *, leaf_size, max_levels,
+                  n_live):
+    """The pass's packed node table `got` against the plain one `want`
+    (bh.refresh_plain) on the sorted rows pos_s /
+    mass_s: rows of mass 0 (empty nodes and pads) the same bits, the
+    others within PYRAMID_RTOL and QUAD_TOL; raises otherwise. Returns the
+    largest relative mass error, centre error over its tolerance and
+    quadrupole error over its scale."""
+    empty = want[:, 3] == 0
+    if not torch.equal(got[empty], want[empty]):
+        raise AssertionError(f"{name}: rows of mass 0 differ")
+    _, half, _ = bh._cube_of(pos_s[:n_live])
+    floor = 1e-6 * float(half)
+    g, w = got[~empty].double(), want[~empty].double()
+    errs = {"mass": float(((g[:, 3] - w[:, 3]).abs() / w[:, 3]).max()),
+            "com": float(((g[:, :3] - w[:, :3]).abs() / (
+                PYRAMID_RTOL * w[:, :3].abs() + floor)).max()),
+            "quad": 0.0}
+    if got.shape[1] == 12:
+        tree = bh._live_tree(pos_s, mass_s, n_live, leaf_size=leaf_size,
+                             multipole=2, max_levels=max_levels)
+        scale = _node_scale(pos_s, mass_s, tree, leaf_size,
+                            got.shape[0])[~empty] + w[:, 3] * floor ** 2
+        errs["quad"] = float(((g[:, 4:10] - w[:, 4:10]).abs().amax(1) /
+                              scale).max())
+    if errs["mass"] > PYRAMID_RTOL or errs["com"] > 1 or \
+            errs["quad"] > QUAD_TOL:
+        raise AssertionError(f"{name}: mass {errs['mass']:.3e}, centre "
+                             f"{errs['com']:.3f} of its tolerance, "
+                             f"quadrupole {errs['quad']:.3e} of its scale")
+    return errs
 
 
 def rows_close(name, got, want, rtol, atol):

@@ -30,6 +30,7 @@ from parallelnbody_tpu_torch import Simulation, SimConfig
 from parallelnbody_tpu_torch.api import init_simulation
 from parallelnbody_tpu_torch.kernels import launch
 from parallelnbody_tpu_torch.ops import bh, bh_kernels, direct_kernels
+from parallelnbody_tpu_torch.tools import measure
 from parallelnbody_tpu_torch.utils.accuracy import rms_force_error_sample
 
 torch.set_num_threads(2)
@@ -970,6 +971,94 @@ def test_sections_bitwise_on_the_card(cuda, far_mode):
     assert all(torch.equal(a, b) for a, b in zip(e2, e4))
     for a, b in zip(e1, e4):
         _close(a, b)
+
+
+def _sorted_rows(cfg, leaf, drift, device):
+    """cfg's bodies in Hilbert order, drifted by drift x velocity after the
+    sort (as positions move between rebuilds), padded to the plan's rows
+    with zero-mass pads at the origin, as the rebuild-interval runs carry
+    them."""
+    state = init_simulation(cfg, "cpu", compute_forces=False)
+    n = cfg.n
+    _, n_pad, _ = bh.plan_tree(n, leaf)
+    perm, _ = bh._curve_order(state.pos, "hilbert")
+    pos = state.pos[perm] + drift * state.vel[perm]
+    pos_s = torch.cat([pos, pos.new_zeros((n_pad - n, 3))])
+    mass_s = torch.cat([state.mass[perm], state.mass.new_zeros(n_pad - n)])
+    return pos_s.contiguous().to(device), mass_s.to(device)
+
+
+@pytest.mark.parametrize("case", [
+    *[("plummer", leaf, mp, 12, 0.0) for leaf in (16, 32, 64, 128, 256)
+      for mp in (1, 2)],
+    ("galaxy_collision", 64, 2, 12, 0.0),
+    ("plummer", 32, 2, 3, 0.0),
+    ("plummer", 128, 2, 12, 0.05),
+], ids=lambda c: f"{c[0]}-leaf{c[1]}-mp{c[2]}-levels{c[3]}-drift{c[4]}")
+def test_pyramid_kernel_matches_plain(cuda, case):
+    """The refresh's pass on the card against the plain refresh packed as
+    K2 reads it, with pads (n_live < n_pad) and the empty leaves they fill,
+    at leaf 16 to 256, monopole and quadrupole, a clustered IC, a capped
+    level count and positions after a drift: empty and pad rows the same
+    bits, empty leaves centred on the plain sentinel, the other rows within
+    the tolerances of tools/measure.pyramid_close (mass and centre f32
+    rounding, the quadrupole 1e-5 of the node's sum m |d|^2, the scale its
+    terms round on); three launches; a second call the same bits."""
+    ic, leaf, multipole, max_levels, drift = case
+    cfg = SimConfig(n=20000, ic=ic, seed=13)
+    pos_s, mass_s = _sorted_rows(cfg, leaf, drift, cuda)
+    n = cfg.n
+    kw = dict(leaf_size=leaf, multipole=multipole, max_levels=max_levels,
+              n_live=n)
+    before = bh_kernels.REFRESH_LAUNCHES["refresh"]
+    got = bh._refresh_nodes8(pos_s, mass_s, **kw)
+    assert bh_kernels.REFRESH_LAUNCHES["refresh"] == before + 3
+    again = bh._refresh_nodes8(pos_s, mass_s, **kw)
+    want = bh.refresh_plain(pos_s, mass_s, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert got.shape == want.shape == (
+        bh._pyramid_plan(pos_s.shape[0] // leaf, max_levels)[2],
+        12 if multipole == 2 else 4)
+    n_leaves = pos_s.shape[0] // leaf
+    empty = want[:n_leaves, 3] == 0
+    assert int(empty.sum()) >= (pos_s.shape[0] - n) // leaf > 0
+    _, _, sentinel = bh._cube_of(pos_s[:n])
+    assert torch.equal(got[:n_leaves][empty, :3],
+                       sentinel.expand(int(empty.sum()), 3))
+    measure.pyramid_close(f"pyramid {case}", got, want, pos_s, mass_s,
+                          leaf_size=leaf, max_levels=max_levels, n_live=n)
+    if multipole == 2:
+        assert not bool(got[:, 10:].any())
+
+
+@pytest.mark.parametrize("multipole", [1, 2])
+def test_eval_lists_through_the_pyramid_kernel(cuda, monkeypatch, multipole):
+    """bh_eval_lists with the refresh on the card against the same lists
+    evaluated through the plain refresh: the forces within the kernels'
+    tolerance."""
+    cfg = SimConfig(n=30000, ic="plummer", seed=9)
+    state = init_simulation(cfg, cuda, compute_forces=False)
+    pos_s, mass_s, _, tree, n, n_pad = bh._prepare(
+        state.pos, state.mass, leaf_size=LEAF, curve="hilbert",
+        multipole_order=multipole)
+    n_leaves = n_pad // LEAF
+    plan = bh.bh_plan_lists(tree, theta=0.6, near_budget=n_leaves,
+                            far_budget=n_leaves, refine="dense",
+                            cand_budgets=(0, 0), dtype=torch.float32,
+                            leaf_size=LEAF)
+    assert int(plan.overflow) == 0 and n < n_pad
+    ekw = dict(leaf_size=LEAF, g=1.0, softening=0.02, multipole=multipole,
+               max_levels=12, compute_pot=True, n_live=n)
+    before = bh_kernels.REFRESH_LAUNCHES["refresh"]
+    got = bh.bh_eval_lists(pos_s, mass_s, plan, **ekw)
+    torch.cuda.synchronize()
+    assert bh_kernels.REFRESH_LAUNCHES["refresh"] == before + 3
+    monkeypatch.setattr(bh, "_refresh_nodes8", bh.refresh_plain)
+    want = bh.bh_eval_lists(pos_s, mass_s, plan, **ekw)
+    assert bh_kernels.REFRESH_LAUNCHES["refresh"] == before + 3
+    _close(got[0], want[0])
+    _close(got[1], want[1])
 
 
 @pytest.mark.parametrize("case", ["staged", "staged_gather",
