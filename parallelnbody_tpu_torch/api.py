@@ -324,7 +324,9 @@ def _make_run_reuse(cfg: SimConfig, n_steps: int, report_overflow: bool,
     carried original-index column. The block size follows `device`'s
     plan/eval ratio (_REUSE_PLAN_RATIO). A block whose lists clip a budget
     that calibration chose builds them again at grown budgets, kept for
-    the later blocks (ops/bh.py ListHeal; heal as make_step's)."""
+    the later blocks (ops/bh.py ListHeal; heal as make_step's). On the
+    card each block's geometry up to its host read is one CUDA graph,
+    kept by the run (ops/bh.py BlockGraph)."""
     from parallelnbody_tpu_torch.ops import bh
 
     integrator = get_integrator(cfg.integrator)
@@ -333,6 +335,7 @@ def _make_run_reuse(cfg: SimConfig, n_steps: int, report_overflow: bool,
     k = _reuse_block_size(cfg.bh_rebuild_every, n_steps, _plan_ratio(device))
     n_blocks, tail = divmod(n_steps, k)
     heal = heal or _list_heal(cfg)
+    graph = bh.BlockGraph() if torch.device(device).type == "cuda" else None
 
     def block(carry, dt_mask):
         """One rebuild block: sort, tree, lists, then len(dt_mask) steps.
@@ -340,7 +343,7 @@ def _make_run_reuse(cfg: SimConfig, n_steps: int, report_overflow: bool,
         exact no-op for pos/vel/time/step."""
         pos, vel, acc, mass, orig, time, step, of = carry
         (ps, vs, as_, mass_s, orig_s), plan, accel_fn = bh.rebuild_block(
-            pos, vel, acc, mass, orig, setup, n, heal)
+            pos, vel, acc, mass, orig, setup, n, heal, graph)
         dt = torch.as_tensor(cfg.dt, dtype=pos.dtype, device=pos.device)
         # pot is a placeholder until the first inner step overwrites it:
         # every integrator returns pot from its final accel_fn call.

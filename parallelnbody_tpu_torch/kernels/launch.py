@@ -32,6 +32,9 @@ COUNTERS = {
                           # evaluated once for both leaves (near_pairs)
     "bh.heals": 0,        # list rebuilds after a calibrated budget clipped
                           # (ops/bh.py ListHeal)
+    "bh.pot_evals": 0,    # Barnes-Hut force evaluations whose K1 and far
+                          # field calls carried the potential (ops/bh.py,
+                          # from ops/bh_kernels.POT_CALLS)
 }
 DEVICE_COUNTERS = {
     "far.terms": 0,       # K2's / K4's node x target terms (0-d tensor)

@@ -34,11 +34,14 @@ bh_eval_lists evaluates at each step, or a rank of parallel/ builds its own
 window.
 
 Each phase of a force evaluation is a span (utils/profiling.span):
-`bh.sort` (keys, sort, gather), `bh.tree`, `bh.traverse`, `bh.lists` (the
-lists with K1's work items, and in a plan K2's launch order),
-`bh.refresh` (a frozen-list evaluation's pyramid: refresh_plain on the
-CPU, one pass of csrc/pyramid.cu on the card), `bh.unsort`; the kernel
-wrappers' `bh.near` and `bh.far` (ops/bh_kernels.py).
+`bh.sort` (keys, sort, gather) around `bh.keys` (the curve encode),
+`bh.tree`, `bh.traverse`, `bh.lists` (the lists with K1's work items, and
+in a plan K2's launch order), `bh.refresh` (a frozen-list evaluation's
+pyramid: refresh_plain on the CPU, one pass of csrc/pyramid.cu on the
+card), `bh.unsort`; the kernel wrappers' `bh.near` and `bh.far`
+(ops/bh_kernels.py). Each evaluation whose K1 and far field calls carried
+the potential (bh_kernels.POT_CALLS) counts one in
+COUNTERS["bh.pot_evals"] (kernels/launch.py).
 
 Integer outputs (keys, sort order, masks, lists, overflow) equal the JAX
 package's on the same inputs; `INT32_MAX` stays the empty-entry sentinel.
@@ -63,7 +66,7 @@ from parallelnbody_tpu_torch.kernels.launch import (COUNTERS, host_read,
 from parallelnbody_tpu_torch.ops import bh_kernels
 from parallelnbody_tpu_torch.ops.hilbert import hilbert_encode
 from parallelnbody_tpu_torch.ops.morton import morton_encode
-from parallelnbody_tpu_torch.utils.profiling import span
+from parallelnbody_tpu_torch.utils.profiling import is_tracing, span
 
 INT32_MAX = 2**31 - 1
 
@@ -260,7 +263,9 @@ def traverse(tree: BHTree, theta: float, *, start_leaf=0, n_slice=None,
         mac = _group_mac(tgt_com, tgt_r, tree.com[k], tree.radius[k], theta)
         far_masks[k] = active & mac
         branch = tree.com[k - 1].shape[0] // tree.com[k].shape[0]
-        active = (active & ~mac).repeat_interleave(branch, dim=1)
+        rejected = active & ~mac
+        active = rejected[:, :, None].expand(*rejected.shape, branch) \
+            .reshape(n_slice, -1)
     mac_s = _group_mac(tgt_com, tgt_r, tree.com[stop_level],
                        tree.radius[stop_level], theta)
     far_masks[stop_level] = active & mac_s
@@ -773,10 +778,10 @@ def list_needs(need) -> dict:
     return dict(zip(kinds, read(maxima)))
 
 
-def _full_widths(tree: BHTree) -> dict:
-    """A budget of each kind at which no list of `tree` clips: the
-    list functions clamp each to its list's width."""
-    widths = [c.shape[0] for c in tree.com]
+def _full_widths(widths) -> dict:
+    """A budget of each kind at which no list of a tree whose levels hold
+    `widths` nodes clips: the list functions clamp each to its list's
+    width."""
     return {"near": widths[0], "far": sum(widths), "cand1": widths[1],
             "cand2": widths[2] if len(widths) > 2 else widths[1]}
 
@@ -1011,7 +1016,8 @@ def _curve_order(pos, curve, live=None, n_pad=None):
     as the JAX package's (key, iota) sort does."""
     center, half, sentinel = _cube_of(pos, live)
     encode = hilbert_encode if curve == "hilbert" else morton_encode
-    keys = encode(pos, center, half)
+    with span("bh.keys"):
+        keys = encode(pos, center, half)
     if live is not None:
         keys = torch.where(live, keys, torch.full_like(keys, INT32_MAX))
     if n_pad is not None and n_pad > pos.shape[0]:
@@ -1153,12 +1159,21 @@ def _window_forces(pos_s, mass_s, tgt, near_idx, near_valid, far, setup, *,
     return acc + a, pot + ph
 
 
-def _healed(build, budgets, tree, heal):
+def _count_pot_eval(before):
+    """Count one force evaluation of the pipeline (bh_accel's or a
+    frozen-list one) in COUNTERS["bh.pot_evals"] where its K1 and its far
+    field calls carried the potential: both of bh_kernels.POT_CALLS grew
+    since `before`, their copy taken as the evaluation began."""
+    if all(bh_kernels.POT_CALLS[k] > v for k, v in before.items()):
+        COUNTERS["bh.pot_evals"] += 1
+
+
+def _healed(build, budgets, widths, heal):
     """build(budgets, need)'s lists, through the caller's ListHeal where
-    there is one (ListHeal.build)."""
+    there is one (ListHeal.build), for a tree of level `widths`."""
     if heal is None:
         return build(budgets, {})[0]
-    return heal.build(build, budgets, _full_widths(tree))
+    return heal.build(build, budgets, _full_widths(widths))
 
 
 def _forces_sorted(pos_s, mass_s, tree, far_masks, rejects, setup, *,
@@ -1185,7 +1200,8 @@ def _forces_sorted(pos_s, mass_s, tree, far_masks, rejects, setup, *,
                                         sources=(n_leaves, leaf))
             return (ni, nv, far, of, work), _clip_count(work, of)
 
-    ni, nv, far, of, work = _healed(build, setup.budgets(), tree, heal)
+    ni, nv, far, of, work = _healed(
+        build, setup.budgets(), [c.shape[0] for c in tree.com], heal)
     acc, pot = _window_forces(pos_s, mass_s, tgt, ni, nv, far, setup,
                               work=work)
     return acc, pot, of
@@ -1235,6 +1251,7 @@ def _accel(pos, mass, setup, heal=None):
         pos, mass, leaf_size=setup.leaf, curve=setup.curve,
         multipole_order=setup.multipole, max_levels=setup.max_levels)
     accs, pots, ovfs = [], [], []
+    pot_calls = dict(bh_kernels.POT_CALLS)
     for start, w in setup.windows():
         with span("bh.traverse"):
             far_masks, rejects = traverse(tree, setup.theta, start_leaf=start,
@@ -1246,6 +1263,7 @@ def _accel(pos, mass, setup, heal=None):
         accs.append(acc)
         pots.append(pot)
         ovfs.append(of)
+    _count_pot_eval(pot_calls)
     acc, pot = _join(accs), _join(pots)
     overflow = torch.sum(torch.stack(ovfs), dtype=torch.int64)
     acc, pot = _unsort(acc, pot, perm, n)
@@ -1383,7 +1401,8 @@ def _plan(tree, setup, heal=None) -> BHListPlan:
         return BHListPlan(_join(ni), _join(nv), _join(fk), _join(fv),
                           overflow, tuple(works), tuple(orders)), clipped
 
-    return _healed(build, setup.budgets(), tree, heal)
+    return _healed(build, setup.budgets(),
+                   [c.shape[0] for c in tree.com], heal)
 
 
 def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
@@ -1412,6 +1431,7 @@ def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
                              n_live=n_live)
     tgt = pos_s.reshape(n_leaves, leaf_size, 3)
     accs, pots = [], []
+    pot_calls = dict(bh_kernels.POT_CALLS)
     for i, (start, w) in enumerate(windows):
         rows = slice(start, start + w)
         acc, pot = _window_forces(
@@ -1422,10 +1442,12 @@ def bh_eval_lists(pos_s, mass_s, plan: BHListPlan, *, leaf_size, g,
             order=None if plan.far_order is None else plan.far_order[i])
         accs.append(acc)
         pots.append(pot)
+    _count_pot_eval(pot_calls)
     return _join(accs), _join(pots)
 
 
-def rebuild_block(pos, vel, acc, mass, orig, setup, n_live, heal=None):
+def rebuild_block(pos, vel, acc, mass, orig, setup, n_live, heal=None,
+                  graph=None):
     """One rebuild block's geometry (the rebuild-interval runs,
     bh_rebuild_every): its rows re-sorted into their current curve order,
     pads (orig >= n_live, orig each row's original index) left out of the
@@ -1433,16 +1455,19 @@ def rebuild_block(pos, vel, acc, mass, orig, setup, n_live, heal=None):
     lists (_plan, with the caller's heal). Returns ((pos_s, vel_s, acc_s,
     mass_s, orig_s), plan, accel_fn), accel_fn(pos_s) -> (acc, pot) the
     lists evaluated at the block's current sorted positions through
-    bh_eval_lists (looked up at each call)."""
-    with span("bh.sort"):
-        perm, _ = _curve_order(pos, setup.curve, live=orig < n_live)
-        rows = tuple(c[perm] for c in (pos, vel, acc, mass, orig))
-    pos_s, mass_s = rows[0], rows[3]
-    with span("bh.tree"):
-        tree = _live_tree(pos_s, mass_s, n_live, leaf_size=setup.leaf,
-                          multipole=setup.multipole,
-                          max_levels=setup.max_levels)
-    plan = _plan(tree, setup, heal)
+    bh_eval_lists (looked up at each call).
+
+    graph: the run's BlockGraph, on the card, where the lists are one
+    target window: the device work before the plan's host read is then
+    its replay (_graphed_block). While tracing is on the block runs its
+    ops one by one, so that each phase keeps its span."""
+    cols = (pos, vel, acc, mass, orig)
+    if graph is None or len(setup.windows()) > 1 or is_tracing():
+        rows, tree = _sorted_block(cols, setup, n_live)
+        plan = _plan(tree, setup, heal)
+    else:
+        rows, plan = _graphed_block(cols, setup, n_live, heal, graph)
+    mass_s = rows[3]
 
     def accel_fn(p):
         with span("force"):
@@ -1453,6 +1478,119 @@ def rebuild_block(pos, vel, acc, mass, orig, setup, n_live, heal=None):
                 n_live=n_live, sections=setup.sections)
 
     return rows, plan, accel_fn
+
+
+def _sorted_block(cols, setup, n_live):
+    """(rows, tree): a rebuild block's columns (pos, vel, acc, mass, orig)
+    re-sorted into their current curve order, the pads (orig >= n_live)
+    keyed last, and the pyramid of the live rows."""
+    with span("bh.sort"):
+        perm, _ = _curve_order(cols[0], setup.curve, live=cols[4] < n_live)
+        rows = tuple(c[perm] for c in cols)
+    with span("bh.tree"):
+        tree = _live_tree(rows[0], rows[3], n_live, leaf_size=setup.leaf,
+                          multipole=setup.multipole,
+                          max_levels=setup.max_levels)
+    return rows, tree
+
+
+def _graphed_block(cols, setup, n_live, heal, graph):
+    """rebuild_block's (rows, plan) for lists of one target window: the
+    sort, the pyramid, the traversal and the lists through `graph`
+    (BlockGraph.run, keyed by the budgets), then K1's work items, whose
+    sizes are the plan's one host read, and K2's launch order. The same
+    ops as _sorted_block and _plan, in the same order: the same bits."""
+    setup = dataclasses.replace(setup, far_mode="octet")
+    n_leaves, leaf = setup.n_leaves, setup.leaf
+
+    def geometry(budgets, cols):
+        rows, tree = _sorted_block(cols, setup, n_live)
+        far_masks, rejects = traverse(tree, setup.theta,
+                                      stop_level=setup.stop)
+        need = {}
+        ni, nv, (fk, fv, _), of = _window_lists(
+            tree, far_masks, rejects, setup, 0, n_leaves, budgets, need)
+        return rows, (ni, nv, fk, fv, of), need
+
+    def build(budgets, need):
+        rows, (ni, nv, fk, fv, of), got = graph.run(
+            functools.partial(geometry, budgets), cols,
+            tuple(sorted(budgets.items())))
+        for kind, counts in got.items():
+            need.setdefault(kind, []).extend(counts)
+        work = bh_kernels.near_work(nv, ni, overflow=of,
+                                    sources=(n_leaves, leaf))
+        plan = BHListPlan(ni, nv, fk, fv, of, (work,),
+                          (bh_kernels.far_order(fv),))
+        return (rows, plan), _clip_count(work, of)
+
+    return _healed(build, setup.budgets(),
+                   _level_widths(n_leaves, setup.max_levels), heal)
+
+
+class BlockGraph:
+    """A rebuild-interval run's block geometry on the card as one CUDA
+    graph (torch.cuda.CUDAGraph).
+
+    Before its one host read a rebuild block makes some 700 small PyTorch
+    ops at 1M bodies (the curve sort, the pyramid, the traversal, the
+    staged lists in row blocks), each a host dispatch. Launched one by one
+    they leave the card waiting on the host, and the call's time follows
+    the host's pace. `run` launches them as one graph: the run's first
+    build runs its ops (their kernels load), the next captures them, and
+    each later one at the same budgets copies its input columns into the
+    graph's own and replays. A build at other budgets (a heal, ListHeal)
+    captures anew at once, in the dropped graph's memory pool, so that a
+    heal early in a run leaves no capture for later. The outputs live in the graph's memory
+    until its next replay, which the run's next block makes after the last
+    use of this block's. A replay runs the same kernels on the same inputs
+    as the ops: the same bits."""
+
+    def __init__(self):
+        self.key = self.graph = self.cols = self.out = None
+        self.ran = False
+
+    def run(self, fn, cols, key):
+        """fn(cols) for the budgets `key`: run, captured or replayed."""
+        if key == self.key:
+            for mine, col in zip(self.cols, cols):
+                mine.copy_(col)
+            self.graph.replay()
+            return self.out
+        if not self.ran:
+            self.ran = True
+            return fn(cols)
+        pool = None if self.graph is None else self.graph.pool()
+        self.key = self.cols = self.out = None
+        mine = tuple(c.clone() for c in cols)
+        graph, out = _captured(fn, mine, pool)
+        graph.replay()
+        self.key, self.graph, self.cols, self.out = key, graph, mine, out
+        return out
+
+
+def _captured(fn, cols, pool=None):
+    """(graph, fn(cols)'s outputs): fn's ops captured on a side stream that
+    follows the current one, not run; in the memory pool of the graph it
+    replaces where `pool` is that graph's (CUDAGraph.pool()), which is
+    never replayed again, so that a heal's capture takes the memory the
+    dropped graph held. Captured through torch.cuda.graph
+    (which synchronizes, empties the allocator's cache and captures on a
+    stream of its own), the run of the benchmark's bh1m.rebuild8 took a
+    new 4.1e9 B segment at every later call (5.8e9 B reserved after its
+    second call, 18.2e9 after its fifth); captured here it held 7.1e9
+    from its second call on (NVIDIA H100 80GB HBM3, 700.00 W)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(pool=pool)
+        try:
+            out = fn(cols)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    return graph, out
 
 
 def leaf_aabbs(pos, mass, *, leaf_size=256, curve="hilbert"):

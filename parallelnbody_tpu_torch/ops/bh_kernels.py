@@ -70,6 +70,11 @@ PAIR_LAUNCHES = {"near_pairs": 0}
 # Launches of the pyramid refresh on the card (csrc/pyramid.cu), three C
 # calls a refresh, none on the CPU.
 REFRESH_LAUNCHES = {"refresh": 0}
+# Calls of K1 ("near": any of its forms) and of K2 / K4 ("far") that carried
+# the potential: the COMPUTE_POT form of the kernel on the card, the plain
+# version's potential on the CPU. ops/bh.py counts an evaluation in
+# COUNTERS["bh.pot_evals"] where both grew.
+POT_CALLS = {"near": 0, "far": 0}
 
 # K1 work-item length: a near-list row is cut into items of at most this
 # many source leaves, one block each (csrc/near_field.cu; chosen on the card,
@@ -142,7 +147,7 @@ class NearWork:
 
 
 def reset_launch_counts():
-    for counts in (LAUNCHES, PAIR_LAUNCHES, REFRESH_LAUNCHES):
+    for counts in (LAUNCHES, PAIR_LAUNCHES, REFRESH_LAUNCHES, POT_CALLS):
         for name in counts:
             counts[name] = 0
 
@@ -785,6 +790,7 @@ def near_field(pos_s, mass_s, tgt_leaves, idx, valid, *, g, softening,
     only there, without out=. It counts "k1.sym_terms" (mutual entries x
     G^2) beside "k1.pair_terms"."""
     with span("bh.near"):
+        POT_CALLS["near"] += bool(compute_pot)
         if src_table is not None:
             if pos_s is not None or mass_s is not None or \
                     leaf_lo is not None:
@@ -908,6 +914,7 @@ def far_octet(tgt_leaves, nodes8, keys, valid, *, g, softening,
     table packed by `far_rows` (a packed table as it is), target leaves in
     the launch order `order` (`far_order(valid)`, built here when None)."""
     with span("bh.far"):
+        POT_CALLS["far"] += bool(compute_pot)
         if is_tracing():
             count_on_device("far.terms", _octet_terms(keys, valid) *
                             tgt_leaves.shape[1])
@@ -958,6 +965,7 @@ def far_gather(tgt_leaves, table, idx, valid, *, g, softening,
     table packed by `far_rows`, target leaves in the launch order `order`
     (`heaviest_first` of the valid counts, built here when None)."""
     with span("bh.far"):
+        POT_CALLS["far"] += bool(compute_pot)
         if is_tracing():
             count_on_device("far.terms", valid.sum(dtype=torch.int64) *
                             tgt_leaves.shape[1])

@@ -12,7 +12,9 @@ runs step(1) and step(16) (two rebuild blocks of 8 at the configs'
 interval), each phase after a reset of the peak counter. It prints one JSON
 line per run: the card's name and power limit, the resolved sections, the
 peak `torch.cuda.max_memory_allocated` of each phase and its wall time
-(synchronised), the overflow count, and the calibrated budgets. `--out`
+(synchronised), the peak reserved by step(16) (`max_memory_reserved`:
+the caching allocator's pools, the rebuild block's CUDA graph among
+them), the overflow count, and the calibrated budgets. `--out`
 appends the lines to FILE as well.
 """
 
@@ -61,6 +63,7 @@ def measure(path, sections):
     for k in (1, 16):
         _, rec[f"step{k}_gib"], rec[f"step{k}_s"] = peak_phase(
             lambda: sim.step(k))
+    rec["step16_reserved_gib"] = torch.cuda.max_memory_reserved() / GIB
     rec["overflow"] = int(sim.overflow)
     rec["budgets"] = {f: getattr(sim.cfg, f) for f in (
         "bh_near_budget", "bh_far_budget", "bh_cand2_budget",

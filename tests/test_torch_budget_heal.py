@@ -200,7 +200,7 @@ def test_heal_falls_back_to_full_width(prepared, monkeypatch):
     heal.grown = {"near": 4, "far": 4}
     before = COUNTERS["bh.heals"]
     plan = bh.bh_plan_lists(tree, heal=heal, **kw)
-    full = bh._full_widths(tree)
+    full = bh._full_widths([c.shape[0] for c in tree.com])
     assert int(plan.overflow) == 0 and COUNTERS["bh.heals"] - before == 1
     for k, need in needs.items():
         assert heal.grown[k] == min(2 * bh.pad_budget(need, 8), full[k])

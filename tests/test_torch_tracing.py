@@ -103,10 +103,12 @@ def test_span_tree_of_a_barnes_hut_step(prepared, refine):
     cfg, state = prepared[refine]
     out, spans, grew = traced(api.make_step(cfg), state)
     tree = parents(spans)
-    assert set(tree) == BH_SPANS | {"api.step", "integrator", "force"}
+    assert set(tree) == BH_SPANS | {"api.step", "integrator", "force",
+                                    "bh.keys"}
     assert tree["api.step"] == {None}
     assert tree["integrator"] == {"api.step"}
     assert tree["force"] == {"integrator"}
+    assert tree["bh.keys"] == {"bh.sort"}
     for name in BH_SPANS:
         assert tree[name] == {"force"}, name
     assert len({s.call for s in spans}) == 1
@@ -115,6 +117,7 @@ def test_span_tree_of_a_barnes_hut_step(prepared, refine):
     assert grew["k1.pair_terms"] == entries * leaf * leaf > 0
     assert grew["far.terms"] == children * leaf > 0
     assert grew["host_reads"] == 0 and grew["k3.pairs"] == 0
+    assert grew["bh.pot_evals"] == 1
 
 
 def test_span_tree_of_a_rebuild_run(prepared):
@@ -125,6 +128,7 @@ def test_span_tree_of_a_rebuild_run(prepared):
     assert tree == {
         "api.run": {None}, "api.block": {"api.run"},
         "bh.unsort": {"api.run"}, "bh.sort": {"api.block"},
+        "bh.keys": {"bh.sort"},
         "bh.tree": {"api.block"}, "bh.traverse": {"api.block"},
         "bh.lists": {"api.block"}, "integrator": {"api.block"},
         "force": {"integrator"}, "bh.refresh": {"force"},
@@ -136,6 +140,7 @@ def test_span_tree_of_a_rebuild_run(prepared):
     entries, _, leaf = plan_counts(cfg, state.pos, state.mass)
     assert grew["k1.pair_terms"] == 2 * entries * leaf * leaf
     assert grew["host_reads"] == 0
+    assert grew["bh.pot_evals"] == 2
 
 
 def test_calls_get_their_own_ids(prepared):
